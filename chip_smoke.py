@@ -1,0 +1,304 @@
+#!/usr/bin/env python3
+"""Smoke check of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. needs CUDA; prints the card's name and power limit;
+2. builds every CUDA source of ``src/repro_torch`` (``nvcc``, sm_90a);
+3. holds the direct-conv kernel (K1's port) against its plain PyTorch version
+   on the card, at every conv shape the served plan hands it plus a strided,
+   a depthwise and a strided-view case, in float32 (TF32 off) and bfloat16,
+   timing the kernel, the plain version and ``F.conv2d`` (a yardstick the
+   port never calls) beside the least time the card could take;
+4. serves full-width VGG-16 (224x224, width 1.0, 1000 classes, seeded random
+   weights) through ``plan_halp(overlap_rows=4)`` and the port's
+   ``BatchingEngine``, counts the kernel's launches in that run, and checks
+   the logits: finite, lossless against the single-device forward through
+   the same kernel, and equal within float32 summation-order error to the
+   single-device forward through the plain conv on the CPU; then times
+   steady-state forwards of one batch and profiles one for the device's busy
+   time by kernel.
+
+The last two lines of standard output are ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``; the per-shape table is also written to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet, dense: float32 on the CUDA cores, bf16 on the
+# tensor cores, HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+N_REQUESTS = 16
+MAX_BATCH = 4
+# |kernel - plain| <= TOL * (1 + |plain|) per element: the _tol values of
+# tests/test_kernels.py.  float32: the two sum the same products in another
+# order; bfloat16: both round one float32 sum, which may land one bf16 step
+# apart (2^-8 relative).
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# logits through the kernel vs the plain conv on the CPU, relative to the
+# largest |logit|: float32 summation order compounds over 13 convs (K up to
+# 4608) and 3 dense layers (K up to 25088).
+DEPTH_RTOL = 1e-4
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def conv_shapes(plan, batch: int) -> Counter:
+    """(N, H, W, Cin, Cout) of every conv call one served forward makes:
+    each non-empty slot of each conv layer gets its receptive-field rows plus
+    the zero padding, and runs the kernel VALID."""
+    net = plan.net
+    sizes = net.sizes()
+    shapes: Counter = Counter()
+    for i, g in enumerate(net.layers):
+        if g.kind != "conv":
+            continue
+        for es in plan.es_names:
+            seg = plan.parts[i].out[es]
+            if seg:
+                rows = (seg.hi - seg.lo) * g.s + g.k  # raw input range, padding included
+                shapes[(batch, rows, sizes[i] + 2 * g.p, g.c_in, g.c_out)] += 1
+    return shapes
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, float]:
+    """(ms the operations need at the peak rate of ``dtype``, ms the bytes
+    need at the HBM rate); the bound is the larger."""
+    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check runs on the card only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.core import plan_halp
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import vgg
+    from repro_torch.models.common import tree_map
+    from repro_torch.spatial import run_plan
+
+    # every float32 reference below runs in full float32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. the card ---------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"device: {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(smi)
+
+    # -- 2. build ------------------------------------------------------------
+    build_s = _build.build_all()
+    print(f"build: {sorted(_build.sources())} in {build_s:.1f} s")
+    for name, log in _build.build_logs().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # -- 3. the kernel against its plain version, on the card -----------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plan = plan_halp(vgg.FULL.geom(), overlap_rows=4)
+    path_shapes = conv_shapes(plan, MAX_BATCH)
+    cases = [dict(shape=s, per_forward=c, stride=1, pad=0, groups=1, view=False)
+             for s, c in sorted(path_shapes.items())]
+    cases += [
+        dict(shape=(MAX_BATCH, 56, 56, 128, 256), per_forward=0, stride=2, pad=1, groups=1, view=False),
+        dict(shape=(MAX_BATCH, 56, 56, 256, 256), per_forward=0, stride=1, pad=1, groups=256, view=False),
+        dict(shape=(MAX_BATCH, 30, 58, 64, 128), per_forward=0, stride=1, pad=0, groups=1, view=True),
+    ]
+    rows = []
+    for case in cases:
+        n, h, w, cin, cout = case["shape"]
+        s, p, groups = case["stride"], case["pad"], case["groups"]
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).removeprefix("torch.")
+            if case["view"]:  # a row slice of a taller batch: batch stride != H*W*C
+                x = torch.randn((n, h + 8, w, cin), generator=gen, device="cuda").to(dt)[:, 4:4 + h]
+                check(not x.is_contiguous(), "the view case must not be contiguous")
+            else:
+                x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
+            w_cin = 1 if groups > 1 else cin
+            wt = (math.sqrt(2.0 / (9 * w_cin))
+                  * torch.randn((3, 3, w_cin, cout), generator=gen, device="cuda")).to(dt)
+            b = (0.1 * torch.randn((cout,), generator=gen, device="cuda")).to(dt)
+            kw = dict(stride=s, padding=p, groups=groups)
+            got = conv2d_cuda(x, wt, b, **kw)
+            want = conv2d_ref(x, wt, b, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all())
+            check(torch.isfinite(got.float()).all().item(), f"non-finite kernel output at {case}")
+            xn = x.permute(0, 3, 1, 2)  # NHWC memory seen as NCHW (channels_last), a view
+            wn = wt.permute(3, 2, 0, 1)  # HWIO -> OIHW, a view
+            t_kernel = time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw))
+            t_plain = time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw))
+            t_lib = time_ms(torch, lambda: F.conv2d(xn, wn, b, stride=s, padding=p, groups=groups))
+            ho, wo = got.shape[1], got.shape[2]
+            flops = 2.0 * 9 * w_cin * cout * n * ho * wo
+            nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * x.element_size()
+            ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+            t_bound = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
+            row = dict(shape=[n, h, w, cin, cout], stride=s, pad=p, groups=groups,
+                       view=case["view"], dtype=dname, per_forward=case["per_forward"],
+                       max_abs_err=err, within_tol=ok, ms=t_kernel, plain_ms=t_plain,
+                       library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                       bound_by=by, tflops=flops / t_kernel / 1e9)
+            rows.append(row)
+            print(f"conv {dname:8s} x{[n, h, w, cin]} -> {cout} s{s} p{p} g{groups}"
+                  f"{' view' if case['view'] else ''} x{case['per_forward']}/fwd: "
+                  f"max_err {err:.3g} kernel {t_kernel:.4f} ms ({row['tflops']:.1f} TFLOP/s) "
+                  f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
+            check(ok, f"kernel disagrees with its plain version: {row}")
+
+    # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
+    conv2d_cuda.launches = 0
+    out = serve(vgg.FULL, n_requests=N_REQUESTS, max_batch=MAX_BATCH, device="cuda", seed=0)
+    launches = conv2d_cuda.launches
+    n_batches = -(-N_REQUESTS // MAX_BATCH)
+    per_forward = sum(path_shapes.values())
+    stats = out["stats"]
+    print(f"served {stats['completed']} requests in {n_batches} batches of {MAX_BATCH}: "
+          f"p50 {stats['p50_latency_s'] * 1e3:.3f} ms p99 {stats['p99_latency_s'] * 1e3:.3f} ms "
+          f"{out['requests_per_s']:.3f} req/s (wall {out['wall_s']:.3f} s); "
+          f"conv2d launches {launches} (plan: {per_forward} per forward)")
+    reqs = out["requests"]
+    first = min(r.arrival for r in reqs) - out["start_s"]
+    batch_done = sorted({round((r.done - out["start_s"]) * 1e3, 3) for r in reqs})
+    print(f"  first submission at +{first * 1e3:.3f} ms; batches done at +{batch_done} ms "
+          f"(from the start of the serving clock)")
+    check(stats["completed"] == N_REQUESTS, "not every request completed")
+    check(per_forward == 39, f"plan_halp gives {per_forward} conv segments per forward, expected 39")
+    check(launches >= per_forward * n_batches, f"{launches} launches < {per_forward} x {n_batches}")
+
+    logits = out["logits"]
+    check(tuple(logits.shape) == (N_REQUESTS, vgg.FULL.num_classes), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    params, images = out["params"], out["images"][:MAX_BATCH]
+    single = vgg.apply(params, vgg.FULL, images)  # one device, same kernel
+    lossless_err = (logits[:MAX_BATCH] - single).abs().max().item()
+    print(f"run_plan vs single-device apply (both through the kernel): max |diff| {lossless_err:.3g}")
+    check(torch.allclose(logits[:MAX_BATCH], single, rtol=2e-5, atol=2e-5), "HALP plan is not lossless")
+    plain = vgg.apply(tree_map(lambda t: t.cpu(), params), vgg.FULL, images.cpu())  # plain conv
+    depth_err = (logits[:MAX_BATCH].cpu() - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    print(f"run_plan vs plain-conv apply on the CPU: max |diff| {depth_err:.3g} "
+          f"(max |logit| {scale:.3g}, limit {DEPTH_RTOL} x that)")
+    check(depth_err <= DEPTH_RTOL * scale, "kernel drifts from the plain conv at depth")
+
+    # -- where the time goes: steady-state forwards of one batch, then one
+    # forward under the profiler for the device's busy time by kernel -------
+    def forward(batch):
+        return vgg.head(params, run_plan(out["plan"], params["features"], vgg.apply_layer, batch))
+
+    forward(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        forward(images)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / 5 * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        forward(images)
+        torch.cuda.synchronize()
+    # device-side rows only (kernels, copies): operator rows repeat their kernels' time
+    by_kernel = sorted((a for a in prof.key_averages()
+                        if a.device_type == torch.autograd.DeviceType.CUDA),
+                       key=lambda a: -a.self_device_time_total)
+    busy_ms = sum(a.self_device_time_total for a in by_kernel) / 1e3
+    top = [dict(name=a.key, ms=a.self_device_time_total / 1e3, count=a.count)
+           for a in by_kernel[:8] if a.self_device_time_total > 0]
+    busy = (f"device busy in one profiled forward: {busy_ms:.3f} ms (idle share "
+            f"{1 - busy_ms / fwd_ms:.3f} of the steady forward)" if busy_ms > 0
+            else "the profiler traced no device time: idle share not measured")
+    print(f"steady forward of one batch of {MAX_BATCH} (host clock, 5 runs): {fwd_ms:.3f} ms; {busy}")
+    for t in top:
+        print(f"  {t['ms']:.3f} ms x{t['count']}  {t['name'][:90]}")
+
+    # -- result --------------------------------------------------------------
+    main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
+
+    def per_fwd(key: str) -> float:
+        return sum(r[key] * r["per_forward"] for r in main_rows)
+
+    kernels = [{
+        "name": "conv2d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/conv2d/conv2d.cu",
+        "replaces": "src/repro/kernels/conv2d/conv2d.py:39",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+        "ms": per_fwd("ms"),
+        "plain_ms": per_fwd("plain_ms"),
+        "bound_ms": per_fwd("bound_ms"),
+        "bound_by": "operations" if per_fwd("ops_ms") >= per_fwd("bytes_ms") else "bytes",
+        "library_ms": per_fwd("library_ms"),
+    }]
+    report = {
+        "device": kind, "nvidia_smi": smi, "build_s": build_s, "conv_cases": rows,
+        "serve": dict(stats, wall_s=out["wall_s"], requests_per_s=out["requests_per_s"],
+                      n_requests=N_REQUESTS, max_batch=MAX_BATCH, launches=launches,
+                      batch_done_ms=batch_done, first_submission_ms=first * 1e3,
+                      lossless_max_abs=lossless_err, plain_depth_max_abs=depth_err,
+                      steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, top_device=top),
+        "kernels": kernels,
+        "note": "kernel ms, plain_ms, library_ms and bound_ms are summed over one served "
+                "forward (batch 4, float32, 39 conv calls)",
+    }
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Execute a HALP plan segment by segment (twin of ``repro/spatial/partition_apply.py``).
+
+Each slot's feature rows are materialised separately, and the input of every
+layer segment is rebuilt strictly from (a) rows the slot computed itself and
+(b) the inter-slot messages the plan prescribes.  If the plan's messages were
+insufficient, reconstruction fails loudly, so equality with the single-device
+forward proves both the receptive-field partitioning and the message algebra.
+
+Runs on one device: this is the semantic model of the collaboration, with the
+slots' work issued one after another on the current stream.  ``SchemePlan``s
+and the ``verify=`` static check of the JAX executor are not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..core.nets import ConvNetGeom
+from ..core.partition import HALPPlan, Segment
+
+__all__ = ["run_plan", "segment_forward"]
+
+
+def _raw_range(o_lo: int, o_hi: int, k: int, s: int, p: int) -> tuple[int, int]:
+    """Unclipped input range (may extend into the zero padding)."""
+    return (o_lo - 1) * s + 1 - p, (o_hi - 1) * s + k - p
+
+
+def segment_forward(apply_layer, params, geom, x_rows: torch.Tensor, seg: Segment,
+                    avail: Segment, in_rows: int) -> torch.Tensor:
+    """Compute output rows ``seg`` of one layer given input rows ``avail``
+    (a contiguous, 1-indexed slice of the layer input held in ``x_rows``)."""
+    raw_lo, raw_hi = _raw_range(seg.lo, seg.hi, geom.k, geom.s, geom.p)
+    lo, hi = max(raw_lo, 1), min(raw_hi, in_rows)
+    if not (avail.lo <= lo and hi <= avail.hi):
+        raise AssertionError(
+            f"insufficient rows: need {lo}..{hi}, have {avail.lo}..{avail.hi}"
+        )
+    sl = x_rows[:, lo - avail.lo : hi - avail.lo + 1]
+    pad_top = lo - raw_lo
+    pad_bot = raw_hi - hi
+    padw = geom.p if geom.kind != "pool" else 0
+    if pad_top or pad_bot or padw:
+        # NHWC: F.pad's pairs run from the last axis back -- (C, W, H)
+        sl = F.pad(sl, (0, 0, padw, padw, pad_top, pad_bot))
+    y = apply_layer(params, geom, sl)
+    if y.shape[1] != seg.rows:
+        raise AssertionError(f"segment produced {y.shape[1]} rows, plan says {seg}")
+    return y
+
+
+def run_plan(
+    plan: HALPPlan,
+    layer_params: list,
+    apply_layer,
+    x: torch.Tensor,
+    time_observer: Callable[[str, float, float], None] | None = None,
+) -> torch.Tensor:
+    """Run the full plan; returns the merged final feature map (host side).
+
+    ``apply_layer(params, geom, x_slice)`` must be the VALID-padding layer
+    primitive (``repro_torch.models.vgg.apply_layer`` or compatible).
+
+    ``time_observer(es, flops, elapsed_s)``: when set, every slot's segments
+    run synchronously (``torch.cuda.synchronize`` on a CUDA tensor) and, once
+    per call, the observer receives that slot's total FLOP count and measured
+    wall-clock."""
+    net: ConvNetGeom = plan.net
+    sizes = net.sizes()
+    es_names = plan.es_names
+
+    # initial distribution: each ES receives its eq.-(10) image slice
+    avail: dict[str, tuple[Segment, torch.Tensor | None]] = {}
+    for es in es_names:
+        seg = plan.parts[0].inp[es]
+        avail[es] = (seg, x[:, seg.lo - 1 : seg.hi])
+
+    flops_acc = {es: 0.0 for es in es_names}
+    secs_acc = {es: 0.0 for es in es_names}
+
+    outs: dict[str, torch.Tensor | None] = {}
+    for i, g in enumerate(net.layers):
+        part = plan.parts[i]
+        outs = {}
+        for es in es_names:
+            if not part.out[es]:
+                outs[es] = None
+                continue
+            t0 = time.perf_counter() if time_observer else 0.0
+            y = segment_forward(
+                apply_layer, layer_params[i], g, avail[es][1], part.out[es],
+                avail[es][0], sizes[i],
+            )
+            if time_observer:
+                if y.is_cuda:
+                    torch.cuda.synchronize(y.device)
+                secs_acc[es] += time.perf_counter() - t0
+                flops_acc[es] += net.layer_flops(i, part.out[es].rows)
+            outs[es] = y
+        if i + 1 == len(net.layers):
+            break
+        # message exchange: every ES's next-layer input = own rows + messages
+        new_avail = {}
+        for dst in es_names:
+            pieces: list[tuple[Segment, torch.Tensor]] = []
+            own = part.out[dst]
+            if own:
+                pieces.append((own, outs[dst]))
+            for src in es_names:
+                seg = plan.message(i, src, dst)
+                if seg:
+                    src_seg = part.out[src]
+                    sl = outs[src][:, seg.lo - src_seg.lo : seg.hi - src_seg.lo + 1]
+                    pieces.append((seg, sl))
+            if not pieces:  # ES owns no rows at this depth (tiny feature map)
+                new_avail[dst] = (Segment(1, 0), None)
+                continue
+            pieces.sort(key=lambda t: t[0].lo)
+            for (a, _), (b, _) in zip(pieces, pieces[1:]):
+                if b.lo != a.hi + 1:
+                    raise AssertionError(f"non-contiguous input for {dst} at layer {i}")
+            seg_all = Segment(pieces[0][0].lo, pieces[-1][0].hi)
+            new_avail[dst] = (seg_all, torch.cat([t[1] for t in pieces], dim=1))
+        avail = new_avail
+
+    if time_observer:
+        for es in es_names:
+            if flops_acc[es] > 0 and secs_acc[es] > 0:
+                time_observer(es, flops_acc[es], secs_acc[es])
+
+    # final merge on the host (paper: sub-outputs -> FL input)
+    ordered = sorted(es_names, key=lambda es: plan.parts[-1].out[es].lo)
+    return torch.cat([outs[es] for es in ordered if plan.parts[-1].out[es]], dim=1)
