@@ -8,8 +8,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. needs CUDA; prints the card's name and power limit;
 2. builds every CUDA source of ``src/repro_torch`` (``nvcc``, sm_90a);
 3. holds the direct-conv kernel (K1's port) against its plain PyTorch version
-   on the card, at every conv shape the served plan hands it plus a strided,
-   a depthwise and a strided-view case, in float32 (TF32 off) and bfloat16,
+   on the card, at every conv shape the served plan and the weighted spatial
+   layout's fix-up convs (phase 5) hand it plus a strided, a depthwise and a
+   strided-view case, in float32 (TF32 off) and bfloat16,
    timing the kernel, the plain version and ``F.conv2d`` (a yardstick the
    port never calls) beside the least time the card could take;
 4. serves full-width VGG-16 (224x224, width 1.0, 1000 classes, seeded random
@@ -20,6 +21,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    single-device forward through the plain conv on the CPU; then times
    steady-state forwards of one batch and profiles one for the device's busy
    time by kernel.
+
+3b. holds the halo-conv kernel (K2's port) against its plain version on the
+   card at every shape the spatial path (phase 5) hands it, plus stride 2,
+   k7 s2, depthwise k7, row-slice-view halos and a ragged shard, in float32
+   and bfloat16, timing it beside its plain version, ``F.conv2d`` on the
+   concatenated slab (a yardstick the port never calls) and its bound;
+5. runs full-width VGG-16 (batch 4, phase 4's weights and images) through
+   the spatial engine with the fused engine on one card, in two layouts:
+   (a) capacity-weighted, 4 shards of (96, 32, 32, 64) rows from
+   ``plan_even(ratios=(1.0, 0.55, 0.35, 0.8))``, and (b) equal, 7 shards of
+   32 rows; counts both kernels' launches in one forward of each, checks the
+   logits against the single-device forward and the plain conv on the CPU,
+   then times steady forwards and profiles one of each.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -53,6 +67,13 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # largest |logit|: float32 summation order compounds over 13 convs (K up to
 # 4608) and 3 dense layers (K up to 25088).
 DEPTH_RTOL = 1e-4
+
+# Phase 5's layouts of full-width VGG-16 over height shards of one card:
+# (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
+# stride alignment 32; (b) the one equal split of 224 rows into shards of 32.
+WEIGHTED_RATIOS = (1.0, 0.55, 0.35, 0.8)
+WEIGHTED_HEIGHTS = (96, 32, 32, 64)
+EQUAL_HEIGHTS = (32,) * 7
 
 
 def check(cond: bool, msg: str) -> None:
@@ -93,10 +114,134 @@ def conv_shapes(plan, batch: int) -> Counter:
     return shapes
 
 
+def spatial_calls(net, heights, batch: int, weighted: bool) -> list[dict]:
+    """Every kernel call one forward of the fused spatial engine makes over
+    ``len(heights)`` shards: per conv layer and shard one K2 call on the
+    shard's block ([batch, block rows, W, Cin], halos of lo / hi rows) and,
+    in the weighted layout, one K1 fix-up conv on a slab of
+    n_fix*s + lo + hi rows, width-padded, run VALID."""
+    sizes = net.sizes()
+    hmax, n = max(heights), len(heights)
+    calls = []
+    for i, g in enumerate(net.layers):
+        if g.kind == "conv":
+            lo, hi = g.p, g.k - g.p - g.s
+            w = sizes[i]
+            calls.append(dict(kernel="halo_conv2d", layer=g.name, per_forward=n,
+                              shape=(batch, hmax, w, g.c_in, g.c_out), k=g.k, stride=g.s,
+                              pad=g.p, lo=lo, hi=hi, bottom="absent" if weighted else "view",
+                              valid_rows=sum(heights) // g.s, groups=1))
+            if weighted and hi:
+                n_fix = -(-hi // g.s)
+                check(min(heights) >= n_fix * g.s + lo, f"{g.name} would not take the fix-up branch")
+                calls.append(dict(kernel="conv2d", layer=g.name, per_forward=n,
+                                  shape=(batch, n_fix * g.s + lo + hi, w + 2 * g.p, g.c_in, g.c_out),
+                                  k=g.k, stride=g.s, pad=0, groups=1))
+        hmax //= g.s
+        heights = [h // g.s for h in heights]
+    return calls
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, float]:
     """(ms the operations need at the peak rate of ``dtype``, ms the bytes
     need at the HBM rate); the bound is the larger."""
     return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list]:
+    """Mean host-clock ms of 5 steady calls of ``forward`` (after one warm
+    call), then one call under the profiler: (ms, device busy ms, the top
+    device rows).  Prints both."""
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / 5 * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        forward()
+        torch.cuda.synchronize()
+    # device-side rows only (kernels, copies): operator rows repeat their kernels' time
+    by_kernel = sorted((a for a in prof.key_averages()
+                        if a.device_type == torch.autograd.DeviceType.CUDA),
+                       key=lambda a: -a.self_device_time_total)
+    busy_ms = sum(a.self_device_time_total for a in by_kernel) / 1e3
+    top = [dict(name=a.key, ms=a.self_device_time_total / 1e3, count=a.count)
+           for a in by_kernel[:8] if a.self_device_time_total > 0]
+    busy = (f"device busy in one profiled forward: {busy_ms:.3f} ms (idle share "
+            f"{1 - busy_ms / fwd_ms:.3f} of the steady forward)" if busy_ms > 0
+            else "the profiler traced no device time: idle share not measured")
+    print(f"{label}: steady forward of one batch of {MAX_BATCH} (host clock, 5 runs): "
+          f"{fwd_ms:.3f} ms; {busy}")
+    for t in top:
+        print(f"  {t['ms']:.3f} ms x{t['count']}  {t['name'][:90]}")
+    return fwd_ms, busy_ms, top
+
+
+def hold_halo_conv(torch, F, gen, case: dict) -> dict:
+    """One K2 shape on the card, float32 (TF32 off) and bfloat16: the kernel
+    against its plain version (an error beyond TOL is fatal), then the mean
+    times of the kernel, the plain version and F.conv2d on the concatenated
+    slab, beside the bound.  Returns the float32 row, with the bfloat16
+    error and time in it."""
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+
+    n, hs, w, cin, cout = case["shape"]
+    k, s, p, lo, hi, groups = (case[key] for key in ("k", "stride", "pad", "lo", "hi", "groups"))
+    w_cin = 1 if groups > 1 else cin
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        # the shard and its neighbours; the halos are row-slice views of them
+        x, above, below = (torch.randn((n, hs, w, cin), generator=gen, device="cuda").to(dt)
+                           for _ in range(3))
+        top = above[:, hs - lo:] if lo else None
+        bot = below[:, :hi] if hi else None
+        absent = case["bottom"] == "absent" and hi
+        if absent:  # the weighted layout's zero bottom, never materialised
+            bot = None
+        wt = (math.sqrt(2.0 / (k * k * w_cin))
+              * torch.randn((k, k, w_cin, cout), generator=gen, device="cuda")).to(dt)
+        b = (0.1 * torch.randn((cout,), generator=gen, device="cuda")).to(dt)
+        kw = dict(stride=s, padding=p, groups=groups, hi=hi)
+        got = halo_conv2d_cuda(x, top, bot, wt, b, **kw)
+        ref_bot = torch.zeros((n, hi, w, cin), dtype=dt, device="cuda") if absent else bot
+        slab = torch.cat([q for q in (top, x, ref_bot) if q is not None], dim=1)
+        want = halo_conv2d_ref(x, top, ref_bot, wt, b, stride=s, padding=p, groups=groups)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        check(torch.isfinite(got.float()).all().item(), f"non-finite halo-conv output at {case}")
+        check(bool((diff <= TOL[dname] * (1 + want.float().abs())).all()),
+              f"halo conv disagrees with its plain version ({dname}, max err {err}): {case}")
+        sn, wn = slab.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)  # NCHW / OIHW views
+        t_kernel = time_ms(torch, lambda: halo_conv2d_cuda(x, top, bot, wt, b, **kw))
+        t_plain = time_ms(torch, lambda: halo_conv2d_ref(x, top, ref_bot, wt, b, stride=s,
+                                                         padding=p, groups=groups))
+        t_lib = time_ms(torch, lambda: F.conv2d(sn, wn, b, stride=s, padding=(0, p), groups=groups))
+        flops = 2.0 * k * k * w_cin * cout * n * got.shape[1] * got.shape[2]
+        read = x.numel() + sum(q.numel() for q in (top, bot) if q is not None)
+        nbytes = (read + wt.numel() + b.numel() + got.numel()) * x.element_size()
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+        t_bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"halo {dname:8s} {case.get('layer', '-')} {case['layout'] or 'extra'} "
+              f"x{[n, hs, w, cin]} -> {cout} k{k} s{s} p{p} g{groups} lo{lo} hi{hi}"
+              f"{' bottom-absent' if absent else ''} x{case['per_forward']}/fwd: max_err {err:.3g} "
+              f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.1f} TFLOP/s) plain {t_plain:.4f} ms "
+              f"F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
+        out[dname] = dict(shape=[n, hs, w, cin, cout], k=k, stride=s, pad=p, groups=groups, lo=lo,
+                          hi=hi, bottom_absent=bool(absent), layer=case.get("layer"),
+                          layout=case["layout"], valid_rows=case.get("valid_rows"),
+                          dtype=dname, per_forward=case["per_forward"], max_abs_err=err, ms=t_kernel,
+                          plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms,
+                          bytes_ms=bytes_ms, bound_by=by, tflops=flops / t_kernel / 1e9)
+    return dict(out["float32"], bf16_max_abs_err=out["bfloat16"]["max_abs_err"],
+                bf16_ms=out["bfloat16"]["ms"], bf16_library_ms=out["bfloat16"]["library_ms"],
+                bf16_bound_ms=out["bfloat16"]["bound_ms"])
 
 
 def main() -> int:
@@ -108,13 +253,22 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
-    from repro_torch.core import plan_halp
+    from repro_torch.core import plan_even, plan_halp
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda
+    from repro_torch.launch.mesh import make_spatial_comm
     from repro_torch.launch.serve import serve
     from repro_torch.models import vgg
     from repro_torch.models.common import tree_map
-    from repro_torch.spatial import run_plan
+    from repro_torch.parallel import weighted_spatial_inputs
+    from repro_torch.spatial import (
+        features_spatial,
+        merge_padded_shards,
+        plan_shard_heights,
+        run_plan,
+        spatial_alignment,
+    )
 
     # every float32 reference below runs in full float32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,8 +296,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = plan_halp(vgg.FULL.geom(), overlap_rows=4)
     path_shapes = conv_shapes(plan, MAX_BATCH)
-    cases = [dict(shape=s, per_forward=c, stride=1, pad=0, groups=1, view=False)
+    net = vgg.FULL.geom()
+    weighted_heights = plan_shard_heights(
+        plan_even(net, len(WEIGHTED_RATIOS), ratios=WEIGHTED_RATIOS), align=spatial_alignment(net))
+    check(weighted_heights == WEIGHTED_HEIGHTS,
+          f"plan_even(ratios={WEIGHTED_RATIOS}) gives heights {weighted_heights}, expected {WEIGHTED_HEIGHTS}")
+    layouts = {"weighted": spatial_calls(net, WEIGHTED_HEIGHTS, MAX_BATCH, weighted=True),
+               "equal": spatial_calls(net, EQUAL_HEIGHTS, MAX_BATCH, weighted=False)}
+    # path: the main path whose forward makes per_forward such calls
+    cases = [dict(shape=s, per_forward=c, stride=1, pad=0, groups=1, view=False, path="run_plan")
              for s, c in sorted(path_shapes.items())]
+    cases += [dict(shape=c["shape"], per_forward=c["per_forward"], stride=c["stride"], pad=c["pad"],
+                   groups=c["groups"], view=False, path="weighted-fixup", layer=c["layer"])
+              for c in layouts["weighted"] if c["kernel"] == "conv2d"]
     cases += [
         dict(shape=(MAX_BATCH, 56, 56, 128, 256), per_forward=0, stride=2, pad=1, groups=1, view=False),
         dict(shape=(MAX_BATCH, 56, 56, 256, 256), per_forward=0, stride=1, pad=1, groups=256, view=False),
@@ -185,16 +350,30 @@ def main() -> int:
             t_bound = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
             row = dict(shape=[n, h, w, cin, cout], stride=s, pad=p, groups=groups,
-                       view=case["view"], dtype=dname, per_forward=case["per_forward"],
-                       max_abs_err=err, within_tol=ok, ms=t_kernel, plain_ms=t_plain,
-                       library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms, bytes_ms=bytes_ms,
-                       bound_by=by, tflops=flops / t_kernel / 1e9)
+                       view=case["view"], path=case.get("path"), layer=case.get("layer"),
+                       dtype=dname, per_forward=case["per_forward"], max_abs_err=err,
+                       within_tol=ok, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                       bound_ms=t_bound, ops_ms=ops_ms, bytes_ms=bytes_ms, bound_by=by,
+                       tflops=flops / t_kernel / 1e9)
             rows.append(row)
-            print(f"conv {dname:8s} x{[n, h, w, cin]} -> {cout} s{s} p{p} g{groups}"
+            print(f"conv {dname:8s} {case.get('path') or 'extra'} {case.get('layer') or ''} "
+                  f"x{[n, h, w, cin]} -> {cout} s{s} p{p} g{groups}"
                   f"{' view' if case['view'] else ''} x{case['per_forward']}/fwd: "
                   f"max_err {err:.3g} kernel {t_kernel:.4f} ms ({row['tflops']:.1f} TFLOP/s) "
                   f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
             check(ok, f"kernel disagrees with its plain version: {row}")
+
+    # -- 3b. the halo conv against its plain version, on the card -------------
+    halo_cases = [dict(c, layout=name) for name, calls in layouts.items() for c in calls
+                  if c["kernel"] == "halo_conv2d"]
+    halo_cases += [  # beyond the path: stride 2, k7 s2, depthwise k7, a ragged shard
+        dict(shape=(MAX_BATCH, 56, 56, 128, 256), k=3, stride=2, pad=1, lo=1, hi=0, groups=1),
+        dict(shape=(MAX_BATCH, 64, 64, 3, 64), k=7, stride=2, pad=3, lo=3, hi=2, groups=1),
+        dict(shape=(MAX_BATCH, 28, 56, 256, 256), k=7, stride=1, pad=3, lo=3, hi=3, groups=256),
+        dict(shape=(MAX_BATCH, 13, 14, 512, 512), k=3, stride=1, pad=1, lo=1, hi=1, groups=1),
+    ]
+    halo_rows = [hold_halo_conv(torch, F, gen, dict(dict(per_forward=0, layout=None, bottom="view"), **c))
+                 for c in halo_cases]
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
     conv2d_cuda.launches = 0
@@ -236,50 +415,90 @@ def main() -> int:
     def forward(batch):
         return vgg.head(params, run_plan(out["plan"], params["features"], vgg.apply_layer, batch))
 
-    forward(images)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        forward(images)
-    torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) / 5 * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        forward(images)
+    fwd_ms, busy_ms, top = steady_and_profiled(torch, lambda: forward(images), "run_plan")
+
+    # -- 5. the spatial engine: full-width VGG-16 over height shards of one
+    # card, fused engine, in the weighted and the equal layout ----------------
+    spatial = {}
+    for name, heights in (("weighted", WEIGHTED_HEIGHTS), ("equal", EQUAL_HEIGHTS)):
+        comm = make_spatial_comm(len(heights), device="cuda")
+        xs, hts = weighted_spatial_inputs(images, heights, comm)
+        weighted = name == "weighted"
+        align = spatial_alignment(net)
+
+        def spatial_forward(xs=xs, comm=comm, weighted=weighted, heights=heights):
+            ys = features_spatial(params["features"], net, xs, comm=comm,
+                                  heights=heights if weighted else None, engine="fused")
+            return vgg.head(params, merge_padded_shards(ys, [h // align for h in heights]))
+
+        calls = layouts[name]
+        want = {k: sum(c["per_forward"] for c in calls if c["kernel"] == k)
+                for k in ("halo_conv2d", "conv2d")}
+        conv2d_cuda.launches = halo_conv2d_cuda.launches = 0
+        logits_sp = spatial_forward()
         torch.cuda.synchronize()
-    # device-side rows only (kernels, copies): operator rows repeat their kernels' time
-    by_kernel = sorted((a for a in prof.key_averages()
-                        if a.device_type == torch.autograd.DeviceType.CUDA),
-                       key=lambda a: -a.self_device_time_total)
-    busy_ms = sum(a.self_device_time_total for a in by_kernel) / 1e3
-    top = [dict(name=a.key, ms=a.self_device_time_total / 1e3, count=a.count)
-           for a in by_kernel[:8] if a.self_device_time_total > 0]
-    busy = (f"device busy in one profiled forward: {busy_ms:.3f} ms (idle share "
-            f"{1 - busy_ms / fwd_ms:.3f} of the steady forward)" if busy_ms > 0
-            else "the profiler traced no device time: idle share not measured")
-    print(f"steady forward of one batch of {MAX_BATCH} (host clock, 5 runs): {fwd_ms:.3f} ms; {busy}")
-    for t in top:
-        print(f"  {t['ms']:.3f} ms x{t['count']}  {t['name'][:90]}")
+        got = {"halo_conv2d": halo_conv2d_cuda.launches, "conv2d": conv2d_cuda.launches}
+        print(f"spatial {name} {heights}: launches {got} (expected {want})")
+        check(got == want, f"spatial {name}: launches {got}, expected {want}")
+        check(got["halo_conv2d"] > 0, f"spatial {name} never launched the halo conv")
+        check(tuple(logits_sp.shape) == (MAX_BATCH, vgg.FULL.num_classes), f"logits {tuple(logits_sp.shape)}")
+        check(bool(torch.isfinite(logits_sp).all()), f"spatial {name}: non-finite logits")
+        sp_err = (logits_sp - single).abs()
+        sp_ok = bool((sp_err <= 2e-5 * (1 + single.abs())).all())
+        sp_depth = (logits_sp.cpu() - plain).abs().max().item()
+        print(f"  vs single-device apply (K1): max |diff| {sp_err.max().item():.3g}; vs plain conv "
+              f"on the CPU: max |diff| {sp_depth:.3g} (limit {DEPTH_RTOL} x {scale:.3g})")
+        check(sp_ok, f"spatial {name} is not lossless against the single-device forward")
+        check(sp_depth <= DEPTH_RTOL * scale, f"spatial {name} drifts from the plain conv at depth")
+        asked = sum(c["shape"][1] * c["per_forward"] for c in calls if c["kernel"] == "halo_conv2d")
+        useful = sum(c["valid_rows"] for c in calls if c["kernel"] == "halo_conv2d")
+        print(f"  K2 output rows asked for per forward: {asked}, of which valid: {useful} "
+              f"(useful share {useful / asked:.4f})")
+        fwd_sp, busy_sp, top_sp = steady_and_profiled(torch, spatial_forward, f"spatial {name}")
+        spatial[name] = dict(heights=list(heights), launches=got, lossless_max_abs=sp_err.max().item(),
+                             plain_depth_max_abs=sp_depth, k2_rows_asked=asked, k2_rows_valid=useful,
+                             steady_forward_ms=fwd_sp, device_busy_ms=busy_sp, top_device=top_sp)
 
     # -- result --------------------------------------------------------------
+    # each kernel's numbers summed over one forward of every main path that
+    # launches it: run_plan (phase 4) and the two spatial layouts (phase 5)
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
+    fix_rows = [r for r in main_rows if r["path"] == "weighted-fixup"]
+    halo_main = [r for r in halo_rows if r["per_forward"]]
 
-    def per_fwd(key: str) -> float:
-        return sum(r[key] * r["per_forward"] for r in main_rows)
+    def per_fwd(rs, key: str) -> float:
+        return sum(r[key] * r["per_forward"] for r in rs)
 
-    kernels = [{
-        "name": "conv2d",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/conv2d/conv2d.cu",
-        "replaces": "src/repro/kernels/conv2d/conv2d.py:39",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": per_fwd("ms"),
-        "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_ms"),
-        "bound_by": "operations" if per_fwd("ops_ms") >= per_fwd("bytes_ms") else "bytes",
-        "library_ms": per_fwd("library_ms"),
-    }]
+    def entry(name, source, replaces, rs, n_launches):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": n_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": per_fwd(rs, "ms"),
+            "plain_ms": per_fwd(rs, "plain_ms"),
+            "bound_ms": per_fwd(rs, "bound_ms"),
+            "bound_by": "operations" if per_fwd(rs, "ops_ms") >= per_fwd(rs, "bytes_ms") else "bytes",
+            "library_ms": per_fwd(rs, "library_ms"),
+        }
+
+    kernels = [
+        entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
+              "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
+              launches + sum(v["launches"]["conv2d"] for v in spatial.values())),
+        entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
+              "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
+              sum(v["launches"]["halo_conv2d"] for v in spatial.values())),
+    ]
+    by_layout = {name: {key: per_fwd([r for r in halo_main if r["layout"] == name], key)
+                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                 for name in spatial}
+    by_layout["weighted"]["fixup_conv2d"] = {key: per_fwd(fix_rows, key)
+                                             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for name, v in by_layout.items():
+        print(f"per forward of spatial {name}: {json.dumps(v)}")
     report = {
         "device": kind, "nvidia_smi": smi, "build_s": build_s, "conv_cases": rows,
         "serve": dict(stats, wall_s=out["wall_s"], requests_per_s=out["requests_per_s"],
@@ -287,9 +506,14 @@ def main() -> int:
                       batch_done_ms=batch_done, first_submission_ms=first * 1e3,
                       lossless_max_abs=lossless_err, plain_depth_max_abs=depth_err,
                       steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, top_device=top),
-        "kernels": kernels,
-        "note": "kernel ms, plain_ms, library_ms and bound_ms are summed over one served "
-                "forward (batch 4, float32, 39 conv calls)",
+        "halo_cases": halo_rows, "spatial": spatial,
+        "spatial_per_forward": by_layout, "kernels": kernels,
+        "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
+                "forward of each main path that launches the kernel (batch 4): conv2d over a "
+                "run_plan forward (39 calls) and the weighted spatial forward's 52 fix-up "
+                "convs; halo_conv2d over one weighted (52 calls) and one equal (91 calls) "
+                "spatial forward.  launches count every main-path run: the 4 served batches "
+                "and one forward of each spatial layout.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,6 +1,14 @@
 """Planner geometry and the HALP plan, copied from ``repro.core`` (pure Python)."""
 from .nets import ConvNetGeom, vgg16_geom
-from .partition import HALPPlan, PlanInfeasible, Segment, plan_halp, plan_halp_n
+from .partition import (
+    HALPPlan,
+    PlanInfeasible,
+    Segment,
+    plan_even,
+    plan_halp,
+    plan_halp_n,
+    split_rows,
+)
 from .rf import LayerGeom
 
 __all__ = [
@@ -9,7 +17,9 @@ __all__ = [
     "LayerGeom",
     "PlanInfeasible",
     "Segment",
+    "plan_even",
     "plan_halp",
     "plan_halp_n",
+    "split_rows",
     "vgg16_geom",
 ]

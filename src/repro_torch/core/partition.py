@@ -3,8 +3,9 @@
 The port's copy of the HALP-plan half of ``repro/core/partition.py``: the
 Segment/plan data model, the N-way slot layout with auto-reduction, and the
 materialised :class:`HALPPlan` that :func:`repro_torch.spatial.run_plan`
-executes.  The per-stage ``SchemePlan`` half and the batched-DES layout walk
-are not ported yet.
+executes, and the N-way contiguous split :func:`plan_even` whose row shares
+the spatial engine deploys.  The per-stage ``SchemePlan`` half and the
+batched-DES layout walk are not ported yet.
 
 The host ES partitions every layer's *output rows* into contiguous **slots**
 along the row axis.  Slots alternate between secondary segments and host-owned
@@ -23,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Sequence
 
 from .nets import ConvNetGeom
+from .rf import input_range_exact
 
 __all__ = [
     "Segment",
@@ -31,8 +33,10 @@ __all__ = [
     "PlanInfeasible",
     "PlanLayout",
     "plan_halp",
+    "plan_even",
     "plan_halp_n",
     "plan_layout",
+    "split_rows",
     "plan_from_layout",
 ]
 
@@ -160,6 +164,32 @@ def _split_counts(total: int, ratios: Sequence[float]) -> list[int]:
         bounds.append(min(total, max(bounds[-1], int(round(acc * total)))))
     bounds.append(total)
     return [hi - lo for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _norm_ratios(n: int, ratios: Sequence[float] | None, per: str) -> list[float]:
+    """``ratios`` (one per ``per``, e.g. worker or shard) scaled to sum to 1;
+    None is the uniform split."""
+    if ratios is None:
+        return [1.0 / n] * n
+    ratios = list(ratios)
+    if len(ratios) != n:
+        raise ValueError(f"need one ratio per {per}, got {len(ratios)} for n={n}")
+    total = sum(ratios)
+    if total <= 0 or any(r < 0 for r in ratios):
+        raise ValueError(f"ratios must be non-negative with a positive sum, got {ratios}")
+    return [r / total for r in ratios]
+
+
+def split_rows(total: int, ratios: Sequence[float]) -> list[Segment]:
+    """Contiguous segments covering rows 1..total by cumulative ratio, each
+    within +-1 row of its exact share.  Heavily skewed ratios on small totals
+    may give *empty* segments (lo > hi)."""
+    segs = []
+    lo = 0
+    for c in _split_counts(total, ratios):
+        segs.append(Segment(lo + 1, lo + c))
+        lo += c
+    return segs
 
 
 def _pool_alignment(net: ConvNetGeom, i: int, o: int) -> int:
@@ -308,6 +338,28 @@ def plan_halp_n(
             auto_reduce=auto_reduce,
         )
     )
+
+
+def plan_even(net: ConvNetGeom, n: int, ratios: Sequence[float] | None = None) -> HALPPlan:
+    """N-way contiguous split of every layer's output rows (workers
+    ``w0..w{n-1}``, no host zones), the plan the spatial engine deploys.
+
+    ``ratios`` weights the per-worker row shares (a capacity-weighted split
+    for workers of unequal speed); the default is the uniform split.  Each
+    worker's input rows follow from the exact receptive-field algebra, so any
+    weighting is lossless."""
+    ratios = _norm_ratios(n, ratios, "worker")
+    names = tuple(f"w{j}" for j in range(n))
+    sizes = net.sizes()
+    parts = []
+    for i, g in enumerate(net.layers):
+        out = dict(zip(names, split_rows(sizes[i + 1], ratios)))
+        inp = {
+            es: Segment(*input_range_exact(seg.lo, seg.hi, g.k, g.s, g.p, sizes[i])) if seg else EMPTY
+            for es, seg in out.items()
+        }
+        parts.append(LayerPartition(index=i, out=out, inp=inp))
+    return HALPPlan(net=net, parts=tuple(parts), es_names=names)
 
 
 def _reduce_caps(caps: list[int], exc: PlanInfeasible, conv_anchor: list[int]) -> bool:

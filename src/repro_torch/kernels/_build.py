@@ -4,8 +4,9 @@ Every ``*.cu`` file under ``repro_torch/kernels`` exposes a plain C interface
 and is compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  All sources compile in parallel, one ``nvcc`` process each.
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  No file includes PyTorch's
+A library's file name carries a hash of its source, of every shared header
+(``*.cuh`` under ``repro_torch/kernels``) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  No file includes PyTorch's
 headers: such a file takes minutes to compile, a plain C interface seconds.
 
 Nothing is compiled when this module is imported: the CPU tests import every
@@ -56,9 +57,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels can only be built where a CUDA toolkit is")
 
 
+def headers() -> list[Path]:
+    """The shared headers a source may include, in a fixed order."""
+    return sorted(KERNELS_DIR.rglob("*.cuh"))
+
+
 def _lib_path(name: str, src: Path) -> Path:
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in headers():
+        h.update(str(hdr.relative_to(KERNELS_DIR)).encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(nvcc: str, name: str, src: Path) -> tuple[Path, str]:

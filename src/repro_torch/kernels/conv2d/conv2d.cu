@@ -10,222 +10,39 @@
 // Cout, w [k,k,1,C]) is a per-channel multiply-add.  f32 or bf16 in and out,
 // f32 accumulation, bias added to the f32 sum before the single output cast.
 //
-// Bound on an H100 SXM: at every VGG-16 layer the conv does 2*k*k*Cin FLOPs
-// per output element against a few bytes per element moved (several hundred
-// FLOP/byte), far above the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte,
-// so it is bounded by operations: the float32 FMA rate of the CUDA cores.
-//
-// Design: an implicit GEMM, M = N*Ho*Wo output pixels, N = Cout, K = k*k*Cin
-// in HWIO order, so the weights are the row-major [K, Cout] B matrix as they
-// lie.  Each 256-thread block owns a 128-pixel x 64-channel output tile and
-// walks K in steps of 16: the A tile (pixels x K) is gathered straight from
-// the NHWC input -- the overlapping rows that the TPU kernel materialises as a
-// tile stack in HBM (_tile_rows) are just re-read here -- and the B tile is
-// read from the weights; both go to shared memory as f32, and every thread
-// accumulates an 8x4 register block with FMAs.  Ragged pixel/channel/K edges
-// are masked in the kernel.  Any Cin is taken (conv1_1 has Cin = 3), since
-// the K index is decoded per element rather than loaded as 16-byte vectors.
-// The input may be a view whose batch/row/column strides are arbitrary (row
-// slices of a batch are not contiguous); only the channel axis must be dense.
-// Offsets are 64-bit.  Tensor cores (wgmma), TMA and multi-stage pipelines
-// are left for later work: this kernel is the correct, simple baseline.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <algorithm>
-#include <cstdint>
+// The implicit-GEMM core, its bound and its design are in ../conv_igemm.cuh,
+// shared with the halo conv (K2).  This file supplies the input source: one
+// tensor whose batch/row/column strides are arbitrary (row slices of a batch
+// are not contiguous; only the channel axis must be dense), padded by `pad`
+// zero rows and columns on every side, masked in the kernel.  The overlapping
+// rows that the TPU kernel materialises as a tile stack in HBM (_tile_rows)
+// are just re-read.
+#include "../conv_igemm.cuh"
 
 namespace {
 
-struct ConvArgs {
-  int n, h, w, cin;       // input [n, h, w, cin]; the channel stride is 1
-  long long sn, sh, sw;   // input strides, in elements
-  int cout, k, stride, pad;
-  int ho, wo;             // output [n, ho, wo, cout], contiguous
+template <typename T>
+struct DenseRows {
+  const T* x;
+  long long sn, sh, sw;  // input strides, in elements; the channel stride is 1
+  int h, w, pad;
+
+  using Px = const T*;  // the pixel's batch base
+  __device__ Px pixel(long long nb) const { return x + nb * sn; }
+  __device__ float load(Px p, int r, int q, int c, bool valid) const {
+    const int ih = r - pad, iw = q - pad;
+    float v = 0.f;
+    if (valid && ih >= 0 && ih < h && iw >= 0 && iw < w) v = conv_igemm::to_f32(p[ih * sh + iw * sw + c]);
+    return v;
+  }
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-constexpr int kThreads = 256;
-constexpr int BM = 128;  // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 16;   // K step
-constexpr int TM = 8;    // pixels per thread   (16 threads along M)
-constexpr int TN = 4;    // channels per thread (16 threads along N)
-static_assert(BM == 16 * TM && BN == 16 * TN, "16x16 thread grid");
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv2d_igemm(const T* __restrict__ x, const T* __restrict__ wt,
-             const T* __restrict__ bias, T* __restrict__ y, ConvArgs a) {
-  // +4 columns: spreads the column-wise A stores over more banks while
-  // keeping every row 16-byte aligned for the float4 reads below.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const long long M = (long long)a.n * a.ho * a.wo;
-  const int K = a.k * a.k * a.cin;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // A gather: this thread loads K column a_kk of rows a_r0 + i * A_STEP.
-  constexpr int A_STEP = kThreads / BK;  // 16
-  constexpr int A_ITERS = BM / A_STEP;   // 8
-  const int a_kk = tid % BK;
-  const int a_r0 = tid / BK;
-  const T* a_ptr[A_ITERS];
-  int a_ih[A_ITERS], a_iw[A_ITERS];
-#pragma unroll
-  for (int i = 0; i < A_ITERS; ++i) {
-    const long long m = m0 + a_r0 + i * A_STEP;
-    if (m < M) {
-      const int ow = (int)(m % a.wo);
-      const long long t = m / a.wo;
-      const int oh = (int)(t % a.ho);
-      const long long nb = t / a.ho;
-      a_ptr[i] = x + nb * a.sn;
-      a_ih[i] = oh * a.stride - a.pad;
-      a_iw[i] = ow * a.stride - a.pad;
-    } else {  // past the last pixel: a row that is never in range reads zero
-      a_ptr[i] = x;
-      a_ih[i] = -(1 << 30);
-      a_iw[i] = 0;
-    }
-  }
-
-  // B load: this thread loads column b_col of K rows b_r0 + j * B_STEP.
-  constexpr int B_STEP = kThreads / BN;  // 4
-  constexpr int B_ITERS = BK / B_STEP;   // 4
-  const int b_col = tid % BN;
-  const int b_r0 = tid / BN;
-  const int gcol = n0 + b_col;
-
-  const int tx = tid % 16;  // channel group
-  const int ty = tid / 16;  // pixel group
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int kidx = k0 + a_kk;
-    const bool kval = kidx < K;
-    int c = 0, ky = 0, kx = 0;
-    if (kval) {  // K index -> (tap, input channel), HWIO order
-      const int tap = kidx / a.cin;
-      c = kidx - tap * a.cin;
-      ky = tap / a.k;
-      kx = tap - ky * a.k;
-    }
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int ih = a_ih[i] + ky;
-      const int iw = a_iw[i] + kx;
-      float v = 0.f;
-      if (kval && ih >= 0 && ih < a.h && iw >= 0 && iw < a.w)
-        v = to_f32(a_ptr[i][ih * a.sh + iw * a.sw + c]);
-      As[a_kk][a_r0 + i * A_STEP] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < B_ITERS; ++j) {
-      const int kr = k0 + b_r0 + j * B_STEP;
-      float v = 0.f;
-      if (kr < K && gcol < a.cout) v = to_f32(wt[(long long)kr * a.cout + gcol]);
-      Bs[b_r0 + j * B_STEP][b_col] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    T* yrow = y + m * a.cout;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < a.cout) {
-        float v = acc[i][j];
-        if (bias != nullptr) v += to_f32(bias[col]);
-        yrow[col] = from_f32<T>(v);
-      }
-    }
-  }
-}
-
-// Depthwise branch: one thread per output element, neighbouring threads on
-// neighbouring channels (coalesced NHWC reads), grid-stride over the output.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dwconv2d(const T* __restrict__ x, const T* __restrict__ wt,
-         const T* __restrict__ bias, T* __restrict__ y, ConvArgs a) {
-  const long long total = (long long)a.n * a.ho * a.wo * a.cout;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % a.cout);
-    long long t = idx / a.cout;
-    const int ow = (int)(t % a.wo);
-    t /= a.wo;
-    const int oh = (int)(t % a.ho);
-    const long long nb = t / a.ho;
-    const T* xb = x + nb * a.sn + c;
-    float acc = 0.f;
-    for (int ky = 0; ky < a.k; ++ky) {
-      const int ih = oh * a.stride - a.pad + ky;
-      if (ih < 0 || ih >= a.h) continue;
-      for (int kx = 0; kx < a.k; ++kx) {
-        const int iw = ow * a.stride - a.pad + kx;
-        if (iw < 0 || iw >= a.w) continue;
-        acc = fmaf(to_f32(xb[ih * a.sh + iw * a.sw]),
-                   to_f32(wt[(long long)(ky * a.k + kx) * a.cout + c]), acc);
-      }
-    }
-    if (bias != nullptr) acc += to_f32(bias[c]);
-    y[idx] = from_f32<T>(acc);
-  }
-}
-
-template <typename T>
-void launch(const void* x, const void* w, const void* bias, void* y, const ConvArgs& a,
-            bool depthwise, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const T* bp = static_cast<const T*>(bias);
-  T* yp = static_cast<T*>(y);
-  if (depthwise) {
-    const long long total = (long long)a.n * a.ho * a.wo * a.cout;
-    const long long blocks = std::min<long long>((total + kThreads - 1) / kThreads, 1LL << 20);
-    dwconv2d<T><<<(unsigned)blocks, kThreads, 0, stream>>>(xp, wp, bp, yp, a);
-  } else {
-    const long long M = (long long)a.n * a.ho * a.wo;
-    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((a.cout + BN - 1) / BN));
-    conv2d_igemm<T><<<grid, kThreads, 0, stream>>>(xp, wp, bp, yp, a);
-  }
+void run(const void* x, const void* w, const void* bias, void* y, const conv_igemm::Shape& a,
+         long long sn, long long sh, long long sw, int h, int wd, int pad, bool depthwise,
+         cudaStream_t stream) {
+  const DenseRows<T> src{static_cast<const T*>(x), sn, sh, sw, h, wd, pad};
+  conv_igemm::launch<T>(src, w, bias, y, a, depthwise, stream);
 }
 
 }  // namespace
@@ -238,12 +55,12 @@ extern "C" int conv2d_fwd(const void* x, const void* w, const void* bias, void* 
                           int depthwise, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const ConvArgs a{n, h, wd, cin, sn, sh, sw, cout, k, stride, pad, ho, wo};
+  const conv_igemm::Shape a{n, cin, cout, k, stride, ho, wo};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float>(x, w, bias, y, a, depthwise != 0, st);
+    run<float>(x, w, bias, y, a, sn, sh, sw, h, wd, pad, depthwise != 0, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(x, w, bias, y, a, depthwise != 0, st);
+    run<__nv_bfloat16>(x, w, bias, y, a, sn, sh, sw, h, wd, pad, depthwise != 0, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -16,8 +16,8 @@ import torch
 from .._build import load_library
 from .ref import conv2d_ref
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_INT32_MAX = 2**31 - 1
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT32_MAX = 2**31 - 1
 
 
 @functools.cache
@@ -37,13 +37,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_args(x, weights, bias, stride, padding, groups) -> tuple[int, int]:
-    """Raise on what the kernel does not take; returns the output (Ho, Wo)."""
+def check_operands(fn: str, x, weights, bias, groups) -> tuple[int, int]:
+    """Raise on an input, weights or bias that the conv core does not take
+    (shared by both conv kernels' wrappers; ``fn`` names the caller in the
+    messages); returns (k, Cout)."""
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv2d_cuda takes CPU or CUDA tensors, got {x.device}")
+        raise ValueError(f"{fn} takes CPU or CUDA tensors, got {x.device}")
     if x.dim() != 4 or weights.dim() != 4:
         raise ValueError(f"need NHWC x and HWIO weights, got {tuple(x.shape)} and {tuple(weights.shape)}")
-    n, h, w, cin = x.shape
+    cin = x.shape[3]
     k, k2, w_cin, cout = weights.shape
     if k != k2:
         raise ValueError(f"square kernels only, got {k}x{k2}")
@@ -55,8 +57,8 @@ def _check_args(x, weights, bias, stride, padding, groups) -> tuple[int, int]:
             )
     elif groups != 1 or w_cin != cin:
         raise ValueError(f"weights {tuple(weights.shape)} do not match Cin={cin}, groups={groups}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"conv2d_cuda takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{fn} takes float32 or bfloat16, got {x.dtype}")
     for name, t in (("weights", weights), ("bias", bias)):
         if t is None:
             continue
@@ -68,13 +70,20 @@ def _check_args(x, weights, bias, stride, padding, groups) -> tuple[int, int]:
         raise ValueError(f"bias must be [{cout}], got {tuple(bias.shape)}")
     if x.stride(3) != 1 or min(x.stride()) < 0:
         raise ValueError(f"the channel axis of x must be dense, got strides {x.stride()}")
+    return k, cout
+
+
+def _check_args(x, weights, bias, stride, padding, groups) -> tuple[int, int]:
+    """Raise on what the kernel does not take; returns the output (Ho, Wo)."""
+    k, cout = check_operands("conv2d_cuda", x, weights, bias, groups)
+    n, h, w, cin = x.shape
     if stride < 1 or padding < 0:
         raise ValueError(f"bad stride={stride} / padding={padding}")
     ho = (h + 2 * padding - k) // stride + 1
     wo = (w + 2 * padding - k) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"non-positive output size for H={h}, W={w}, k={k}, s={stride}, p={padding}")
-    if max(n, h + 2 * padding, w + 2 * padding, cout, k * k * cin) > _INT32_MAX:
+    if max(n, h + 2 * padding, w + 2 * padding, cout, k * k * cin) > INT32_MAX:
         raise ValueError("a dimension exceeds the kernel's 32-bit index range")
     return ho, wo
 
@@ -104,7 +113,7 @@ def conv2d_cuda(
     lib = _lib()
     err = lib.conv2d_fwd(
         x.data_ptr(), weights.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), _DTYPE_CODES[x.dtype],
+        y.data_ptr(), DTYPE_CODES[x.dtype],
         n, h, w, cin, x.stride(0), x.stride(1), x.stride(2),
         cout, k, stride, padding, ho, wo,
         int(groups > 1), x.device.index, torch.cuda.current_stream(x.device).cuda_stream,

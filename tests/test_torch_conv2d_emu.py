@@ -1,7 +1,8 @@
 """The CUDA source of the direct conv, run on the CPU through an emulation.
 
-``src/repro_torch/kernels/conv2d/conv2d.cu`` is compiled as C++20 by ``g++``
-with ``tests/cuda_emu/cuda_shim.h`` (threads for CUDA threads, a barrier for
+``src/repro_torch/kernels/conv2d/conv2d.cu``, with the shared core
+``conv_igemm.cuh`` inlined, is compiled as C++20 by ``g++`` with
+``tests/cuda_emu/cuda_shim.h`` (threads for CUDA threads, a barrier for
 ``__syncthreads``) and called through the same C interface the wrapper uses.
 This covers the kernel's index math -- masking of ragged tiles, strided and
 padded taps, batch strides of row-slice views, the depthwise branch and the
@@ -11,41 +12,21 @@ Tolerances as in tests/test_torch_conv2d.py: 2e-5 (float32, summation order)
 and 2e-2 (bfloat16).
 """
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.conv2d import conv2d_ref
 
-ROOT = Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "conv2d" / "conv2d.cu"
-SHIM = Path(__file__).resolve().parent / "cuda_emu" / "cuda_shim.h"
+SOURCE = KERNELS / "conv2d" / "conv2d.cu"
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source for the CPU")
-    src = SOURCE.read_text()
-    src = re.sub(r"#include <cuda_(bf16|runtime)\.h>", "", src)
-    # kernel<T><<<grid, block, smem, stream>>>(args) -> _emu_launch(grid, block, smem, stream, kernel<T>, args)
-    src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\(", r"_emu_launch(\2, \1, ", src)
-    assert n == 2, "expected the two kernel launches of conv2d.cu"
-    out = tmp_path_factory.mktemp("emu")
-    (out / "conv2d_emu.cpp").write_text(src)
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-include", str(SHIM),
-         "-o", str(out / "libconv2d_emu.so"), str(out / "conv2d_emu.cpp"), "-lpthread"],
-        capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(out / "libconv2d_emu.so"))
+    # the two launches of the shared core (conv_igemm.cuh), inlined
+    lib = build_emulated(SOURCE, tmp_path_factory.mktemp("emu"), launches=2)
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.conv2d_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i64, i64, i64, i, i, i, i, i, i, i, i, p]
     lib.conv2d_fwd.restype = ctypes.c_int

@@ -12,10 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import plan_even
 from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+from repro_torch.launch.mesh import make_spatial_comm
 from repro_torch.launch.serve import serve
 from repro_torch.models import vgg
 from repro_torch.models.common import tree_map
+from repro_torch.parallel import weighted_spatial_inputs
+from repro_torch.spatial import features_spatial, merge_padded_shards, spatial_alignment
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -66,3 +71,81 @@ def test_served_smoke_logits_on_card_match_cpu(card):
     params = tree_map(lambda t: t.cpu(), out["params"])
     want = vgg.apply(params, vgg.SMOKE, out["images"].cpu())
     torch.testing.assert_close(out["logits"].cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+# (B, Hs, W, Cin, Cout, k, stride, pad, groups, halos as row-slice views)
+HALO_CASES = [
+    (2, 16, 12, 8, 16, 3, 1, 1, 1, True),
+    (1, 16, 11, 4, 8, 5, 1, 2, 1, False),
+    (2, 16, 11, 4, 8, 3, 2, 1, 1, True),   # lo = 1, hi = 0
+    (2, 16, 11, 4, 8, 7, 2, 3, 1, True),   # lo = 3, hi = 2
+    (2, 7, 9, 3, 70, 3, 1, 1, 1, True),    # Cin 3, two Cout tiles, ragged pixel tile
+    (2, 12, 10, 8, 8, 7, 1, 3, 8, True),   # depthwise k7
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_halo_conv_kernel_matches_plain_on_card(card, dtype):
+    for seed, (b, hs, w, cin, cout, k, s, pad, g, view) in enumerate(HALO_CASES):
+        lo, hi = pad, k - pad - s
+        rng = np.random.default_rng(seed)
+
+        def arr(*shape, scale=1.0):
+            return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+
+        x = arr(b, hs, w, cin)
+        above, below = arr(b, hs, w, cin), arr(b, hs, w, cin)
+        top = above[:, hs - lo:] if lo else None
+        bot = below[:, :hi] if hi else None
+        if not view:
+            top = None if top is None else top.contiguous()
+            bot = None if bot is None else bot.contiguous()
+        wts = arr(k, k, 1 if g > 1 else cin, cout, scale=0.1)
+        bias = arr(cout)
+        before = halo_conv2d_cuda.launches
+        got = halo_conv2d_cuda(x, top, bot, wts, bias, stride=s, padding=pad, groups=g)
+        assert halo_conv2d_cuda.launches == before + 1
+        want = halo_conv2d_ref(x, top, bot, wts, bias, stride=s, padding=pad, groups=g)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        if hi:  # an absent bottom halo reads as hi zero rows
+            got = halo_conv2d_cuda(x, top, None, wts, bias, stride=s, padding=pad, groups=g, hi=hi)
+            want = halo_conv2d_ref(x, top, torch.zeros_like(bot), wts, bias,
+                                   stride=s, padding=pad, groups=g)
+            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_empty_output_launches_nothing_on_card(card):
+    """A shard of 0 rows (or a batch of 0) has an empty output: no kernel
+    starts, and neither launch count moves."""
+    halo = torch.ones((2, 1, 9, 4), device=card)
+    wts, bias = torch.ones((3, 3, 4, 8), device=card), torch.ones(8, device=card)
+    before = halo_conv2d_cuda.launches, conv2d_cuda.launches
+    y = halo_conv2d_cuda(torch.zeros((2, 0, 9, 4), device=card), halo, halo, wts, bias)
+    z = conv2d_cuda(torch.zeros((0, 5, 5, 4), device=card), wts, bias)
+    assert (halo_conv2d_cuda.launches, conv2d_cuda.launches) == before
+    assert y.shape == (2, 0, 9, 8) and z.shape == (0, 5, 5, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["direct", "fused"])
+def test_spatial_smoke_vgg_on_card_matches_single_device(card, engine):
+    """The smoke VGG's first two blocks (stride alignment 4) over 4
+    capacity-weighted shards on the card equal the single-device features
+    through the direct conv."""
+    cfg = vgg.VGGConfig(img_res=64, width_mult=0.125, num_classes=10, blocks=((2, 64), (2, 128)))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = vgg.init(gen, cfg)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device="cuda")
+    net = cfg.geom()
+    comm = make_spatial_comm(4, device="cuda")
+    plan = plan_even(net, 4, ratios=(1.0, 0.55, 0.35, 0.8))
+    xs, heights = weighted_spatial_inputs(x, plan, comm, align=spatial_alignment(net))
+    before = halo_conv2d_cuda.launches
+    ys = features_spatial(params["features"], net, xs, comm=comm, heights=heights, engine=engine)
+    n_convs = sum(g.kind == "conv" for g in net.layers)
+    assert halo_conv2d_cuda.launches - before == (4 * n_convs if engine == "fused" else 0)
+    got = merge_padded_shards(ys, [h // spatial_alignment(net) for h in heights])
+    want = vgg.features(params, cfg, x)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -122,3 +122,37 @@ def test_rf_helpers_match():
         rf.out_size(1, 3, 1, 0)
     with pytest.raises(ValueError):
         rf.input_range_exact(2, 1, 3, 1, 1, 10)
+
+
+PLAN_EVEN_RATIOS = {2: (0.7, 0.3), 3: (3.0, 2.0, 1.0), 4: (1.0, 0.55, 0.35, 0.8),
+                    5: (1, 2, 3, 2, 1), 6: (0.0, 1, 1, 1, 1, 2), 7: (5, 1, 1, 1, 1, 1, 1),
+                    8: (4, 3, 2, 1, 1, 2, 3, 4)}
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["equal", "ratios"])
+@pytest.mark.parametrize("n", range(2, 9))
+@pytest.mark.parametrize("net", ["vgg16_224", "smoke"])
+def test_plan_even_matches(net, n, weighted):
+    """plan_even (and split_rows under it) Segment for Segment, for the equal
+    split and a capacity weighting (including a zero ratio, which leaves a
+    worker empty on small layers)."""
+    g, jg = NETS[net]
+    ratios = PLAN_EVEN_RATIOS[n] if weighted else None
+    assert_same_plan(partition.plan_even(g, n, ratios=ratios), jpart.plan_even(jg, n, ratios=ratios))
+
+
+@pytest.mark.parametrize("total", [0, 1, 7, 14, 224])
+@pytest.mark.parametrize("ratios", [(1.0,), (0.5, 0.5), (0.7, 0.2, 0.1), (0.05, 0.9, 0.05)])
+def test_split_rows_matches(total, ratios):
+    assert [_iv(s) for s in partition.split_rows(total, ratios)] == [
+        _iv(s) for s in jpart.split_rows(total, ratios)]
+
+
+@pytest.mark.parametrize("n,ratios", [(3, (1.0, 2.0)), (2, (1.0, -0.5)), (2, (0.0, 0.0))])
+def test_plan_even_rejects_like_jax(n, ratios):
+    g, jg = NETS["smoke"]
+    with pytest.raises(ValueError) as jexc:
+        jpart.plan_even(jg, n, ratios=ratios)
+    with pytest.raises(ValueError) as exc:
+        partition.plan_even(g, n, ratios=ratios)
+    assert str(exc.value) == str(jexc.value)
