@@ -1,13 +1,13 @@
-"""Network geometry for the planner: the port's copy of ``ConvNetGeom`` and
-``vgg16_geom`` from ``repro/core/nets.py`` (analytical layer geometry and FLOP
+"""Network geometry for the planner: the port's copy of ``ConvNetGeom``,
+``vgg16_geom`` and ``vit_l16_geom`` from ``repro/core/nets.py`` (analytical layer geometry and FLOP
 accounting, kept apart from the runnable models in ``repro_torch.models``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .rf import LayerGeom, conv, out_size, pool
+from .rf import LayerGeom, attn, conv, out_size, pool
 
-__all__ = ["ConvNetGeom", "vgg16_geom"]
+__all__ = ["ConvNetGeom", "vgg16_geom", "vit_l16_geom"]
 
 
 @dataclass(frozen=True)
@@ -62,4 +62,34 @@ def vgg16_geom(in_rows: int = 224) -> ConvNetGeom:
     head = sum(2.0 * a * b for a, b in fc)
     return ConvNetGeom(
         name="vgg16", in_rows=in_rows, in_channels=3, layers=tuple(layers), head_flops=head
+    )
+
+
+def vit_l16_geom(
+    in_rows: int = 224,
+    patch: int = 16,
+    n_blocks: int = 24,
+    d: int = 1024,
+    heads: int = 16,
+    d_ff: int = 4096,
+    num_classes: int = 1000,
+    name: str = "vit_l16",
+) -> ConvNetGeom:
+    """ViT-L/16 as a spatial geometry: a patch-embedding conv (k=s=patch)
+    followed by ``n_blocks`` of [attn, 1x1 out-projection, 1x1 MLP-up, 1x1
+    MLP-down] over the H/patch x W/patch token grid, plus a classifier head.
+
+    Residual adds and layernorms are left out, as in the JAX geometry; the
+    runnable counterpart ``repro_torch.models.vit_spatial`` matches it layer
+    for layer.  The attention layers leave no row partition: the net runs
+    under the head_sequence scheme."""
+    layers: list[LayerGeom] = [conv("patch", 3, d, k=patch, s=patch, p=0)]
+    for b in range(n_blocks):
+        layers.append(attn(f"attn{b}", d, heads))
+        layers.append(conv(f"proj{b}", d, d, k=1, s=1, p=0))
+        layers.append(conv(f"mlp{b}_up", d, d_ff, k=1, s=1, p=0))
+        layers.append(conv(f"mlp{b}_dn", d_ff, d, k=1, s=1, p=0))
+    head = 2.0 * d * num_classes
+    return ConvNetGeom(
+        name=name, in_rows=in_rows, in_channels=3, layers=tuple(layers), head_flops=head
     )

@@ -3,9 +3,10 @@
 The port's copy of the HALP-plan half of ``repro/core/partition.py``: the
 Segment/plan data model, the N-way slot layout with auto-reduction, and the
 materialised :class:`HALPPlan` that :func:`repro_torch.spatial.run_plan`
-executes, and the N-way contiguous split :func:`plan_even` whose row shares
-the spatial engine deploys.  The per-stage ``SchemePlan`` half and the
-batched-DES layout walk are not ported yet.
+executes, the N-way contiguous split :func:`plan_even` whose row shares
+the spatial engine deploys, and the per-stage scheme half (:func:`plan_scheme`
+and the :class:`SchemePlan` it materialises).  The batched-DES layout walk and
+the scheme plans' communication accounting are not ported yet.
 
 The host ES partitions every layer's *output rows* into contiguous **slots**
 along the row axis.  Slots alternate between secondary segments and host-owned
@@ -21,10 +22,14 @@ so the plan is lossless by construction.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from functools import lru_cache
+from typing import TYPE_CHECKING, Sequence
 
 from .nets import ConvNetGeom
 from .rf import input_range_exact
+
+if TYPE_CHECKING:  # typing only
+    from .topology import CollabTopology
 
 __all__ = [
     "Segment",
@@ -38,6 +43,22 @@ __all__ = [
     "plan_layout",
     "split_rows",
     "plan_from_layout",
+    "SCHEME_HALO",
+    "SCHEME_NP",
+    "SCHEME_HS",
+    "SCHEME_HOST",
+    "SCHEMES",
+    "stage_spans",
+    "stage_scheme_options",
+    "baseline_assignment",
+    "SchemeSegment",
+    "fuse_assignment",
+    "hub_segment_fracs",
+    "SchemeLayout",
+    "scheme_layout",
+    "SchemePlan",
+    "plan_from_scheme_layout",
+    "plan_scheme",
 ]
 
 
@@ -603,3 +624,327 @@ def _check_layout(layout: PlanLayout) -> None:
                     f"the overlap zone or rebalance the segment ratios",
                     reduce_at=(i + 1, i),
                 )
+
+
+# ---------------------------------------------------------------------------
+# Per-stage partitioning schemes (copied from the JAX planner)
+#
+# A plan may choose a scheme per **stage** (the layer groups between pooling
+# boundaries, plus one stage per attention block):
+#
+# * ``halo_segment``    -- the receptive-field row split above.
+# * ``non_penetrative`` -- output-channel splits: no overlap zones and no halo
+#   edges.  Channel-local layers (pool/depthwise) keep their partition; dense
+#   convs re-gather the full input through the host hub.
+# * ``head_sequence``   -- attention stages: heads split across secondaries
+#   (each head attends over the full token grid), the pointwise convs between
+#   them split by token rows.  The only scheme that partitions attention.
+# * ``host_solo``       -- implicit fallback: the host computes the stage alone.
+#
+# Non-halo schemes use a **hub model**: the host holds the full feature map at
+# segment boundaries and relays every redistribution; it computes nothing
+# inside hub segments.
+# ---------------------------------------------------------------------------
+
+SCHEME_HALO = "halo_segment"
+SCHEME_NP = "non_penetrative"
+SCHEME_HS = "head_sequence"
+SCHEME_HOST = "host_solo"
+SCHEMES = (SCHEME_HALO, SCHEME_NP, SCHEME_HS)
+
+
+def _is_pointwise(g) -> bool:
+    return g.kind == "conv" and g.k == 1 and g.s == 1 and g.p == 0
+
+
+def stage_spans(net: ConvNetGeom) -> tuple[tuple[int, int], ...]:
+    """Inclusive (start, stop) layer spans of the scheme stages.
+
+    A new stage starts at layer 0, after every pooling layer, and at every
+    attention layer (pointwise layers following an attention stay in its
+    stage, so ViT blocks are one stage)."""
+    starts = [
+        i
+        for i, g in enumerate(net.layers)
+        if i == 0 or g.kind == "attn" or net.layers[i - 1].kind == "pool"
+    ]
+    stops = [s - 1 for s in starts[1:]] + [len(net.layers) - 1]
+    return tuple(zip(starts, stops))
+
+
+def _scheme_valid(net: ConvNetGeom, span: tuple[int, int], scheme: str) -> bool:
+    layers = net.layers[span[0] : span[1] + 1]
+    if scheme in (SCHEME_HALO, SCHEME_NP):
+        return all(g.kind != "attn" for g in layers)
+    if scheme == SCHEME_HS:
+        return all(g.kind == "attn" or _is_pointwise(g) for g in layers)
+    if scheme == SCHEME_HOST:
+        return True
+    raise ValueError(f"unknown partitioning scheme {scheme!r}")
+
+
+def stage_scheme_options(
+    net: ConvNetGeom, span: tuple[int, int], schemes: Sequence[str] = SCHEMES
+) -> tuple[str, ...]:
+    """Vocabulary members legal for one stage, in vocabulary order; stages no
+    scheme can partition fall back to the host computing them alone."""
+    opts = tuple(s for s in schemes if _scheme_valid(net, span, s))
+    return opts or (SCHEME_HOST,)
+
+
+def baseline_assignment(
+    net: ConvNetGeom, schemes: Sequence[str] = SCHEMES
+) -> tuple[str, ...]:
+    """First legal vocabulary member per stage (halo-first under the default
+    vocabulary)."""
+    return tuple(
+        stage_scheme_options(net, span, schemes)[0] for span in stage_spans(net)
+    )
+
+
+@dataclass(frozen=True)
+class SchemeSegment:
+    """A maximal run of consecutive same-scheme stages, planned as one unit."""
+
+    scheme: str
+    start: int  # first layer index (inclusive)
+    stop: int  # last layer index (inclusive)
+    stages: tuple[int, ...]  # stage indices fused into this segment
+
+
+def fuse_assignment(
+    spans: Sequence[tuple[int, int]], assignment: Sequence[str]
+) -> tuple[SchemeSegment, ...]:
+    if len(spans) != len(assignment):
+        raise ValueError(
+            f"need one scheme per stage: {len(assignment)} schemes, {len(spans)} stages"
+        )
+    segs: list[SchemeSegment] = []
+    for idx, (span, sch) in enumerate(zip(spans, assignment)):
+        if segs and segs[-1].scheme == sch:
+            last = segs[-1]
+            segs[-1] = SchemeSegment(sch, last.start, span[1], last.stages + (idx,))
+        else:
+            segs.append(SchemeSegment(sch, span[0], span[1], (idx,)))
+    return tuple(segs)
+
+
+@lru_cache(maxsize=512)
+def _segment_subnet(net: ConvNetGeom, start: int, stop: int) -> ConvNetGeom:
+    """The layers of one segment as a standalone geometry (head_flops = 0: the
+    overall head runs once, after the whole net)."""
+    sizes = net.sizes()
+    return ConvNetGeom(
+        name=f"{net.name}[{start}:{stop}]",
+        in_rows=sizes[start],
+        in_channels=net.layers[start].c_in,
+        layers=net.layers[start : stop + 1],
+        head_flops=0.0,
+    )
+
+
+def hub_segment_fracs(
+    net: ConvNetGeom, seg: SchemeSegment, ratios: Sequence[float]
+) -> tuple[tuple, tuple[float, ...]]:
+    """Work fractions of one hub-relayed (non_penetrative / head_sequence)
+    segment: per layer a ``(relay, up, down, cmp)`` entry -- ``relay`` says
+    whether the layer redistributes through the host at all (it depends only
+    on the layer kinds), and the tuples are per-secondary fractions of the
+    layer's input uploaded to the host, the input downloaded from the host,
+    and the layer's FLOPs computed -- plus the final per-secondary fractions
+    of the last layer's output gathered back.
+
+    Channel-local layers (pool/depthwise under NP; consecutive pointwise convs
+    under HS) keep the previous partition (up = down = 0); a change of
+    partition axis re-gathers through the host (dense convs and attention need
+    the full input: down = 1 - held); at the segment's first layer the host
+    already holds the full map (up = 0)."""
+    n = len(ratios)
+    sizes = net.sizes()
+    zeros = (0.0,) * n
+    held: tuple[float, ...] | None = None
+    held_axis: str | None = None  # "channel" | "heads" | "rows"
+    per_layer = []
+    for i in range(seg.start, seg.stop + 1):
+        g = net.layers[i]
+        relay = True
+        if seg.scheme == SCHEME_NP:
+            counts = _split_counts(g.c_out, ratios)
+            share = tuple(c / g.c_out for c in counts)
+            if g.kind == "conv":  # dense: every filter needs the full input
+                up = held if held is not None else zeros
+                down = tuple(1.0 - h for h in (held or zeros))
+            else:  # pool/depthwise: channel-local, partition carries over
+                if held_axis == "channel":
+                    relay, up, down = False, zeros, zeros
+                else:
+                    up, down = zeros, share
+            held, held_axis = share, "channel"
+        elif seg.scheme == SCHEME_HS:
+            if g.kind == "attn":
+                counts = _split_counts(g.heads, ratios)
+                share = tuple(c / g.heads for c in counts)
+                up = held if held is not None else zeros
+                down = tuple(1.0 - h for h in (held or zeros))
+                held, held_axis = share, "heads"
+            else:  # pointwise conv: token-row split
+                o = sizes[i + 1]
+                counts = _split_counts(o, ratios)
+                share = tuple(c / o for c in counts)
+                if held_axis == "rows":
+                    # same row partition carries over: transfer-free
+                    relay, up, down = False, zeros, zeros
+                elif held is None:
+                    up, down = zeros, share
+                else:  # scatter after a head split: upload heads, download rows
+                    up, down = held, share
+                held, held_axis = share, "rows"
+        else:
+            raise ValueError(f"{seg.scheme!r} is not a hub scheme")
+        per_layer.append((relay, up, down, share))
+    return tuple(per_layer), (held if held is not None else zeros)
+
+
+@dataclass
+class SchemeLayout:
+    """Integer/fraction skeleton of a mixed-scheme plan (the scheme twin of
+    :class:`PlanLayout`): per segment either a halo sub-layout or the hub
+    fraction table."""
+
+    net: ConvNetGeom
+    host: str
+    secondaries: tuple[str, ...]
+    overlap_rows: int
+    ratios: tuple[float, ...]
+    assignment: tuple[str, ...]
+    spans: tuple[tuple[int, int], ...]
+    segments: tuple[SchemeSegment, ...]
+    halo_layouts: tuple[PlanLayout | None, ...]  # parallel to segments
+    hub_fracs: tuple  # parallel to segments; None for halo/host_solo segments
+
+
+def scheme_layout(
+    net: ConvNetGeom,
+    secondaries: Sequence[str],
+    host: str = E0,
+    overlap_rows: int = 4,
+    ratios: Sequence[float] | None = None,
+    assignment: Sequence[str] | None = None,
+    schemes: Sequence[str] = SCHEMES,
+    auto_reduce: bool = True,
+) -> SchemeLayout:
+    """Build the mixed-scheme layout for one per-stage scheme assignment.
+
+    Raises :class:`PlanInfeasible` (via the halo sub-planner) when a halo
+    segment cannot be realised; hub segments are always feasible."""
+    secondaries = tuple(secondaries)
+    if len(secondaries) < 2:
+        raise ValueError("scheme plans need at least two secondaries around the host")
+    if host in secondaries:
+        raise ValueError(f"host {host!r} cannot also be a secondary")
+    ratios = tuple(_norm_ratios(len(secondaries), ratios, "secondary"))
+    spans = stage_spans(net)
+    if assignment is None:
+        assignment = baseline_assignment(net, schemes)
+    assignment = tuple(assignment)
+    for span, sch in zip(spans, assignment):
+        if not _scheme_valid(net, span, sch):
+            raise ValueError(
+                f"scheme {sch!r} is not valid for stage {span} of {net.name}"
+            )
+    segments = fuse_assignment(spans, assignment)
+    halo_layouts: list[PlanLayout | None] = []
+    hub: list = []
+    for seg in segments:
+        if seg.scheme == SCHEME_HALO:
+            sub = _segment_subnet(net, seg.start, seg.stop)
+            halo_layouts.append(
+                plan_layout(
+                    sub,
+                    secondaries,
+                    host=host,
+                    overlap_rows=overlap_rows,
+                    ratios=ratios,
+                    auto_reduce=auto_reduce,
+                )
+            )
+            hub.append(None)
+        elif seg.scheme == SCHEME_HOST:
+            halo_layouts.append(None)
+            hub.append(None)
+        else:
+            halo_layouts.append(None)
+            hub.append(hub_segment_fracs(net, seg, ratios))
+    return SchemeLayout(
+        net=net,
+        host=host,
+        secondaries=secondaries,
+        overlap_rows=overlap_rows,
+        ratios=ratios,
+        assignment=assignment,
+        spans=spans,
+        segments=segments,
+        halo_layouts=tuple(halo_layouts),
+        hub_fracs=tuple(hub),
+    )
+
+
+@dataclass(frozen=True)
+class SchemePlan:
+    """Materialised mixed-scheme plan: halo segments carry full
+    :class:`HALPPlan`\\ s over their sub-net.
+    :func:`repro_torch.spatial.run_plan` executes it scheme by scheme."""
+
+    net: ConvNetGeom
+    host: str
+    secondaries: tuple[str, ...]
+    ratios: tuple[float, ...]
+    overlap_rows: int
+    assignment: tuple[str, ...]
+    spans: tuple[tuple[int, int], ...]
+    segments: tuple[SchemeSegment, ...]
+    halo_plans: tuple[HALPPlan | None, ...]  # parallel to segments
+
+
+def plan_from_scheme_layout(layout: SchemeLayout) -> SchemePlan:
+    return SchemePlan(
+        net=layout.net,
+        host=layout.host,
+        secondaries=layout.secondaries,
+        ratios=layout.ratios,
+        overlap_rows=layout.overlap_rows,
+        assignment=layout.assignment,
+        spans=layout.spans,
+        segments=layout.segments,
+        halo_plans=tuple(
+            plan_from_layout(lay) if lay is not None else None
+            for lay in layout.halo_layouts
+        ),
+    )
+
+
+def plan_scheme(
+    net: ConvNetGeom,
+    topology: "CollabTopology",
+    overlap_rows: int = 4,
+    ratios: Sequence[float] | None = None,
+    assignment: Sequence[str] | None = None,
+    schemes: Sequence[str] = SCHEMES,
+    auto_reduce: bool = True,
+) -> SchemePlan:
+    """Mixed-scheme plan for a topology.  ``ratios`` defaults to capacity
+    weights; ``assignment`` to the first legal vocabulary member per stage."""
+    if ratios is None:
+        ratios = topology.capacity_ratios()
+    return plan_from_scheme_layout(
+        scheme_layout(
+            net,
+            topology.secondaries,
+            host=topology.host,
+            overlap_rows=overlap_rows,
+            ratios=ratios,
+            assignment=assignment,
+            schemes=schemes,
+            auto_reduce=auto_reduce,
+        )
+    )

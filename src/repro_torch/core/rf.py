@@ -1,8 +1,9 @@
 """Receptive-field arithmetic for segment-based partitioning (paper §II, eqs. 1, 8-9).
 
-The port's own copy of the part of ``repro/core/rf.py`` the HALP planner and
-the plan executor need: the layer geometry and the exact input-row range of a
-range of output rows.  For output rows ``[o_lo, o_hi]`` (1-indexed, inclusive)
+The port's own copy of the part of ``repro/core/rf.py`` the planners and
+the plan executor need: the layer geometry (convolution, pooling and the
+attention layer of the ViT geometry) and the exact input-row range of a range
+of output rows.  For output rows ``[o_lo, o_hi]`` (1-indexed, inclusive)
 of a layer with kernel ``k``, stride ``s``, padding ``p``:
 ``in_lo = (o_lo-1)*s + 1 - p`` and ``in_hi = (o_hi-1)*s + k - p``, clipped to
 the valid input rows (out-of-range rows are the zero padding).
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["LayerGeom", "out_size", "input_range_exact", "conv", "pool"]
+__all__ = ["LayerGeom", "out_size", "input_range_exact", "attn", "conv", "pool"]
 
 
 @dataclass(frozen=True)
@@ -46,6 +47,13 @@ class LayerGeom:
 
 def conv(name: str, c_in: int, c_out: int, k: int = 3, s: int = 1, p: int = 1) -> LayerGeom:
     return LayerGeom(name=name, kind="conv", k=k, s=s, p=p, c_in=c_in, c_out=c_out)
+
+
+def attn(name: str, d: int, heads: int) -> LayerGeom:
+    """Multi-head self-attention over the spatial token grid (d = model width)."""
+    if d % heads:
+        raise ValueError(f"model width {d} not divisible by {heads} heads")
+    return LayerGeom(name=name, kind="attn", k=1, s=1, p=0, c_in=d, c_out=d, heads=heads)
 
 
 def pool(name: str, c: int, k: int = 2, s: int = 2, p: int = 0) -> LayerGeom:

@@ -1,7 +1,7 @@
-"""Core layers on NHWC tensors (twin of the VGG subset of ``repro/models/layers.py``).
+"""Core layers on NHWC tensors (twin of the VGG and ViT subset of ``repro/models/layers.py``).
 
 The conv goes to the hand-written kernel's wrapper (which takes its plain
-version for CPU tensors); pooling, the activation and the dense head stay
+version for CPU tensors); pooling, the activation and the dense layers stay
 plain PyTorch, as the JAX package left them to XLA.
 """
 from __future__ import annotations
@@ -35,6 +35,11 @@ def max_pool(x: torch.Tensor, k: int = 2, s: int = 2, padding: str = "VALID") ->
         raise ValueError(f"only VALID pooling is supported, got {padding!r}")
     # [N, Ho, Wo, C, k, k] windows as a view, reduced over the last two axes
     return x.unfold(1, k, s).unfold(2, k, s).amax(dim=(-2, -1))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NC mean over the spatial axes."""
+    return x.mean(dim=(1, 2))
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

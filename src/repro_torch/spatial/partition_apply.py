@@ -1,14 +1,19 @@
-"""Execute a HALP plan segment by segment (twin of ``repro/spatial/partition_apply.py``).
+"""Execute a HALP or mixed-scheme plan segment by segment (twin of
+``repro/spatial/partition_apply.py``).
 
 Each slot's feature rows are materialised separately, and the input of every
 layer segment is rebuilt strictly from (a) rows the slot computed itself and
 (b) the inter-slot messages the plan prescribes.  If the plan's messages were
 insufficient, reconstruction fails loudly, so equality with the single-device
 forward proves both the receptive-field partitioning and the message algebra.
+A :class:`~repro_torch.core.partition.SchemePlan` runs each segment under its
+own scheme: halo segments through the HALP executor, hub segments
+(non_penetrative, head_sequence, host_solo) from exactly the slice of
+parameters and input each secondary's scheme prescribes.
 
 Runs on one device: this is the semantic model of the collaboration, with the
-slots' work issued one after another on the current stream.  ``SchemePlan``s
-and the ``verify=`` static check of the JAX executor are not ported yet.
+slots' work issued one after another on the current stream.  The ``verify=``
+static check of the JAX executor is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +24,17 @@ import torch
 import torch.nn.functional as F
 
 from ..core.nets import ConvNetGeom
-from ..core.partition import HALPPlan, Segment
+from ..core.partition import (
+    SCHEME_HALO,
+    SCHEME_HOST,
+    SCHEME_HS,
+    SCHEME_NP,
+    HALPPlan,
+    SchemePlan,
+    Segment,
+    _split_counts,
+)
+from ..models.common import tree_map
 
 __all__ = ["run_plan", "segment_forward"]
 
@@ -53,7 +68,7 @@ def segment_forward(apply_layer, params, geom, x_rows: torch.Tensor, seg: Segmen
 
 
 def run_plan(
-    plan: HALPPlan,
+    plan: HALPPlan | SchemePlan,
     layer_params: list,
     apply_layer,
     x: torch.Tensor,
@@ -67,7 +82,14 @@ def run_plan(
     ``time_observer(es, flops, elapsed_s)``: when set, every slot's segments
     run synchronously (``torch.cuda.synchronize`` on a CUDA tensor) and, once
     per call, the observer receives that slot's total FLOP count and measured
-    wall-clock."""
+    wall-clock.
+
+    ``plan`` may also be a :class:`~repro_torch.core.partition.SchemePlan`:
+    each segment then executes under its own scheme (halo segments recurse
+    through this very function on their sub-plan) and the observer receives
+    samples attributed to physical ES names across all segments."""
+    if isinstance(plan, SchemePlan):
+        return _run_scheme_plan(plan, layer_params, apply_layer, x, time_observer)
     net: ConvNetGeom = plan.net
     sizes = net.sizes()
     es_names = plan.es_names
@@ -134,3 +156,125 @@ def run_plan(
     # final merge on the host (paper: sub-outputs -> FL input)
     ordered = sorted(es_names, key=lambda es: plan.parts[-1].out[es].lo)
     return torch.cat([outs[es] for es in ordered if plan.parts[-1].out[es]], dim=1)
+
+
+def _slice_last_axis(params, lo: int, hi: int):
+    """Every tensor leaf's last axis restricted to ``[lo, hi)`` -- the shared
+    shard selector for output-channel splits (conv ``w``/``b``) and head-major
+    Q/K/V splits (slicing ``[lo*dh, hi*dh)`` picks whole heads).  The leaves
+    are views."""
+    return tree_map(lambda a: a[..., lo:hi], params)
+
+
+def _filter_slice(params, lo: int, hi: int):
+    """:func:`_slice_last_axis` copied to contiguous leaves, once per call:
+    the conv kernel takes dense weights, and an HWIO slice of the output
+    channels is not."""
+    return tree_map(torch.Tensor.contiguous, _slice_last_axis(params, lo, hi))
+
+
+def _bounds(counts: list[int]) -> list[int]:
+    out = [0]
+    for c in counts:
+        out.append(out[-1] + c)
+    return out
+
+
+def _run_scheme_plan(
+    plan: SchemePlan,
+    layer_params: list,
+    apply_layer,
+    x: torch.Tensor,
+    time_observer: Callable[[str, float, float], None] | None,
+) -> torch.Tensor:
+    """Execute a mixed-scheme plan segment by segment (hub model).
+
+    The host holds the full feature map at every segment boundary.  Halo
+    segments recurse through :func:`run_plan` on their sub-plan; hub segments
+    materialise each secondary's shard from exactly the slice of parameters
+    and input its scheme prescribes -- a non-penetrative secondary sees only
+    its filter slice, a head/sequence secondary its head or token-row range --
+    and concatenation along the split axis rebuilds the layer output."""
+    net: ConvNetGeom = plan.net
+    sizes = net.sizes()
+    host = plan.host
+    all_es = (*plan.secondaries, host)
+    flops_acc = {es: 0.0 for es in all_es}
+    secs_acc = {es: 0.0 for es in all_es}
+
+    def acc(es: str, fl: float, dt: float) -> None:
+        flops_acc[es] += fl
+        secs_acc[es] += dt
+
+    def timed(es: str, fl: float, fn):
+        if time_observer is None:
+            return fn()
+        t0 = time.perf_counter()
+        y = fn()
+        if y.is_cuda:
+            torch.cuda.synchronize(y.device)
+        acc(es, fl, time.perf_counter() - t0)
+        return y
+
+    for seg, hp in zip(plan.segments, plan.halo_plans):
+        if seg.scheme == SCHEME_HALO:
+            sub_obs = (
+                (lambda slot, fl, dt, _hp=hp: acc(_hp.owner_of(slot), fl, dt))
+                if time_observer
+                else None
+            )
+            x = run_plan(hp, layer_params[seg.start : seg.stop + 1], apply_layer, x,
+                         time_observer=sub_obs)
+            continue
+        for i in range(seg.start, seg.stop + 1):
+            g = net.layers[i]
+            avail = Segment(1, sizes[i])
+            full_out = Segment(1, sizes[i + 1])
+            if seg.scheme == SCHEME_HOST:
+                x = timed(host, net.layer_flops(i), lambda: segment_forward(
+                    apply_layer, layer_params[i], g, x, full_out, avail, sizes[i]))
+                continue
+            pieces: list[torch.Tensor] = []
+            if seg.scheme == SCHEME_NP:
+                b = _bounds(_split_counts(g.c_out, plan.ratios))
+                for j, es in enumerate(plan.secondaries):
+                    lo, hi = b[j], b[j + 1]
+                    if lo == hi:
+                        continue
+                    frac = (hi - lo) / g.c_out
+                    p = _filter_slice(layer_params[i], lo, hi) if layer_params[i] else layer_params[i]
+                    # dense conv: full input, a slice of the filters;
+                    # channel-local (pool/depthwise): a slice of the channels
+                    xin = x if g.kind == "conv" else x[..., lo:hi]
+                    pieces.append(timed(es, net.layer_flops(i) * frac, lambda: segment_forward(
+                        apply_layer, p, g, xin, full_out, avail, sizes[i])))
+                x = torch.cat(pieces, dim=-1)
+            elif seg.scheme == SCHEME_HS:
+                if g.kind == "attn":
+                    dh = g.c_in // g.heads
+                    b = _bounds(_split_counts(g.heads, plan.ratios))
+                    for j, es in enumerate(plan.secondaries):
+                        lo, hi = b[j] * dh, b[j + 1] * dh
+                        if lo == hi:
+                            continue
+                        frac = (b[j + 1] - b[j]) / g.heads
+                        pieces.append(timed(es, net.layer_flops(i) * frac, lambda: apply_layer(
+                            _slice_last_axis(layer_params[i], lo, hi), g, x)))
+                    x = torch.cat(pieces, dim=-1)
+                else:
+                    b = _bounds(_split_counts(sizes[i + 1], plan.ratios))
+                    for j, es in enumerate(plan.secondaries):
+                        rows = Segment(b[j] + 1, b[j + 1])
+                        if not rows:
+                            continue
+                        pieces.append(timed(es, net.layer_flops(i, rows.rows), lambda: segment_forward(
+                            apply_layer, layer_params[i], g, x, rows, avail, sizes[i])))
+                    x = torch.cat(pieces, dim=1)
+            else:
+                raise AssertionError(f"unknown scheme {seg.scheme!r}")
+
+    if time_observer:
+        for es in all_es:
+            if flops_acc[es] > 0 and secs_acc[es] > 0:
+                time_observer(es, flops_acc[es], secs_acc[es])
+    return x

@@ -12,15 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import plan_even
+from repro_torch.core import partition, plan_even
+from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
 from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
 from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
 from repro_torch.launch.mesh import make_spatial_comm
 from repro_torch.launch.serve import serve
-from repro_torch.models import vgg
+from repro_torch.models import vgg, vit_spatial
 from repro_torch.models.common import tree_map
 from repro_torch.parallel import weighted_spatial_inputs
-from repro_torch.spatial import features_spatial, merge_padded_shards, spatial_alignment
+from repro_torch.spatial import features_spatial, merge_padded_shards, run_plan, spatial_alignment
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -149,3 +150,76 @@ def test_spatial_smoke_vgg_on_card_matches_single_device(card, engine):
     got = merge_padded_shards(ys, [h // spatial_alignment(net) for h in heights])
     want = vgg.features(params, cfg, x)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# (B, H, Hkv, T, S, D, causal): the ViT path's head-split shape (8 of 16
+# heads over the 14x14 grid), top-left causal T != S both ways, GQA at D=128
+ATTN_CASES = [
+    (4, 8, 8, 196, 196, 64, False),
+    (2, 4, 4, 100, 260, 32, True),
+    (2, 4, 4, 260, 100, 16, True),
+    (2, 16, 4, 130, 130, 128, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_card(card, dtype):
+    for seed, (b, h, hkv, t, s, d, causal) in enumerate(ATTN_CASES):
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), dtype=np.float32)).to(card, dtype)
+                   for n, heads in ((t, h), (s, hkv), (s, hkv)))
+        before = flash_attention.launches
+        got = gqa_flash(q, k, v, causal=causal)  # model layout, read through strides
+        assert flash_attention.launches == before + 1
+        g = h // hkv
+        want = attention_ref(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(g, dim=1),
+                             v.transpose(1, 2).repeat_interleave(g, dim=1), causal=causal).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_empty_batch_launches_nothing_on_card(card):
+    q = torch.zeros((0, 4, 10, 16), device=card)
+    before = flash_attention.launches
+    y = flash_attention(q, q, q, causal=False)
+    z = gqa_flash(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    assert flash_attention.launches == before
+    assert y.shape == q.shape and z.shape == (0, 10, 4, 16)
+
+
+@pytest.mark.cuda
+def test_non_penetrative_plan_on_card_matches_single_device(card):
+    """Every dense conv of the smoke VGG under filter splits: the executor
+    hands K1 contiguous copies of the non-contiguous HWIO slices (the kernel
+    takes dense weights only), and the features equal the single-device ones."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = vgg.init(gen, vgg.SMOKE)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device="cuda")
+    w = params["features"][0]["w"]
+    with pytest.raises(ValueError, match="contiguous"):
+        conv2d_cuda(x, w[..., 2:5], None)
+    net = vgg.SMOKE.geom()
+    plan = partition.plan_from_scheme_layout(partition.scheme_layout(
+        net, ("e1", "e2", "e3"), ratios=(0.5, 0.3, 0.2),
+        assignment=(partition.SCHEME_NP,) * len(partition.stage_spans(net))))
+    before = conv2d_cuda.launches
+    got = run_plan(plan, params["features"], vgg.apply_layer, x)
+    assert conv2d_cuda.launches - before == 3 * sum(g.kind == "conv" for g in net.layers)
+    torch.testing.assert_close(got, vgg.features(params, vgg.SMOKE, x), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_vit_scheme_plan_on_card_matches_single_device(card):
+    """The smoke ViT under its baseline plan (head_sequence blocks): K3 once
+    per head shard and K1 per conv slot, equal to the single-device forward."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = vit_spatial.SMOKE
+    params = vit_spatial.init(gen, cfg)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device="cuda")
+    plan = partition.plan_from_scheme_layout(partition.scheme_layout(
+        cfg.geom(), ("e1", "e2", "e3"), ratios=(0.5, 0.3, 0.2)))
+    before = flash_attention.launches
+    got = run_plan(plan, params["features"], vit_spatial.apply_layer, x)
+    assert flash_attention.launches - before == 3 * cfg.n_blocks
+    torch.testing.assert_close(got, vit_spatial.features(params, cfg, x), rtol=2e-5, atol=2e-5)

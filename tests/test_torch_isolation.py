@@ -51,4 +51,7 @@ print(json.dumps({"imported": names, "bad": bad}))
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in out["imported"]
     assert "repro_torch.kernels.conv2d.ops" in out["imported"]
+    assert "repro_torch.kernels.attention.ops" in out["imported"]
+    assert "repro_torch.models.vit_spatial" in out["imported"]
+    assert "repro_torch.core.topology" in out["imported"]
     assert out["bad"] == []
