@@ -13,8 +13,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    it (the ViT's 16x16/s16 patch-embed slots and row-split 1x1 convs, VGG's
    filter slices) plus a strided, a depthwise and a strided-view case, in
    float32 (TF32 off) and bfloat16,
+   printing the core's split count of K (S) and gather variant per shape,
    timing the kernel, the plain version and ``F.conv2d`` (a yardstick the
-   port never calls) beside the least time the card could take;
+   port never calls) beside the least time the card could take (float32 at
+   the 3xTF32 rate the kernel runs, with the CUDA cores' FMA bound beside it);
 4. serves full-width VGG-16 (224x224, width 1.0, 1000 classes, seeded random
    weights) through ``plan_halp(overlap_rows=4)`` and the port's
    ``BatchingEngine``, counts the kernel's launches in that run, and checks
@@ -27,8 +29,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3b. holds the halo-conv kernel (K2's port) against its plain version on the
    card at every shape the spatial path (phase 5) hands it, plus stride 2,
    k7 s2, depthwise k7, row-slice-view halos and a ragged shard, in float32
-   and bfloat16, timing it beside its plain version, ``F.conv2d`` on the
-   concatenated slab (a yardstick the port never calls) and its bound;
+   and bfloat16, with its split count and gather variant, timing it beside
+   its plain version, ``F.conv2d`` on the concatenated slab (a yardstick the
+   port never calls) and its bounds, as phase 3;
 5. runs full-width VGG-16 (batch 4, phase 4's weights and images) through
    the spatial engine with the fused engine on one card, in two layouts:
    (a) capacity-weighted, 4 shards of (96, 32, 32, 64) rows from
@@ -73,9 +76,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: float32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# NVIDIA H100 SXM data sheet, dense, HBM3 bandwidth.  The convs (K1, K2) run
+# float32 as 3xTF32 on the tensor cores: three TF32 products per product, a
+# third of the 495 TFLOP/s TF32 peak; bf16 at the tensor cores' 989.  K3 runs
+# float32 FMAs on the CUDA cores (67 TFLOP/s), the rate its bound keeps, and
+# beside every conv bound the same FMA rate is printed as the old yardstick.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+FFMA_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_REQUESTS = 16
@@ -201,16 +208,29 @@ def spatial_calls(net, heights, batch: int, weighted: bool) -> list[dict]:
     return calls
 
 
-def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, float]:
-    """(ms the operations need at the peak rate of ``dtype``, ms the bytes
-    need at the HBM rate); the bound is the larger."""
-    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tuple[float, float]:
+    """(ms the operations need at the peak rate of ``dtype`` -- or, with
+    ``ffma``, at the CUDA cores' float32 FMA rate -- ms the bytes need at the
+    HBM rate); the bound is the larger."""
+    rate = FFMA_FLOPS if ffma else PEAK_FLOPS[dtype]
+    return flops / rate * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
-def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list]:
+# The port's kernels in a profile, by a substring of the device kernel's name
+# (the split-K reduction is one kernel for K1 and K2 alike).
+KERNEL_FAMILIES = (("conv2d_igemm<float, (anonymous namespace)::DenseRows", "K1"),
+                   ("conv2d_igemm<float, (anonymous namespace)::HaloRows", "K2"),
+                   ("splitk_reduce", "K1/K2 split-K reduction"), ("flash_fwd", "K3"))
+
+
+def kernel_family(name: str) -> str:
+    return next((fam for key, fam in KERNEL_FAMILIES if key in name), "other")
+
+
+def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list, dict]:
     """Mean host-clock ms of 5 steady calls of ``forward`` (after one warm
     call), then one call under the profiler: (ms, device busy ms, the top
-    device rows).  Prints both."""
+    device rows, device ms by kernel family).  Prints them."""
     forward()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -229,6 +249,11 @@ def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list]
     busy_ms = sum(a.self_device_time_total for a in by_kernel) / 1e3
     top = [dict(name=a.key, ms=a.self_device_time_total / 1e3, count=a.count)
            for a in by_kernel[:8] if a.self_device_time_total > 0]
+    families: dict = {}
+    for a in by_kernel:
+        fam = families.setdefault(kernel_family(a.key), dict(ms=0.0, count=0))
+        fam["ms"] += a.self_device_time_total / 1e3
+        fam["count"] += a.count
     busy = (f"device busy in one profiled forward: {busy_ms:.3f} ms (idle share "
             f"{1 - busy_ms / fwd_ms:.3f} of the steady forward)" if busy_ms > 0
             else "the profiler traced no device time: idle share not measured")
@@ -236,7 +261,9 @@ def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list]
           f"{fwd_ms:.3f} ms; {busy}")
     for t in top:
         print(f"  {t['ms']:.3f} ms x{t['count']}  {t['name'][:90]}")
-    return fwd_ms, busy_ms, top
+    print("  device ms by kernel: " + "; ".join(f"{fam} {v['ms']:.3f} (x{v['count']})"
+                                                 for fam, v in sorted(families.items())))
+    return fwd_ms, busy_ms, top, families
 
 
 def hold_halo_conv(torch, F, gen, case: dict) -> dict:
@@ -246,6 +273,7 @@ def hold_halo_conv(torch, F, gen, case: dict) -> dict:
     slab, beside the bound.  Returns the float32 row, with the bfloat16
     error and time in it."""
     from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+    from repro_torch.kernels.halo_conv.ops import launch_config
 
     n, hs, w, cin, cout = case["shape"]
     k, s, p, lo, hi, groups = (case[key] for key in ("k", "stride", "pad", "lo", "hi", "groups"))
@@ -265,6 +293,7 @@ def hold_halo_conv(torch, F, gen, case: dict) -> dict:
               * torch.randn((k, k, w_cin, cout), generator=gen, device="cuda")).to(dt)
         b = (0.1 * torch.randn((cout,), generator=gen, device="cuda")).to(dt)
         kw = dict(stride=s, padding=p, groups=groups, hi=hi)
+        config = launch_config(x, top, bot, wt, **kw)
         got = halo_conv2d_cuda(x, top, bot, wt, b, **kw)
         ref_bot = torch.zeros((n, hi, w, cin), dtype=dt, device="cuda") if absent else bot
         slab = torch.cat([q for q in (top, x, ref_bot) if q is not None], dim=1)
@@ -286,18 +315,21 @@ def hold_halo_conv(torch, F, gen, case: dict) -> dict:
         nbytes = (read + wt.numel() + b.numel() + got.numel()) * x.element_size()
         ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
         t_bound = max(ops_ms, bytes_ms)
+        t_ffma = max(bound_ms(flops, nbytes, dname, ffma=True))
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         print(f"halo {dname:8s} {case.get('layer', '-')} {case['layout'] or 'extra'} "
               f"x{[n, hs, w, cin]} -> {cout} k{k} s{s} p{p} g{groups} lo{lo} hi{hi}"
-              f"{' bottom-absent' if absent else ''} x{case['per_forward']}/fwd: max_err {err:.3g} "
+              f"{' bottom-absent' if absent else ''} x{case['per_forward']}/fwd "
+              f"S={config['splits']} {config['gather']}: max_err {err:.3g} "
               f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.1f} TFLOP/s) plain {t_plain:.4f} ms "
-              f"F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
+              f"F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; FFMA {t_ffma:.4f})")
         out[dname] = dict(shape=[n, hs, w, cin, cout], k=k, stride=s, pad=p, groups=groups, lo=lo,
                           hi=hi, bottom_absent=bool(absent), layer=case.get("layer"),
                           layout=case["layout"], valid_rows=case.get("valid_rows"),
                           dtype=dname, per_forward=case["per_forward"], max_abs_err=err, ms=t_kernel,
                           plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms,
-                          bytes_ms=bytes_ms, bound_by=by, tflops=flops / t_kernel / 1e9)
+                          bytes_ms=bytes_ms, bound_by=by, ffma_bound_ms=t_ffma, **config,
+                          tflops=flops / t_kernel / 1e9)
     return dict(out["float32"], bf16_max_abs_err=out["bfloat16"]["max_abs_err"],
                 bf16_ms=out["bfloat16"]["ms"], bf16_library_ms=out["bfloat16"]["library_ms"],
                 bf16_bound_ms=out["bfloat16"]["bound_ms"])
@@ -352,7 +384,7 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
         t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
         flops = 4.0 * b * h * attention_pairs(t, s, causal) * d
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
-        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname, ffma=dname == "float32")  # K3 runs FMAs
         t_bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         print(f"attn {dname:8s} {case['path'] or 'extra'} B{b} H{h}/{hkv} T{t} S{s} D{d}"
@@ -395,6 +427,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.conv2d.ops import launch_config
     from repro_torch.kernels.halo_conv import halo_conv2d_cuda
     from repro_torch.launch.mesh import make_spatial_comm
     from repro_torch.launch.serve import serve
@@ -485,6 +518,7 @@ def main() -> int:
                   * torch.randn((k, k, w_cin, cout), generator=gen, device="cuda")).to(dt)
             b = (0.1 * torch.randn((cout,), generator=gen, device="cuda")).to(dt)
             kw = dict(stride=s, padding=p, groups=groups)
+            config = launch_config(x, wt, **kw)
             got = conv2d_cuda(x, wt, b, **kw)
             want = conv2d_ref(x, wt, b, **kw)
             torch.cuda.synchronize()
@@ -503,19 +537,22 @@ def main() -> int:
             nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * x.element_size()
             ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
             t_bound = max(ops_ms, bytes_ms)
+            t_ffma = max(bound_ms(flops, nbytes, dname, ffma=True))
             by = "operations" if ops_ms >= bytes_ms else "bytes"
             row = dict(shape=[n, h, w, cin, cout], k=k, stride=s, pad=p, groups=groups,
                        view=case["view"], path=case.get("path"), layer=case.get("layer"),
                        dtype=dname, per_forward=case["per_forward"], max_abs_err=err,
                        within_tol=ok, ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
                        bound_ms=t_bound, ops_ms=ops_ms, bytes_ms=bytes_ms, bound_by=by,
-                       tflops=flops / t_kernel / 1e9)
+                       ffma_bound_ms=t_ffma, **config, tflops=flops / t_kernel / 1e9)
             rows.append(row)
             print(f"conv {dname:8s} {case.get('path') or 'extra'} {case.get('layer') or ''} "
                   f"x{[n, h, w, cin]} -> {cout} k{k} s{s} p{p} g{groups}"
-                  f"{' view' if case['view'] else ''} x{case['per_forward']}/fwd: "
+                  f"{' view' if case['view'] else ''} x{case['per_forward']}/fwd "
+                  f"S={config['splits']} {config['gather']}: "
                   f"max_err {err:.3g} kernel {t_kernel:.4f} ms ({row['tflops']:.1f} TFLOP/s) "
-                  f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
+                  f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; "
+                  f"FFMA {t_ffma:.4f})")
             check(ok, f"kernel disagrees with its plain version: {row}")
 
     # -- 3b. the halo conv against its plain version, on the card -------------
@@ -581,7 +618,7 @@ def main() -> int:
     def forward(batch):
         return vgg.head(params, run_plan(out["plan"], params["features"], vgg.apply_layer, batch))
 
-    fwd_ms, busy_ms, top = steady_and_profiled(torch, lambda: forward(images), "run_plan")
+    fwd_ms, busy_ms, top, fams = steady_and_profiled(torch, lambda: forward(images), "run_plan")
 
     # -- 5. the spatial engine: full-width VGG-16 over height shards of one
     # card, fused engine, in the weighted and the equal layout ----------------
@@ -620,10 +657,11 @@ def main() -> int:
         useful = sum(c["valid_rows"] for c in calls if c["kernel"] == "halo_conv2d")
         print(f"  K2 output rows asked for per forward: {asked}, of which valid: {useful} "
               f"(useful share {useful / asked:.4f})")
-        fwd_sp, busy_sp, top_sp = steady_and_profiled(torch, spatial_forward, f"spatial {name}")
+        fwd_sp, busy_sp, top_sp, fams_sp = steady_and_profiled(torch, spatial_forward, f"spatial {name}")
         spatial[name] = dict(heights=list(heights), launches=got, lossless_max_abs=sp_err.max().item(),
                              plain_depth_max_abs=sp_depth, k2_rows_asked=asked, k2_rows_valid=useful,
-                             steady_forward_ms=fwd_sp, device_busy_ms=busy_sp, top_device=top_sp)
+                             steady_forward_ms=fwd_sp, device_busy_ms=busy_sp, top_device=top_sp,
+                             device_ms_by_kernel=fams_sp)
 
     # -- 6a. full-width ViT-L/16 through the mixed-scheme plan ----------------
     check(vit_plan.assignment == (SCHEME_HALO,) + (SCHEME_HS,) * 24,
@@ -664,7 +702,7 @@ def main() -> int:
     print(f"  vs the plain versions' forward on the CPU (float32, all {MAX_BATCH} images): max |diff| "
           f"{v_depth:.3g} (max |logit| {v_scale:.3g}, limit {DEPTH_RTOL} x that)")
     check(v_depth <= DEPTH_RTOL * v_scale, "the ViT drifts from the plain versions at depth")
-    vit_ms, vit_busy, vit_top = steady_and_profiled(torch, vit_forward, "vit run_plan")
+    vit_ms, vit_busy, vit_top, vit_fams = steady_and_profiled(torch, vit_forward, "vit run_plan")
 
     # -- 6b. full-width VGG-16 with every stage non_penetrative ---------------
     def np_forward():
@@ -683,7 +721,7 @@ def main() -> int:
           f"CPU: max |diff| {np_depth:.3g} (limit {DEPTH_RTOL} x {scale:.3g})")
     check(bool((np_err <= 2e-5 * (1 + single.abs())).all()), "the VGG non_penetrative plan is not lossless")
     check(np_depth <= DEPTH_RTOL * scale, "VGG-NP drifts from the plain conv at depth")
-    np_ms, np_busy, np_top = steady_and_profiled(torch, np_forward, "vgg non_penetrative run_plan")
+    np_ms, np_busy, np_top, np_fams = steady_and_profiled(torch, np_forward, "vgg non_penetrative run_plan")
 
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
@@ -723,17 +761,17 @@ def main() -> int:
               "src/repro/kernels/attention/attention.py:20", attn_main, got_vit["flash_attention"]),
     ]
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
-                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                       for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
                 for path in ("run_plan", "weighted-fixup", "vit", "vgg-np")}
     per_path["vit"]["flash_attention"] = {key: per_fwd(attn_main, key)
                                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     for name, v in per_path.items():
         print(f"K1 per forward of {name}: {json.dumps(v)}")
+    conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")
     by_layout = {name: {key: per_fwd([r for r in halo_main if r["layout"] == name], key)
-                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                        for key in conv_keys}
                  for name in spatial}
-    by_layout["weighted"]["fixup_conv2d"] = {key: per_fwd(fix_rows, key)
-                                             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_layout["weighted"]["fixup_conv2d"] = {key: per_fwd(fix_rows, key) for key in conv_keys}
     for name, v in by_layout.items():
         print(f"per forward of spatial {name}: {json.dumps(v)}")
     report = {
@@ -742,17 +780,18 @@ def main() -> int:
                       n_requests=N_REQUESTS, max_batch=MAX_BATCH, launches=launches,
                       batch_done_ms=batch_done, first_submission_ms=first * 1e3,
                       lossless_max_abs=lossless_err, plain_depth_max_abs=depth_err,
-                      steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, top_device=top),
+                      steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, top_device=top,
+                      device_ms_by_kernel=fams),
         "halo_cases": halo_rows, "spatial": spatial,
         "spatial_per_forward": by_layout, "attention_cases": attn_rows,
         "vit": dict(segments=[(sg.scheme, sg.start, sg.stop) for sg in vit_plan.segments],
                     ratios=vit_plan.ratios, launches=got_vit, lossless_max_abs=v_err.max().item(),
                     lossless_limit_share=v_share,
                     plain_depth_max_abs=v_depth, max_abs_logit=v_scale, steady_forward_ms=vit_ms,
-                    device_busy_ms=vit_busy, top_device=vit_top),
+                    device_busy_ms=vit_busy, top_device=vit_top, device_ms_by_kernel=vit_fams),
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
-                       device_busy_ms=np_busy, top_device=np_top),
+                       device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "

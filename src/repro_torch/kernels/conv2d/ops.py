@@ -22,19 +22,60 @@ INT32_MAX = 2**31 - 1
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = load_library("conv2d")
+    return bind(load_library("conv2d"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``conv2d.cu`` on a loaded library."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.conv2d_fwd.argtypes = [
-        p, p, p, p, i,          # x, w, bias, y, dtype
+        p, p, p, p, p, i, i,    # x, w, bias, y, workspace, splits, dtype
         i, i, i, i,             # n, h, w, cin
         i64, i64, i64,          # input strides (batch, row, column)
         i, i, i, i, i, i,       # cout, k, stride, pad, ho, wo
         i, i, p,                # depthwise, device, stream
     ]
     lib.conv2d_fwd.restype = ctypes.c_int
+    lib.conv2d_gather.argtypes = [p, p, i, i, i64, i64, i64, i]  # x, w, dtype, cin, strides, cout
+    lib.conv2d_gather.restype = ctypes.c_int
+    bind_splits(lib)
+    return lib
+
+
+def bind_splits(lib: ctypes.CDLL) -> None:
+    """Declare the shared core's split count and error string on ``lib``
+    (both conv libraries export them)."""
+    lib.conv_splits.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.conv_splits.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+
+
+def split_count(lib, x: torch.Tensor, m: int, cout: int, k: int, cin: int, groups: int) -> int:
+    """The core's split count of K for a conv of ``m`` output pixels on
+    ``x``'s device (1 for depthwise)."""
+    return 1 if groups > 1 else _splits(lib, x.device.index or 0, m, cout, k, cin)
+
+
+@functools.lru_cache(maxsize=4096)
+def _splits(lib, device: int, m: int, cout: int, k: int, cin: int) -> int:
+    # a pure function of the shape and the card, so asked once per shape
+    splits = lib.conv_splits(m, cout, k, cin, device)
+    if splits < 1:
+        raise RuntimeError(f"conv_splits returned {splits}")
+    return splits
+
+
+def workspace(lib, x: torch.Tensor, m: int, cout: int, k: int, cin: int, groups: int):
+    """(splits, workspace): the split count and, when it is > 1, room for the
+    ``splits * m * cout`` float32 partials the core writes, allocated here
+    (else None)."""
+    splits = split_count(lib, x, m, cout, k, cin, groups)
+    ws = torch.empty(splits * m * cout, dtype=torch.float32, device=x.device) if splits > 1 else None
+    return splits, ws
+
+
+GATHER_NAMES = {0: "a4/b4", 1: "a16/b4", 2: "a4/b16", 3: "a16/b16"}
 
 
 def check_operands(fn: str, x, weights, bias, groups) -> tuple[int, int]:
@@ -105,23 +146,47 @@ def conv2d_cuda(
     ho, wo = _check_args(x, weights, bias, stride, padding, groups)
     if x.device.type == "cpu":
         return conv2d_ref(x, weights, bias, stride=stride, padding=padding, groups=groups)
-    n, h, w, cin = x.shape
-    k, cout = weights.shape[0], weights.shape[-1]
-    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    y = torch.empty((x.shape[0], ho, wo, weights.shape[-1]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _lib()
+    launch(_lib(), x, weights, bias, y, stride, padding, groups,
+           torch.cuda.current_stream(x.device).cuda_stream)
+    conv2d_cuda.launches += 1
+    return y
+
+
+def launch(lib, x, weights, bias, y, stride, padding, groups, stream) -> None:
+    """Enqueue the kernel of ``lib`` on ``stream`` into the allocated,
+    non-empty output ``y`` (arguments already checked), with the split-K
+    workspace allocated here; raises if the launch is refused."""
+    n, h, w, cin = x.shape
+    k, cout = weights.shape[0], weights.shape[-1]
+    ho, wo = y.shape[1], y.shape[2]
+    splits, ws = workspace(lib, x, n * ho * wo, cout, k, cin, groups)
     err = lib.conv2d_fwd(
         x.data_ptr(), weights.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), DTYPE_CODES[x.dtype],
+        y.data_ptr(), None if ws is None else ws.data_ptr(), splits, DTYPE_CODES[x.dtype],
         n, h, w, cin, x.stride(0), x.stride(1), x.stride(2),
         cout, k, stride, padding, ho, wo,
-        int(groups > 1), x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        int(groups > 1), x.device.index or 0, stream,
     )
     if err != 0:
         raise RuntimeError(f"conv2d kernel launch failed: {lib.kernel_error_string(err).decode()}")
-    conv2d_cuda.launches += 1
-    return y
+
+
+def launch_config(x: torch.Tensor, weights: torch.Tensor, *, stride: int = 1, padding: int = 1,
+                  groups: int = 1) -> dict:
+    """How the kernel would run this conv on the card: the split count of K
+    and the gather variant ("a16/b16": input and weights copied as 16-byte
+    vectors; "a4": the input element by element).  Launches nothing."""
+    ho, wo = _check_args(x, weights, None, stride, padding, groups)
+    n, cin = x.shape[0], x.shape[3]
+    k, cout = weights.shape[0], weights.shape[-1]
+    lib = _lib()
+    splits = split_count(lib, x, n * ho * wo, cout, k, cin, groups)
+    gather = lib.conv2d_gather(x.data_ptr(), weights.data_ptr(), DTYPE_CODES[x.dtype], cin,
+                               x.stride(0), x.stride(1), x.stride(2), cout)
+    return dict(splits=splits, gather="depthwise" if groups > 1 else GATHER_NAMES[gather])
 
 
 # Kernel launches so far in this process (CPU calls do not count).

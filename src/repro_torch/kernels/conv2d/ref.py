@@ -1,8 +1,10 @@
 """Plain PyTorch version of the direct conv (explicit tap sum, no F.conv2d).
 
 Mirrors ``repro/kernels/conv2d/ref.py: conv2d_ref``: NHWC x HWIO, a sum of k*k
-shifted (strided) channel contractions accumulated in float32, bias added to
-the float32 sum, one cast to the input dtype at the end.  It is what
+shifted (strided) channel contractions accumulated in float32, cast to the
+input dtype, then the bias added in that dtype -- the order of JAX
+``models/layers.py: conv2d`` and ``conv2d_pallas`` (round the conv output, add
+the bias), which the kernels' epilogue follows.  It is what
 :func:`~repro_torch.kernels.conv2d.ops.conv2d_cuda` runs for a CPU tensor and
 what the CUDA kernel is held against on the card.
 """
@@ -41,6 +43,7 @@ def conv2d_ref(
                 acc = acc + patch * weights[ky, kx, 0].float()
             else:
                 acc = acc + torch.einsum("nhwc,cd->nhwd", patch, weights[ky, kx].float())
+    y = acc.to(x.dtype)
     if bias is not None:
-        acc = acc + bias.float()
-    return acc.to(x.dtype)
+        y = y + bias
+    return y

@@ -15,7 +15,15 @@ import functools
 import torch
 
 from .._build import load_library
-from ..conv2d.ops import DTYPE_CODES, INT32_MAX, check_operands
+from ..conv2d.ops import (
+    DTYPE_CODES,
+    GATHER_NAMES,
+    INT32_MAX,
+    bind_splits,
+    check_operands,
+    split_count,
+    workspace,
+)
 from .ref import halo_conv2d_ref
 
 
@@ -30,13 +38,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.halo_conv2d_fwd.argtypes = [
         p, p, p, ctypes.POINTER(ctypes.c_longlong),  # top, shard, bottom, strides [9]
         i, i, i,                                     # lo, hs, hi
-        p, p, p, i,                                  # w, bias, y, dtype
+        p, p, p, p, i, i,                            # w, bias, y, workspace, splits, dtype
         i, i, i, i, i, i, i, i, i,                   # n, w, cin, cout, k, stride, pad, ho, wo
         i, i, p,                                     # depthwise, device, stream
     ]
     lib.halo_conv2d_fwd.restype = ctypes.c_int
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+    lib.halo_conv2d_gather.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_longlong), p, i, i, i]
+    lib.halo_conv2d_gather.restype = ctypes.c_int
+    bind_splits(lib)
     return lib
 
 
@@ -131,19 +140,44 @@ def launch(lib, x, top, bot, weights, bias, stride, padding, groups, lo, hi, ho,
     b, hs, w, c = x.shape
     k, cout = weights.shape[0], weights.shape[-1]
     y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    strides = (ctypes.c_longlong * 9)(*[
-        v for t in (top, x, bot) for v in ((0, 0, 0) if t is None else t.stride()[:3])
-    ])
+    splits, ws = workspace(lib, x, b * ho * wo, cout, k, c, groups)
     err = lib.halo_conv2d_fwd(
         None if top is None else top.data_ptr(), x.data_ptr(),
-        None if bot is None else bot.data_ptr(), strides, lo, hs, hi,
+        None if bot is None else bot.data_ptr(), _strides(x, top, bot), lo, hs, hi,
         weights.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), splits,
         DTYPE_CODES[x.dtype], b, w, c, cout, k, stride, padding, ho, wo,
         int(groups > 1), x.device.index or 0, stream,
     )
     if err != 0:
         raise RuntimeError(f"halo_conv2d kernel launch failed: {lib.kernel_error_string(err).decode()}")
     return y
+
+
+def _strides(x, top, bot):
+    """The (batch, row, column) strides of top, shard and bottom, (0, 0, 0)
+    for an absent halo, as the C interface takes them."""
+    return (ctypes.c_longlong * 9)(*[
+        v for t in (top, x, bot) for v in ((0, 0, 0) if t is None else t.stride()[:3])
+    ])
+
+
+def launch_config(x_shard, top_halo, bot_halo, weights, *, stride: int = 1, padding: int = 1,
+                  groups: int = 1, lo: int | None = None, hi: int | None = None) -> dict:
+    """How the kernel would run this halo conv on the card: the split count
+    of K and the gather variant ("a16/b16": shard, halos and weights copied as
+    16-byte vectors; "a4": the slab element by element).  Launches nothing."""
+    lo, hi, ho, wo = _check_args(x_shard, top_halo, bot_halo, weights, None,
+                                 stride, padding, groups, lo, hi)
+    b, _, _, c = x_shard.shape
+    k, cout = weights.shape[0], weights.shape[-1]
+    lib = _lib()
+    splits = split_count(lib, x_shard, b * ho * wo, cout, k, c, groups)
+    gather = lib.halo_conv2d_gather(
+        None if top_halo is None else top_halo.data_ptr(), x_shard.data_ptr(),
+        None if bot_halo is None else bot_halo.data_ptr(), _strides(x_shard, top_halo, bot_halo),
+        weights.data_ptr(), DTYPE_CODES[x_shard.dtype], c, cout)
+    return dict(splits=splits, gather="depthwise" if groups > 1 else GATHER_NAMES[gather])
 
 
 # Kernel launches so far in this process (CPU calls do not count).

@@ -3,8 +3,10 @@
 Mirrors ``repro/kernels/halo_conv/ref.py: halo_conv2d_ref``: the shard and its
 halos are concatenated along the rows, the width is zero-padded, and the
 port's plain conv (:func:`~repro_torch.kernels.conv2d.conv2d_ref`) runs VALID
-over the slab.  It is what :func:`~repro_torch.kernels.halo_conv.halo_conv2d_cuda`
-runs for a CPU tensor and what the CUDA kernel is held against on the card.
+over the slab (its float32 sum rounded to the input dtype, then the bias
+added, as ``halo_conv2d`` does).  It is what
+:func:`~repro_torch.kernels.halo_conv.halo_conv2d_cuda` runs for a CPU tensor
+and what the CUDA kernel is held against on the card.
 """
 from __future__ import annotations
 

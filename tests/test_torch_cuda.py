@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import partition, plan_even
 from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
 from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+from repro_torch.kernels.conv2d.ops import launch_config
 from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
 from repro_torch.launch.mesh import make_spatial_comm
 from repro_torch.launch.serve import serve
@@ -223,3 +224,57 @@ def test_vit_scheme_plan_on_card_matches_single_device(card):
     got = run_plan(plan, params["features"], vit_spatial.apply_layer, x)
     assert flash_attention.launches - before == 3 * cfg.n_blocks
     torch.testing.assert_close(got, vit_spatial.features(params, cfg, x), rtol=2e-5, atol=2e-5)
+
+
+# (N, H, W, Cin, Cout, k): thin grids that split K -- a 1-row fix-up conv of
+# conv5 (M = 56, K = 4608, Cout = 512) and the ViT's row-split MLP-down conv
+# (M = 392, K = 4096, Cout = 1024)
+SPLIT_CASES = [(4, 3, 16, 512, 512, 3), (4, 7, 14, 4096, 1024, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_split_k_kernel_matches_plain_and_repeats_on_card(card, dtype):
+    """Thin shapes take split-K (S > 1): the kernel agrees with its plain
+    version, and two calls give byte-identical outputs (fixed split count,
+    partials summed in a fixed order, no atomics)."""
+    for seed, (n, h, w, cin, cout, k) in enumerate(SPLIT_CASES):
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.standard_normal((n, h, w, cin), dtype=np.float32)).to(card, dtype)
+        wts = torch.from_numpy((1 / np.sqrt(k * k * cin)) * rng.standard_normal(
+            (k, k, cin, cout), dtype=np.float32)).to(card, dtype)
+        b = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32)).to(card, dtype)
+        config = launch_config(x, wts, padding=0)
+        assert config["splits"] > 1 and config["gather"] == "a16/b16", config
+        got = conv2d_cuda(x, wts, b, padding=0)
+        again = conv2d_cuda(x, wts, b, padding=0)
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+        want = conv2d_ref(x, wts, b, padding=0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_spatial_forward_with_other_split_counts_on_card(card):
+    """Full-width VGG blocks (64 and 128 channels) over 4 weighted shards:
+    a shard's K2 call and the single-device K1 call of a layer take
+    different split counts, so they sum in other orders; the features still
+    agree within 2e-5 * (1 + |y|)."""
+    cfg = vgg.VGGConfig(img_res=64, width_mult=1.0, num_classes=10, blocks=((1, 64), (2, 128)))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = vgg.init(gen, cfg)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device="cuda")
+    net = cfg.geom()
+    comm = make_spatial_comm(4, device="cuda")
+    plan = plan_even(net, 4, ratios=(1.0, 0.55, 0.35, 0.8))
+    xs, heights = weighted_spatial_inputs(x, plan, comm, align=spatial_alignment(net))
+    # conv2_2 (Cin 128 on the 32x32 map): the full map and the shards (each
+    # asked for the tallest shard's rows) differ
+    wts = [layer for layer in params["features"] if "w" in layer][-1]["w"]
+    full = launch_config(torch.empty((2, 32, 32, 128), device=card), wts)["splits"]
+    shard = launch_config(torch.empty((2, max(heights) // 2, 32, 128), device=card), wts)["splits"]
+    assert full != shard, (full, shard)
+    ys = features_spatial(params["features"], net, xs, comm=comm, heights=heights, engine="fused")
+    got = merge_padded_shards(ys, [h // spatial_alignment(net) for h in heights])
+    want = vgg.features(params, cfg, x)
+    assert bool(((got - want).abs() <= 2e-5 * (1 + want.abs())).all())

@@ -1,13 +1,18 @@
 """The CUDA source of the halo conv (K2), run on the CPU through an emulation.
 
 ``src/repro_torch/kernels/halo_conv/halo_conv.cu``, with the shared core
-``conv_igemm.cuh`` inlined, is compiled as C++20 by ``g++`` with
-``tests/cuda_emu/cuda_shim.h`` and driven through the wrapper's own launch
-code (``halo_conv/ops.py: launch``), so the strides it passes, the kernel's
-row resolution (top halo, shard, bottom halo, zero), the width masking, the
-absent-halo zero rows, the depthwise branch and the bfloat16 rounding all run
-where there is no card.  Timing, the real compiler and the real memory model
-are checked only on the card (``chip_smoke.py``).  Held against the plain
+``conv_igemm.cuh`` and the PTX wrappers ``sm90_ops.cuh`` inlined, is compiled
+as C++20 by ``g++`` with ``tests/cuda_emu/cuda_shim.h`` and driven through
+the wrapper's own launch code (``halo_conv/ops.py: launch``), so the strides
+it passes, the source's row resolution once per pixel and tap row (top halo,
+shard, bottom halo, zero), the zero-filled copies of the width padding and
+of absent halos, the 16-byte and element-wise gathers, split-K, the 3xTF32
+products, the depthwise branch and the bfloat16 epilogue all run where there
+is no card.  The emulated ``mma.sync`` follows the PTX ISA's fragment
+layouts as the shim reads them: a layout the shim and the kernel got wrong
+together would pass here, and only the card (``chip_smoke.py`` phase 3b,
+``tests/test_torch_cuda.py``) catches that.  Timing, the real compiler and
+the real memory model are checked only there.  Held against the plain
 version, ``halo_conv2d_ref``, at 2e-5 (float32, summation order) and 2e-2
 (bfloat16: both round one float32 sum).
 """
@@ -17,15 +22,17 @@ import torch
 
 from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.halo_conv import halo_conv2d_ref
-from repro_torch.kernels.halo_conv.ops import _check_args, bind, launch
+from repro_torch.kernels.conv2d.ops import GATHER_NAMES, split_count
+from repro_torch.kernels.halo_conv.ops import _check_args, _strides, bind, launch
 
 SOURCE = KERNELS / "halo_conv" / "halo_conv.cu"
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    # the two launches of the shared core (conv_igemm.cuh), inlined
-    return bind(build_emulated(SOURCE, tmp_path_factory.mktemp("emu"), launches=2))
+    # the three launches of the shared core (conv_igemm.cuh), inlined: the
+    # implicit GEMM, split-K's reduction and the depthwise branch
+    return bind(build_emulated(SOURCE, tmp_path_factory.mktemp("emu"), launches=3))
 
 
 # (B, Hs, W, Cin, Cout, k, stride, pad, groups, dtype, bias, halos)
@@ -75,10 +82,11 @@ def _inputs(case, seed):
     return x, top, bot, wts, bias, lo, hi
 
 
-@pytest.mark.parametrize("case", CASES, ids=_case_id)
-def test_emulated_kernel_matches_plain(lib, case):
+def _check_emulated(lib, case, seed):
+    """Run ``case`` through the emulated kernel against the plain version;
+    returns the inputs and the wrapper's (lo, hi, Ho, Wo)."""
     b, hs, w, cin, cout, k, s, pad, g, dt = case[:10]
-    x, top, bot, wts, bias, lo, hi = _inputs(case, CASES.index(case))
+    x, top, bot, wts, bias, lo, hi = _inputs(case, seed)
     args = _check_args(x, top, bot, wts, bias, s, pad, g, lo, hi)
     got = launch(lib, x, top, bot, wts, bias, s, pad, g, *args, None)
     zeros = x.new_zeros((b, max(lo, hi), w, cin))
@@ -88,3 +96,34 @@ def test_emulated_kernel_matches_plain(lib, case):
     assert got.shape == want.shape == (b, hs // s, (w + 2 * pad - k) // s + 1, cout)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return (x, top, bot, wts), args
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_emulated_kernel_matches_plain(lib, case):
+    _check_emulated(lib, case, CASES.index(case))
+
+
+# The core's paths, each named: a case as above, the split count and the
+# gather variant it must take.
+CORE_CASES = {
+    "splitk-views": ((2, 4, 4, 64, 16, 3, 1, 1, 1, torch.float32, True, "views"), 4, "a16/b16"),
+    "splitk-absent-bf16": ((1, 4, 4, 64, 16, 3, 1, 1, 1, torch.bfloat16, True, "absent"), 4, "a16/b16"),
+    "ragged-mnk-splitk": ((2, 5, 5, 40, 72, 3, 1, 1, 1, torch.float32, True, "views"), 3, "a16/b16"),
+    "cin3-a4-bf16": ((2, 7, 9, 3, 16, 3, 1, 1, 1, torch.bfloat16, True, "views"), 1, "a4/b16"),
+    "cout19-b4-absent": ((1, 6, 6, 8, 19, 3, 1, 1, 1, torch.float32, True, "absent"), 1, "a16/b4"),
+    "k5-s2-splitk-dense": ((2, 8, 9, 8, 16, 5, 2, 2, 1, torch.float32, False, "dense"), 2, "a16/b16"),
+}
+
+
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_emulated_core_path_matches_plain(lib, name):
+    case, splits, gather = CORE_CASES[name]
+    (x, top, bot, wts), (lo, hi, ho, wo) = _check_emulated(lib, case, 100 + list(CORE_CASES).index(name))
+    b, cin, cout, k = x.shape[0], x.shape[3], wts.shape[-1], wts.shape[0]
+    assert split_count(lib, x, b * ho * wo, cout, k, cin, 1) == splits
+    variant = lib.halo_conv2d_gather(
+        None if top is None else top.data_ptr(), x.data_ptr(),
+        None if bot is None else bot.data_ptr(), _strides(x, top, bot), wts.data_ptr(),
+        int(x.dtype == torch.bfloat16), cin, cout)
+    assert GATHER_NAMES[variant] == gather

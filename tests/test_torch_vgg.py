@@ -121,17 +121,21 @@ def test_features_and_apply_match_jax(jparams, images):
 
 
 def test_apply_bfloat16_matches_jax(jparams, images):
-    """bfloat16 through the whole stack.  JAX rounds each conv's output to
-    bfloat16 before adding the bias and the port after, so 13 layers of
-    roundings at other places compound: elementwise 2e-2 does not hold
-    between the two.  Held instead against the float32 forward: the port's
-    bfloat16 error stays within 2e-2 of the largest |logit| and no larger
-    than JAX's own bfloat16 error."""
+    """bfloat16 through the whole stack.  JAX and the port both round each
+    conv's float32 sum to bfloat16 and then add the bias in bfloat16
+    (``conv_igemm.cuh: finish``), so the two forwards round at the same
+    places: the logits agree elementwise within 2e-2 * (1 + |y|) (measured:
+    one bf16 step, 0.0156, on logits up to 8.2).  Also held against the
+    float32 forward: the port's bfloat16 error stays within 2e-2 of the
+    largest |logit| and no larger than JAX's own bfloat16 error."""
     want = np.asarray(jvgg.apply(jparams, JCFG, jnp.asarray(images)))
     jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jparams)
-    jax_bf16 = jvgg.apply(jp, JCFG, jnp.asarray(images).astype(jnp.bfloat16))
+    jax_bf16 = np.asarray(jvgg.apply(jp, JCFG, jnp.asarray(images).astype(jnp.bfloat16))
+                          .astype(jnp.float32))
     got = vgg.apply(params_from_jax(jp), CFG, torch.from_numpy(images).bfloat16())
     assert got.dtype == torch.bfloat16
-    err = np.abs(got.float().numpy() - want).max()
+    got = got.float().numpy()
+    assert np.all(np.abs(got - jax_bf16) <= 2e-2 * (1 + np.abs(jax_bf16)))
+    err = np.abs(got - want).max()
     assert err <= 2e-2 * np.abs(want).max()
-    assert err <= np.abs(np.asarray(jax_bf16.astype(jnp.float32)) - want).max()
+    assert err <= np.abs(jax_bf16 - want).max()
