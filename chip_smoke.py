@@ -47,7 +47,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    S = 256 and with S = 64, and GQA (16 query heads over 4 KV heads, D = 128),
    in float32 and bfloat16, timing it beside its plain version,
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) and
-   its bound;
+   its bound (float32 at the 3xTF32 rate the kernel runs, with the FFMA bound
+   beside it); at the ViT shapes also the kernel's and SDPA's device us per
+   call from a ``torch.profiler`` window over back-to-back launches, the
+   wrapper's host us per call and the largest |score|;
 6. (a) runs full-width ViT-L/16 (224x224, patch 16, 24 blocks, d 1024, 16
    heads, seeded random weights, batch 4) through ``plan_scheme`` on a
    topology of three secondaries with capacities 5:3:2 (halo_segment for the
@@ -55,7 +58,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    in one forward against the plan's, checks the logits (finite, not all
    zero, lossless against the single-device forward through the same
    kernels, within ``DEPTH_RTOL`` of the plain versions' forward on the CPU),
-   then times steady forwards and profiles one; (b) runs full-width VGG-16
+   prints the largest |score| K3 sees in it, runs the same forward in
+   bfloat16 (K3's launches counted; logits within 2e-2 of the largest |logit|
+   of the float32 card forward of the same bf16-rounded weights and images,
+   with the gap to the float32 weights' forward printed beside, for the
+   kernels and for the plain versions), then times steady forwards and
+   profiles one; (b) runs full-width VGG-16
    (phase 4's weights and images) under a plan that gives non_penetrative to
    every stage with the same ratios, lossless against the single-device
    forward: K1 then takes contiguous copies of the filter slices.
@@ -76,11 +84,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense, HBM3 bandwidth.  The convs (K1, K2) run
-# float32 as 3xTF32 on the tensor cores: three TF32 products per product, a
-# third of the 495 TFLOP/s TF32 peak; bf16 at the tensor cores' 989.  K3 runs
-# float32 FMAs on the CUDA cores (67 TFLOP/s), the rate its bound keeps, and
-# beside every conv bound the same FMA rate is printed as the old yardstick.
+# NVIDIA H100 SXM data sheet, dense, HBM3 bandwidth.  The kernels (K1, K2,
+# K3) run float32 as 3xTF32 on the tensor cores: three TF32 products per
+# product, a third of the 495 TFLOP/s TF32 peak; bf16 at the tensor cores'
+# 989.  Beside every bound the CUDA cores' float32 FMA rate (67 TFLOP/s) is
+# printed as the old yardstick.
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 FFMA_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -96,6 +104,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # largest |logit|: float32 summation order compounds over 13 convs (K up to
 # 4608) and 3 dense layers (K up to 25088).
 DEPTH_RTOL = 1e-4
+# the bfloat16 ViT forward's logits vs the float32 card forward of the same
+# (bf16-rounded) weights and images, relative to the largest |logit| (bf16 _tol)
+BF16_RTOL = 2e-2
 
 # Phase 5's layouts of full-width VGG-16 over height shards of one card:
 # (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
@@ -123,6 +134,37 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of ``fn`` in us per call: the traced kernels' time in a
+    ``torch.profiler`` window over ``reps`` back-to-back calls, per call; nan
+    if the profiler traced no device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
+    total, count = sum(a.self_device_time_total for a in rows), sum(a.count for a in rows)
+    # a window may drop events: the mean kernel's time x the kernels a call launches
+    return total / count * max(1, round(count / reps)) if total > 0 else float("nan")
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host time of ``fn`` in us per call: the enqueue of ``reps`` calls on
+    the host clock, the device not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def conv_shapes(plan, batch: int) -> Counter:
@@ -349,9 +391,12 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
     times of the kernel, the plain version and F.scaled_dot_product_attention
     (on the repeated KV heads where Hkv < H), beside the bound.  q, k and v
     are [B, T, H*D] buffers seen as [B, H, T, D] through strides, the layout
-    the ViT's attention hands the kernel.  Returns the float32 row, with the
-    bfloat16 error and time in it."""
+    the ViT's attention hands the kernel.  At the ViT's shapes the kernel's
+    and SDPA's device us per call (a profiler window), the wrapper's host us
+    per call and the largest |score| are added.  Returns the float32 row,
+    with the bfloat16 error and times in it."""
     from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
+    from repro_torch.kernels.attention.ops import launch_config
 
     b, h, hkv, t, s, d, causal = (case[key] for key in ("b", "h", "hkv", "t", "s", "d", "causal"))
     g = h // hkv
@@ -370,6 +415,7 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
             return gqa_flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                              causal=causal).transpose(1, 2)
 
+        config = launch_config(q, k, v, causal=causal)
         got = kernel()
         want = attention_ref(q, kr, vr, causal=causal)
         torch.cuda.synchronize()
@@ -384,20 +430,35 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
         t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
         flops = 4.0 * b * h * attention_pairs(t, s, causal) * d
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
-        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname, ffma=dname == "float32")  # K3 runs FMAs
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
         t_bound = max(ops_ms, bytes_ms)
+        t_ffma = max(bound_ms(flops, nbytes, dname, ffma=True))
         by = "operations" if ops_ms >= bytes_ms else "bytes"
+        extra = {}
+        if case["path"] == "vit":
+            scores = torch.einsum("bhtd,bhsd->bhts", q.float(), kr.float()) / math.sqrt(d)
+            extra = dict(device_us=device_us(torch, kernel), host_us=host_us(torch, kernel),
+                         library_device_us=device_us(
+                             torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)),
+                         max_abs_score=scores.abs().max().item())
         print(f"attn {dname:8s} {case['path'] or 'extra'} B{b} H{h}/{hkv} T{t} S{s} D{d}"
-              f"{' causal' if causal else ''} x{case['per_forward']}/fwd: max_err {err:.3g} "
+              f"{' causal' if causal else ''} x{case['per_forward']}/fwd [{config['block']}, "
+              f"{config['blocks']} blocks]: max_err {err:.3g} "
               f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.2f} TFLOP/s) plain {t_plain:.4f} ms "
-              f"SDPA {t_lib:.4f} ms bound {t_bound:.4f} ms ({by})")
+              f"SDPA {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; FFMA {t_ffma:.4f})"
+              + (f"; device us/call kernel {extra['device_us']:.2f} SDPA {extra['library_device_us']:.2f}, "
+                 f"wrapper host us/call {extra['host_us']:.2f}, max |score| {extra['max_abs_score']:.3g}"
+                 if extra else ""))
         out[dname] = dict(b=b, h=h, hkv=hkv, t=t, s=s, d=d, causal=causal, path=case["path"],
                           dtype=dname, per_forward=case["per_forward"], max_abs_err=err, ms=t_kernel,
                           plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms,
-                          bytes_ms=bytes_ms, bound_by=by, tflops=flops / t_kernel / 1e9)
-    return dict(out["float32"], bf16_max_abs_err=out["bfloat16"]["max_abs_err"],
-                bf16_ms=out["bfloat16"]["ms"], bf16_library_ms=out["bfloat16"]["library_ms"],
-                bf16_bound_ms=out["bfloat16"]["bound_ms"])
+                          bytes_ms=bytes_ms, bound_by=by, ffma_bound_ms=t_ffma,
+                          tflops=flops / t_kernel / 1e9, **config, **extra)
+    bf16 = out["bfloat16"]
+    return dict(out["float32"], bf16_max_abs_err=bf16["max_abs_err"], bf16_ms=bf16["ms"],
+                bf16_library_ms=bf16["library_ms"], bf16_bound_ms=bf16["bound_ms"],
+                **{f"bf16_{key}": bf16[key] for key in ("device_us", "library_device_us", "host_us")
+                   if key in bf16})
 
 
 def main() -> int:
@@ -702,6 +763,62 @@ def main() -> int:
     print(f"  vs the plain versions' forward on the CPU (float32, all {MAX_BATCH} images): max |diff| "
           f"{v_depth:.3g} (max |logit| {v_scale:.3g}, limit {DEPTH_RTOL} x that)")
     check(v_depth <= DEPTH_RTOL * v_scale, "the ViT drifts from the plain versions at depth")
+    # the largest |score| K3 meets at depth: one forward with the attention
+    # layer's call recorded (outside the counted run)
+    depth_scores = []
+
+    def recording(q, k, v, *, causal):
+        depth_scores.append((torch.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(q.shape[-1]))
+                            .abs().max().item())
+        return flash_attention(q, k, v, causal=causal)
+
+    vit_spatial.flash_attention = recording
+    try:
+        vit_forward()
+    finally:
+        vit_spatial.flash_attention = flash_attention
+    print(f"  largest |score| in the forward's {len(depth_scores)} K3 calls: {max(depth_scores):.4g} "
+          f"(per block, largest first: {sorted(depth_scores, reverse=True)[:3]})")
+    # the same forward in bfloat16: K3's bf16 path at depth.  It is held to
+    # the float32 card forward of the same, bf16-rounded, weights and images
+    # (the model it runs); beside that, its gap to the float32 forward of the
+    # float32 weights and the gap of a bf16 forward through the plain
+    # versions (patched in for one run): what rounding the weights costs
+    # without the kernels.
+    from repro_torch.kernels.attention import attention_ref
+    from repro_torch.models import layers
+
+    bparams = tree_map(lambda t: t.to(torch.bfloat16), vparams)
+    bimages = vimages.to(torch.bfloat16)
+
+    def vit_forward_bf16():
+        return vit_spatial.head(bparams, run_plan(vit_plan, bparams["features"], vit_spatial.apply_layer,
+                                                  bimages))
+
+    flash_attention.launches = 0
+    blogits = vit_forward_bf16()
+    torch.cuda.synchronize()
+    b_launches = flash_attention.launches
+    check(b_launches == want_vit["flash_attention"], f"bf16 ViT launched K3 {b_launches} times")
+    check(blogits.dtype == torch.bfloat16, f"bf16 ViT logits are {blogits.dtype}")
+    check(bool(torch.isfinite(blogits.float()).all()), "non-finite bf16 ViT logits")
+    rparams = tree_map(lambda t: t.to(torch.bfloat16).float(), vparams)
+    rlogits = vit_spatial.head(rparams, run_plan(vit_plan, rparams["features"], vit_spatial.apply_layer,
+                                                 bimages.float()))
+    layers.conv2d_cuda, vit_spatial.flash_attention = conv2d_ref, attention_ref
+    try:
+        bplain = vit_forward_bf16()
+    finally:
+        layers.conv2d_cuda, vit_spatial.flash_attention = conv2d_cuda, flash_attention
+    b_err = (blogits.float() - rlogits).abs().max().item()
+    b_scale = rlogits.abs().max().item()
+    b_f32w = (blogits.float() - vlogits).abs().max().item()
+    b_plain = (bplain.float() - vlogits).abs().max().item()
+    print(f"  bfloat16 forward: K3 launches {b_launches}; vs the float32 forward of the bf16-rounded "
+          f"weights and images: max |diff| {b_err:.4g} (max |logit| {b_scale:.4g}, limit {BF16_RTOL} x "
+          f"that); vs the float32 weights' forward: {b_f32w:.4g} (the plain versions in bf16: "
+          f"{b_plain:.4g})")
+    check(b_err <= BF16_RTOL * b_scale, "the bfloat16 ViT drifts from the float32 forward")
     vit_ms, vit_busy, vit_top, vit_fams = steady_and_profiled(torch, vit_forward, "vit run_plan")
 
     # -- 6b. full-width VGG-16 with every stage non_penetrative ---------------
@@ -763,8 +880,13 @@ def main() -> int:
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
                 for path in ("run_plan", "weighted-fixup", "vit", "vgg-np")}
-    per_path["vit"]["flash_attention"] = {key: per_fwd(attn_main, key)
-                                          for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    per_path["vit"]["flash_attention"] = {key: per_fwd(attn_main, key) for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms", "bf16_ms", "bf16_library_ms",
+        "bf16_bound_ms")}
+    # device ms per forward from the profiler windows (us per call x calls per forward)
+    per_path["vit"]["flash_attention"].update({key.replace("us", "ms"): per_fwd(attn_main, key) / 1e3
+                                               for key in ("device_us", "library_device_us", "host_us",
+                                                           "bf16_device_us", "bf16_library_device_us")})
     for name, v in per_path.items():
         print(f"K1 per forward of {name}: {json.dumps(v)}")
     conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")
@@ -786,7 +908,9 @@ def main() -> int:
         "spatial_per_forward": by_layout, "attention_cases": attn_rows,
         "vit": dict(segments=[(sg.scheme, sg.start, sg.stop) for sg in vit_plan.segments],
                     ratios=vit_plan.ratios, launches=got_vit, lossless_max_abs=v_err.max().item(),
-                    lossless_limit_share=v_share,
+                    lossless_limit_share=v_share, max_abs_score=max(depth_scores),
+                    bf16_max_abs_diff=b_err, bf16_vs_f32_weights=b_f32w, bf16_plain_vs_f32_weights=b_plain,
+                    bf16_launches=b_launches,
                     plain_depth_max_abs=v_depth, max_abs_logit=v_scale, steady_forward_ms=vit_ms,
                     device_busy_ms=vit_busy, top_device=vit_top, device_ms_by_kernel=vit_fams),
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),

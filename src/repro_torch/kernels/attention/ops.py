@@ -22,6 +22,8 @@ from .._build import load_library
 from .ref import attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's block shapes, by its index: (query rows, key groups)
+BLOCK_SHAPES = ((16, 4), (32, 4), (64, 1))
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GRID_Y = 65535  # B*H blocks along the grid's second axis
 INT32_MAX = 2**31 - 1
@@ -38,6 +40,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float, i, i, p,                # scale, causal, device, stream
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_shape.argtypes = [
+        p, p, p, i, i, i, i, i, i, i,           # q, k, v, dtype, b, h, hkv, t, s, d
+        ctypes.POINTER(ctypes.c_longlong), i, i,  # strides [12], causal, device
+    ]
+    lib.flash_attention_shape.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -68,6 +75,24 @@ def _check(fn: str, q, k, v) -> None:
             raise ValueError(f"the head dimension of {name} must be dense, got strides {x.stride()}")
     if b * h > MAX_GRID_Y or max(t, k.shape[2]) > INT32_MAX:
         raise ValueError(f"{fn}: B*H = {b * h} exceeds {MAX_GRID_Y} or T/S the 32-bit range")
+
+
+def launch_config(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True) -> dict:
+    """The block shape the kernel takes for ``flash_attention(q, k, v)`` on
+    the card ([B, H, T, D] operands, read through their strides): query rows
+    x key groups and the grid's blocks.  Launches nothing."""
+    _check("launch_config", q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("launch_config describes a launch on the card")
+    b, h, t, d = q.shape
+    strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, q) for st in x.stride()[:3]])
+    lib = _lib()
+    c = lib.flash_attention_shape(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype], b, h,
+                                  k.shape[1], t, k.shape[2], d, strides, int(causal), q.device.index or 0)
+    if c < 0:
+        raise RuntimeError(f"flash attention has no block shape here: {lib.kernel_error_string(-c).decode()}")
+    rows, groups = BLOCK_SHAPES[c]
+    return {"block": f"{rows}x{groups}", "blocks": -(-t // rows) * b * h}
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:

@@ -9,11 +9,12 @@
 //
 // The PTX wrappers of the package (src/repro_torch/kernels/sm90_ops.cuh,
 // namespace sm90) are defined here instead, for REPRO_CUDA_EMU:
-//  * warp-collective instructions (mma.sync, __syncwarp) meet at a
-//    std::barrier of the warp's 32 threads; mma.sync exchanges the lanes'
-//    fragments through a per-warp buffer (two slots, used in turn, so one
-//    barrier per instruction suffices) and each lane computes its own
-//    elements of D from the PTX ISA's fragment layouts;
+//  * warp-collective instructions (mma.sync, __shfl_xor_sync, __syncwarp)
+//    meet at a std::barrier of the warp's 32 threads; mma.sync and the
+//    shuffle exchange the lanes' values through a per-warp buffer (two
+//    slots, used in turn by consecutive collectives, so one barrier per
+//    instruction suffices): each lane computes its own elements of D from
+//    the PTX ISA's fragment layouts, or reads its partner lane's value;
 //  * a TF32 operand keeps its top 19 bits, as the tensor cores read it;
 //  * cp.async is deferred: a copy is queued and done when a wait_group
 //    retires its group (the latest moment the hardware may land it), and
@@ -52,13 +53,15 @@ inline void __syncthreads() { _emu_barrier->arrive_and_wait(); }
 struct _EmuWarp {
   explicit _EmuWarp(unsigned n) : bar(n) {}
   std::barrier<> bar;
-  uint32_t a[2][32][4], b[2][32][2];
+  uint32_t a[2][32][4], b[2][32][2], shfl[2][32];
 };
 inline std::vector<std::unique_ptr<_EmuWarp>> _emu_warps;
 inline unsigned char* _emu_dyn_smem = nullptr;
 inline unsigned _emu_tid() { return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z); }
 inline _EmuWarp& _emu_warp() { return *_emu_warps[_emu_tid() / 32]; }
 inline void __syncwarp(unsigned = 0xffffffffu) { _emu_warp().bar.arrive_and_wait(); }
+// the slot of the warp's next collective (mma.sync or a shuffle): they alternate
+inline thread_local unsigned _emu_phase = 0;
 
 inline float __uint_as_float(uint32_t u) {
   float f;
@@ -71,10 +74,26 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 
+// Every lane of the warp posts its value, meets the others, and reads the
+// value of lane ^ mask (the whole warp takes part: mask 0xffffffff).
+template <typename V>
+V __shfl_xor_sync(unsigned, V var, int lane_mask, int = 32) {
+  static_assert(sizeof(V) == 4, "32-bit shuffles only");
+  _EmuWarp& w = _emu_warp();
+  const int slot = _emu_phase++ & 1;
+  const unsigned lane = _emu_tid() % 32;
+  std::memcpy(&w.shfl[slot][lane], &var, 4);
+  w.bar.arrive_and_wait();
+  V out;
+  std::memcpy(&out, &w.shfl[slot][lane ^ unsigned(lane_mask)], 4);
+  return out;
+}
+
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 template <typename F>
@@ -82,6 +101,13 @@ cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 // an H100's 132 SMs, so the split count is the card's
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = 132;
+  return cudaSuccess;
+}
+// resident blocks of a kernel on an SM, from its threads and shared memory
+// alone (an H100's 2048 threads and 227 KB; the emulation has no registers)
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads, size_t smem) {
+  *n = std::min(2048 / threads, smem ? int(232448 / smem) : 32);
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -141,12 +167,10 @@ inline uint32_t cvt_tf32(float x) {
   return u;
 }
 
-inline thread_local unsigned _emu_mma_phase = 0;
-
 // Post this lane's fragments, meet the warp, and return the slot to read.
 inline int _emu_exchange(const uint32_t a[4], const uint32_t b[2]) {
   _EmuWarp& w = _emu_warp();
-  const int slot = _emu_mma_phase++ & 1;
+  const int slot = _emu_phase++ & 1;
   const unsigned lane = _emu_tid() % 32;
   std::memcpy(w.a[slot][lane], a, sizeof(w.a[slot][lane]));
   std::memcpy(w.b[slot][lane], b, sizeof(w.b[slot][lane]));

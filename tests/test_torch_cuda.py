@@ -179,6 +179,48 @@ def test_flash_attention_kernel_matches_plain_on_card(card, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def _int_view(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "x".join(map(str, c[:6])) + ("-causal" if c[6] else ""))
+def test_flash_attention_repeats_bitwise_on_card(card, dtype, case):
+    """Two calls on the same inputs give the same bits: the key split is a
+    pure function of the shape and its partial softmaxes merge in a fixed
+    order, with no atomics."""
+    b, h, hkv, t, s, d, causal = case
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, heads, d), dtype=np.float32)).to(card, dtype)
+               for n, heads in ((t, h), (s, hkv), (s, hkv)))
+    got = gqa_flash(q, k, v, causal=causal)
+    again = gqa_flash(q, k, v, causal=causal)
+    assert torch.equal(_int_view(got), _int_view(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_flash_attention_head_shards_match_full_call_on_card(card, dtype):
+    """The ViT's head_sequence shards: 8, 5 and 3 of 16 heads over the 14x14
+    grid (batch 4, D = 64), each a column slice of the [B, T, 16*D]
+    projections, agree with one 16-head call on the same q, k, v within
+    TOL * (1 + |y|): the launcher may pick another block shape for each grid,
+    so the sums run in other orders (float32: 2e-5; bfloat16: one rounding of
+    the output, 2e-2)."""
+    b, t, heads, d = 4, 196, 16, 64
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, heads * d), dtype=np.float32)).to(card, dtype)
+               .view(b, t, heads, d) for _ in range(3))
+    full = gqa_flash(q, k, v, causal=False)
+    parts, lo = [], 0
+    for n in (8, 5, 3):
+        parts.append(gqa_flash(q[:, :, lo:lo + n], k[:, :, lo:lo + n], v[:, :, lo:lo + n], causal=False))
+        lo += n
+    got, want = torch.cat(parts, dim=2).float(), full.float()
+    assert bool(((got - want).abs() <= TOL[dtype] * (1 + want.abs())).all())
+
+
 @pytest.mark.cuda
 def test_flash_attention_empty_batch_launches_nothing_on_card(card):
     q = torch.zeros((0, 4, 10, 16), device=card)
