@@ -45,11 +45,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8 / 5 / 3 of 16 over the 14x14 token grid, read through the model layout's
    strides, non-causal) plus causal T = S = 256, top-left causal T = 128 with
    S = 256 and with S = 64, and GQA (16 query heads over 4 KV heads, D = 128),
-   in float32 and bfloat16, timing it beside its plain version,
+   and the LM's two shapes of phase 7 (32 query heads over 8 KV heads, D =
+   128: causal T = S = 512, and T = 1 over the first 64 keys of a 512-slot
+   KV cache, a strided view), in float32 and bfloat16, timing it beside its
+   plain version,
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) and
    its bound (float32 at the 3xTF32 rate the kernel runs, with the FFMA bound
-   beside it); at the ViT shapes also the kernel's and SDPA's device us per
-   call from a ``torch.profiler`` window over back-to-back launches, the
+   beside it); at the ViT's and the LM's shapes also the kernel's and SDPA's
+   device us per call from a ``torch.profiler`` window over back-to-back launches, the
    wrapper's host us per call and the largest |score|;
 6. (a) runs full-width ViT-L/16 (224x224, patch 16, 24 blocks, d 1024, 16
    heads, seeded random weights, batch 4) through ``plan_scheme`` on a
@@ -67,6 +70,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (phase 4's weights and images) under a plan that gives non_penetrative to
    every stage with the same ratios, lossless against the single-device
    forward: K1 then takes contiguous copies of the filter slices.
+7. runs full-width Qwen3-4B (36 layers, d_model 2560, 32 query heads over 8
+   KV heads, d_head 128, d_ff 9728, vocab 151936, qk-norm; seeded random
+   weights, 4.41 B parameters) through the port's step builders
+   (``configs.steps.build``) for its ``prefill_32k`` and ``decode_32k`` cells
+   at batch 4 x 512 tokens: (1) a float32 prefill, K3 launched once per layer
+   and no ``scaled_dot_product_attention`` in its profile, logits finite;
+   (2) the same forward with the plain attention on the card, and (3) the
+   plain versions' forward on the CPU over the first 16 tokens of batch
+   element 0 (weights copied to the host), both within ``DEPTH_RTOL`` of the
+   largest |logit|; (4) 64 teacher-forced KV-cache decode steps from
+   ``init_cache``, 36 K3 launches each, every step's logits within
+   ``DEPTH_RTOL`` of the prefill's at its position; then times and profiles
+   a steady float32 prefill and decode step; (5) frees the float32 weights
+   and runs the prefill in bfloat16, held to the float32 forward of the same
+   bf16-rounded weights (within ``BF16_RTOL`` of its largest |logit|, or 1.25x
+   the plain versions' own bfloat16 gap where that is larger), then times
+   and profiles it.  Phase 3c holds K3 at the LM's two shapes (the causal
+   GQA prefill, and a decode step over a 64-key prefix of a 512-slot cache).
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -107,6 +128,13 @@ DEPTH_RTOL = 1e-4
 # the bfloat16 ViT forward's logits vs the float32 card forward of the same
 # (bf16-rounded) weights and images, relative to the largest |logit| (bf16 _tol)
 BF16_RTOL = 2e-2
+
+# Phase 7: Qwen3-4B prefill of LM_BATCH x LM_LEN tokens (the prefill_32k
+# cell cut from 32 x 32768), DECODE_STEPS teacher-forced decode steps against
+# a cache of LM_LEN slots, and the CPU check over the first CPU_TOKENS tokens.
+LM_BATCH, LM_LEN, DECODE_STEPS, CPU_TOKENS = 4, 512, 64, 16
+# operators of F.scaled_dot_product_attention, none of which the port calls
+SDPA_OPS = ("scaled_dot_product", "_flash_attention", "_efficient_attention", "_cudnn_attention")
 
 # Phase 5's layouts of full-width VGG-16 over height shards of one card:
 # (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
@@ -250,6 +278,11 @@ def spatial_calls(net, heights, batch: int, weighted: bool) -> list[dict]:
     return calls
 
 
+def dict_leaves(tree) -> list:
+    """The leaves of a nested dict, in order."""
+    return [x for v in tree.values() for x in (dict_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tuple[float, float]:
     """(ms the operations need at the peak rate of ``dtype`` -- or, with
     ``ffma``, at the CUDA cores' float32 FMA rate -- ms the bytes need at the
@@ -259,10 +292,13 @@ def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tup
 
 
 # The port's kernels in a profile, by a substring of the device kernel's name
-# (the split-K reduction is one kernel for K1 and K2 alike).
+# (the split-K reduction is one kernel for K1 and K2 alike), and cuBLAS's
+# matrix products (the LM's dense layers; nvjet is its bf16 family on Hopper).
 KERNEL_FAMILIES = (("conv2d_igemm<float, (anonymous namespace)::DenseRows", "K1"),
                    ("conv2d_igemm<float, (anonymous namespace)::HaloRows", "K2"),
-                   ("splitk_reduce", "K1/K2 split-K reduction"), ("flash_fwd", "K3"))
+                   ("splitk_reduce", "K1/K2 split-K reduction"), ("flash_fwd", "K3"),
+                   ("conv2d_igemm", "K1/K2 (bf16)"), ("gemm", "GEMM (cuBLAS)"), ("gemv", "GEMM (cuBLAS)"),
+                   ("splitKreduce", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"))
 
 
 def kernel_family(name: str) -> str:
@@ -391,10 +427,12 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
     times of the kernel, the plain version and F.scaled_dot_product_attention
     (on the repeated KV heads where Hkv < H), beside the bound.  q, k and v
     are [B, T, H*D] buffers seen as [B, H, T, D] through strides, the layout
-    the ViT's attention hands the kernel.  At the ViT's shapes the kernel's
-    and SDPA's device us per call (a profiler window), the wrapper's host us
-    per call and the largest |score| are added.  Returns the float32 row,
-    with the bfloat16 error and times in it."""
+    the ViT's and the LM's attention hand the kernel; with ``cache`` slots,
+    k and v are the first S rows of a [B, cache, Hkv*D] KV cache (a decode
+    step's view).  At a main path's shapes the kernel's and SDPA's device us
+    per call (a profiler window), the wrapper's host us per call and the
+    largest |score| are added.  Returns the float32 row, with the bfloat16
+    error and times in it."""
     from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
     from repro_torch.kernels.attention.ops import launch_config
 
@@ -403,9 +441,10 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).removeprefix("torch.")
-        q, k, v = (torch.randn((b, n, heads * d), generator=gen, device="cuda").to(dt)
+        q, k, v = (torch.randn((b, rows, heads * d), generator=gen, device="cuda").to(dt)[:, :n]
                    .view(b, n, heads, d).transpose(1, 2)
-                   for n, heads in ((t, h), (s, hkv), (s, hkv)))
+                   for n, rows, heads in ((t, t, h), (s, case.get("cache") or s, hkv),
+                                          (s, case.get("cache") or s, hkv)))
         kr, vr = (x.repeat_interleave(g, dim=1) for x in (k, v))
 
         def kernel():
@@ -435,14 +474,15 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
         t_ffma = max(bound_ms(flops, nbytes, dname, ffma=True))
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         extra = {}
-        if case["path"] == "vit":
+        if case["path"]:
             scores = torch.einsum("bhtd,bhsd->bhts", q.float(), kr.float()) / math.sqrt(d)
             extra = dict(device_us=device_us(torch, kernel), host_us=host_us(torch, kernel),
                          library_device_us=device_us(
                              torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)),
                          max_abs_score=scores.abs().max().item())
         print(f"attn {dname:8s} {case['path'] or 'extra'} B{b} H{h}/{hkv} T{t} S{s} D{d}"
-              f"{' causal' if causal else ''} x{case['per_forward']}/fwd [{config['block']}, "
+              f"{' causal' if causal else ''}{' cache ' + str(case['cache']) if case.get('cache') else ''} "
+              f"x{case['per_forward']}/fwd [{config['block']}, "
               f"{config['blocks']} blocks]: max_err {err:.3g} "
               f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.2f} TFLOP/s) plain {t_plain:.4f} ms "
               f"SDPA {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; FFMA {t_ffma:.4f})"
@@ -450,6 +490,7 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
                  f"wrapper host us/call {extra['host_us']:.2f}, max |score| {extra['max_abs_score']:.3g}"
                  if extra else ""))
         out[dname] = dict(b=b, h=h, hkv=hkv, t=t, s=s, d=d, causal=causal, path=case["path"],
+                          cache=case.get("cache"),
                           dtype=dname, per_forward=case["per_forward"], max_abs_err=err, ms=t_kernel,
                           plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms,
                           bytes_ms=bytes_ms, bound_by=by, ffma_bound_ms=t_ffma,
@@ -484,14 +525,18 @@ def main() -> int:
         stage_spans,
         vit_l16_geom,
     )
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
     from repro_torch.core.partition import _split_counts
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.attention import flash_attention, gqa_flash
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     from repro_torch.kernels.conv2d.ops import launch_config
     from repro_torch.kernels.halo_conv import halo_conv2d_cuda
     from repro_torch.launch.mesh import make_spatial_comm
     from repro_torch.launch.serve import serve
+    from repro_torch.models import attention as lm_attention
+    from repro_torch.models import transformer_lm as lm
     from repro_torch.models import vgg, vit_spatial
     from repro_torch.models.common import tree_map
     from repro_torch.parallel import weighted_spatial_inputs
@@ -637,6 +682,12 @@ def main() -> int:
         dict(h=16, hkv=16, t=128, s=64, d=64),    # T > S: rows past S see every key
         dict(h=16, hkv=4, t=256, s=256, d=128),   # GQA, 4 query heads per KV head
     )]
+    # phase 7's Qwen3-4B: one call per layer of a prefill forward (causal)
+    # and of a decode step (one query over the cache's first 64 keys)
+    qcfg = get_arch("qwen3-4b").cfg
+    lm_attn = dict(b=LM_BATCH, h=qcfg.n_heads, hkv=qcfg.n_kv_heads, d=qcfg.d_head, per_forward=qcfg.n_layers)
+    attn_cases += [dict(lm_attn, t=LM_LEN, s=LM_LEN, causal=True, path="lm-prefill"),
+                   dict(lm_attn, t=1, s=DECODE_STEPS, causal=False, path="lm-decode", cache=LM_LEN)]
     attn_rows = [hold_attention(torch, F, gen, c) for c in attn_cases]
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
@@ -840,6 +891,162 @@ def main() -> int:
     check(np_depth <= DEPTH_RTOL * scale, "VGG-NP drifts from the plain conv at depth")
     np_ms, np_busy, np_top, np_fams = steady_and_profiled(torch, np_forward, "vgg non_penetrative run_plan")
 
+    # -- 7. full-width Qwen3-4B: prefill and KV-cache decode ------------------
+    phase7_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = get_arch("qwen3-4b")
+    check((qcfg.n_layers, qcfg.d_model, qcfg.n_heads, qcfg.n_kv_heads, qcfg.d_head, qcfg.d_ff, qcfg.vocab,
+           qcfg.qk_norm) == (36, 2560, 32, 8, 128, 9728, 151936, True), f"qwen3-4b is not full width: {qcfg}")
+    prefill = build(arch, "prefill_32k", dtype=torch.float32)
+    decode = build(arch, "decode_32k", dtype=torch.float32)
+    check((prefill.kind, decode.kind) == ("prefill", "decode"), f"kinds {prefill.kind}, {decode.kind}")
+    lgen = torch.Generator(device="cuda").manual_seed(2)
+    t0 = time.perf_counter()
+    lparams = lm.init(lgen, qcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict_leaves(lparams)
+    check([(tuple(t.shape), t.dtype) for t in leaves] == dict_leaves(prefill.state),
+          "the weights do not match the bundle's shapes")
+    n_params = sum(t.numel() for t in leaves)
+    tokens = torch.randint(0, qcfg.vocab, (LM_BATCH, LM_LEN), generator=lgen, device="cuda", dtype=torch.int32)
+    print(f"qwen3-4b: {n_params / 1e9:.4f} B parameters ({n_params * 4 / 1e9:.2f} GB float32) drawn on the "
+          f"card in {init_s:.2f} s; prefill of {LM_BATCH} x {LM_LEN} tokens (cell prefill_32k: "
+          f"{prefill.inputs['tokens'][0]}), {DECODE_STEPS} decode steps")
+
+    # (1) float32 prefill: K3 once per layer, no SDPA operator in the profile
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    flash_attention.launches = 0
+    with torch.profiler.profile(activities=acts) as prof:
+        llogits = prefill.fn(lparams, tokens)
+        torch.cuda.synchronize()
+    lm_launches = flash_attention.launches
+    sdpa_rows = [a.key for a in prof.key_averages() if any(op in a.key for op in SDPA_OPS)]
+    print(f"  float32 prefill: K3 launches {lm_launches} (one per layer: {qcfg.n_layers}); "
+          f"SDPA operators in its profile: {sdpa_rows or 'none'}")
+    check(lm_launches == qcfg.n_layers, f"the prefill launched K3 {lm_launches} times")
+    check(not sdpa_rows, f"the prefill ran {sdpa_rows}")
+    check(tuple(llogits.shape) == (LM_BATCH, LM_LEN, qcfg.vocab), f"LM logits {tuple(llogits.shape)}")
+    check(bool(torch.isfinite(llogits).all()), "non-finite LM logits")
+    l_scale = llogits.abs().max().item()
+
+    # (2) the same forward with the plain attention on the card
+    def plain_gqa(q, k, v, *, causal):
+        g = q.shape[2] // k.shape[2]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return attention_ref(qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
+                             causal=causal).transpose(1, 2)
+
+    def with_plain_attention(fn):
+        lm_attention.gqa_flash = plain_gqa
+        try:
+            return fn()
+        finally:
+            lm_attention.gqa_flash = gqa_flash
+
+    lplain = with_plain_attention(lambda: prefill.fn(lparams, tokens))
+    l_plain_err = (llogits - lplain).abs().max().item()
+    print(f"  vs the same forward with the plain attention on the card: max |diff| {l_plain_err:.4g} "
+          f"(max |logit| {l_scale:.4g}, limit {DEPTH_RTOL} x that)")
+    check(l_plain_err <= DEPTH_RTOL * l_scale, "the LM through K3 drifts from its plain attention")
+    del lplain
+
+    # (3) the plain versions on the CPU, float32, the first CPU_TOKENS tokens
+    # of batch element 0 (the mask is causal, so a prefix gives the same logits)
+    t0 = time.perf_counter()
+    cparams = tree_map(lambda t: t.cpu(), lparams)
+    ctokens = tokens[:1, :CPU_TOKENS].cpu()
+    clogits = lm.forward(cparams, qcfg, ctokens)[0][0]
+    cpu_s = time.perf_counter() - t0
+    del cparams
+    c_err = (llogits[0, :CPU_TOKENS].cpu() - clogits).abs().max().item()
+    c_scale = clogits.abs().max().item()
+    print(f"  vs the plain versions' forward on the CPU (float32, all {qcfg.n_layers} layers, tokens "
+          f"0..{CPU_TOKENS - 1} of batch element 0; {cpu_s:.1f} s with the host copy): max |diff| "
+          f"{c_err:.4g} (max |logit| {c_scale:.4g}, limit {DEPTH_RTOL} x that)")
+    check(c_err <= DEPTH_RTOL * c_scale, "the LM drifts from the plain versions on the CPU")
+
+    # (4) teacher-forced KV-cache decode: each step's logits against the
+    # prefill's at its position
+    cache = lm.init_cache(qcfg, LM_BATCH, LM_LEN, device="cuda")
+    check(tuple(cache["dense"]["k"].shape) == (qcfg.n_layers, LM_BATCH, LM_LEN, qcfg.n_kv_heads, qcfg.d_head),
+          f"cache {tuple(cache['dense']['k'].shape)}")
+    flash_attention.launches = 0
+    d_errs = []
+    for i in range(DECODE_STEPS):
+        step_logits, cache = decode.fn(lparams, cache, tokens[:, i:i + 1], i)
+        d_errs.append((step_logits - llogits[:, i]).abs().max())
+    torch.cuda.synchronize()
+    decode_launches = flash_attention.launches
+    d_errs = torch.stack(d_errs).cpu()
+    print(f"  {DECODE_STEPS} decode steps: K3 launches {decode_launches} ({qcfg.n_layers} per step); "
+          f"largest |decode - prefill| {d_errs.max().item():.4g} at step {int(d_errs.argmax())} "
+          f"(limit {DEPTH_RTOL} x {l_scale:.4g})")
+    check(decode_launches == qcfg.n_layers * DECODE_STEPS, f"decode launched K3 {decode_launches} times")
+    check(d_errs.max().item() <= DEPTH_RTOL * l_scale, "decode drifts from the prefill's logits")
+
+    # where the time goes: a steady float32 prefill and decode step
+    lm_ms, lm_busy, lm_top, lm_fams = steady_and_profiled(
+        torch, lambda: prefill.fn(lparams, tokens), "qwen3-4b float32 prefill")
+    step_tok = tokens[:, DECODE_STEPS:DECODE_STEPS + 1]
+    dec_ms, dec_busy, dec_top, dec_fams = steady_and_profiled(
+        torch, lambda: decode.fn(lparams, cache, step_tok, DECODE_STEPS), "qwen3-4b float32 decode step")
+    print(f"  tokens/s: prefill {LM_BATCH * LM_LEN / lm_ms * 1e3:.1f}, decode {LM_BATCH / dec_ms * 1e3:.1f} "
+          f"(batch {LM_BATCH}, step at position {DECODE_STEPS})")
+    del cache
+
+    # (5) bfloat16: the float32 weights are freed first; the reference is the
+    # float32 forward of the same bf16-rounded weights
+    bparams = tree_map(lambda t: t.to(torch.bfloat16), lparams)
+    del lparams, leaves
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    bl = prefill.fn(bparams, tokens)
+    torch.cuda.synchronize()
+    bl_launches = flash_attention.launches
+    check(bl_launches == qcfg.n_layers, f"the bf16 prefill launched K3 {bl_launches} times")
+    check(bl.dtype == torch.bfloat16 and bool(torch.isfinite(bl.float()).all()), "bad bf16 LM logits")
+    bl_plain = with_plain_attention(lambda: prefill.fn(bparams, tokens))
+    rparams = tree_map(lambda t: t.float(), bparams)
+    rl = prefill.fn(rparams, tokens)
+    del rparams
+    torch.cuda.empty_cache()
+    bl_err = (bl.float() - rl).abs().max().item()
+    bl_plain_err = (bl_plain.float() - rl).abs().max().item()
+    bl_scale = rl.abs().max().item()
+    bl_f32w = (bl.float() - llogits).abs().max().item()
+    bl_plain_f32w = (bl_plain.float() - llogits).abs().max().item()
+    bl_limit = max(BF16_RTOL * bl_scale, 1.25 * bl_plain_err)
+    print(f"  bfloat16 prefill: K3 launches {bl_launches}; vs the float32 forward of the bf16-rounded "
+          f"weights: max |diff| {bl_err:.4g} (max |logit| {bl_scale:.4g}; the plain versions in bf16: "
+          f"{bl_plain_err:.4g}; limit {bl_limit:.4g} = the larger of {BF16_RTOL} x max |logit| and 1.25 x "
+          f"the plain gap); vs the float32 weights' forward: {bl_f32w:.4g} (plain: {bl_plain_f32w:.4g})")
+    check(bl_err <= bl_limit, "the bfloat16 LM drifts from the float32 forward")
+    del bl, bl_plain, rl
+    bf_ms, bf_busy, bf_top, bf_fams = steady_and_profiled(
+        torch, lambda: prefill.fn(bparams, tokens), "qwen3-4b bfloat16 prefill")
+    print(f"  tokens/s: bf16 prefill {LM_BATCH * LM_LEN / bf_ms * 1e3:.1f}")
+    del bparams, llogits
+    torch.cuda.empty_cache()
+    peak_gb, phase7_s = torch.cuda.max_memory_allocated() / 1e9, time.perf_counter() - phase7_t0
+    print(f"  phase 7: {phase7_s:.1f} s, peak device memory allocated {peak_gb:.2f} GB")
+    lm_report = dict(phase_s=phase7_s, peak_device_gb=peak_gb,
+        config={k: getattr(qcfg, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
+                                               "d_ff", "vocab", "qk_norm", "rope_theta")},
+        n_params=n_params, init_s=init_s, batch=LM_BATCH, seq_len=LM_LEN, decode_steps=DECODE_STEPS,
+        prefill_launches=lm_launches, decode_launches=decode_launches, bf16_launches=bl_launches,
+        sdpa_ops=sdpa_rows, max_abs_logit=l_scale, plain_attention_max_abs=l_plain_err,
+        cpu_tokens=CPU_TOKENS, cpu_max_abs=c_err, cpu_s=cpu_s, decode_max_abs=d_errs.max().item(),
+        bf16_max_abs=bl_err, bf16_plain_max_abs=bl_plain_err, bf16_max_abs_logit=bl_scale,
+        bf16_limit=bl_limit, bf16_vs_f32_weights=bl_f32w, bf16_plain_vs_f32_weights=bl_plain_f32w,
+        prefill=dict(steady_ms=lm_ms, device_busy_ms=lm_busy, top_device=lm_top, device_ms_by_kernel=lm_fams,
+                     tokens_per_s=LM_BATCH * LM_LEN / lm_ms * 1e3),
+        decode=dict(steady_ms=dec_ms, device_busy_ms=dec_busy, top_device=dec_top, device_ms_by_kernel=dec_fams,
+                    tokens_per_s=LM_BATCH / dec_ms * 1e3, index=DECODE_STEPS),
+        bf16_prefill=dict(steady_ms=bf_ms, device_busy_ms=bf_busy, top_device=bf_top,
+                          device_ms_by_kernel=bf_fams, tokens_per_s=LM_BATCH * LM_LEN / bf_ms * 1e3),
+    )
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5)
@@ -875,20 +1082,28 @@ def main() -> int:
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values())),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
-              "src/repro/kernels/attention/attention.py:20", attn_main, got_vit["flash_attention"]),
+              "src/repro/kernels/attention/attention.py:20", attn_main,
+              got_vit["flash_attention"] + lm_launches + decode_launches),
     ]
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
                 for path in ("run_plan", "weighted-fixup", "vit", "vgg-np")}
-    per_path["vit"]["flash_attention"] = {key: per_fwd(attn_main, key) for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms", "bf16_ms", "bf16_library_ms",
-        "bf16_bound_ms")}
-    # device ms per forward from the profiler windows (us per call x calls per forward)
-    per_path["vit"]["flash_attention"].update({key.replace("us", "ms"): per_fwd(attn_main, key) / 1e3
-                                               for key in ("device_us", "library_device_us", "host_us",
-                                                           "bf16_device_us", "bf16_library_device_us")})
+    # K3 per forward of each path (the LM's decode: per step), and device ms
+    # per forward from the profiler windows (us per call x calls per forward)
+    k3_per_path = {}
+    for path in ("vit", "lm-prefill", "lm-decode"):
+        rs = [r for r in attn_main if r["path"] == path]
+        k3_per_path[path] = {key: per_fwd(rs, key) for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms", "bf16_ms", "bf16_library_ms",
+            "bf16_bound_ms")}
+        k3_per_path[path].update({key.replace("us", "ms"): per_fwd(rs, key) / 1e3
+                                  for key in ("device_us", "library_device_us", "host_us",
+                                              "bf16_device_us", "bf16_library_device_us")})
+    per_path["vit"]["flash_attention"] = k3_per_path["vit"]
     for name, v in per_path.items():
         print(f"K1 per forward of {name}: {json.dumps(v)}")
+    for name in ("lm-prefill", "lm-decode"):
+        print(f"K3 per {'forward' if name == 'lm-prefill' else 'step'} of {name}: {json.dumps(k3_per_path[name])}")
     conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")
     by_layout = {name: {key: per_fwd([r for r in halo_main if r["layout"] == name], key)
                         for key in conv_keys}
@@ -916,15 +1131,17 @@ def main() -> int:
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
-        "k1_per_forward": per_path, "kernels": kernels,
+        "lm": lm_report, "k3_per_forward": k3_per_path, "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "
                 "run_plan forward (39 calls), the weighted spatial forward's 52 fix-up convs, "
                 "a ViT-L/16 scheme-plan forward (221 calls) and a VGG-16 non_penetrative "
                 "forward (39 calls); halo_conv2d over one weighted (52 calls) and one equal "
                 "(91 calls) spatial forward; flash_attention over a ViT-L/16 forward (72 "
-                "calls).  launches count every main-path run: the 4 served batches, one "
-                "forward of each spatial layout, one ViT forward and one VGG-NP forward.",
+                "calls), a Qwen3-4B prefill forward of 4 x 512 tokens (36 calls) and one of its "
+                "decode steps at position 64 (36 calls).  launches count every main-path run: "
+                "the 4 served batches, one forward of each spatial layout, one ViT forward, one "
+                "VGG-NP forward, one float32 Qwen3-4B prefill and its 64 decode steps.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

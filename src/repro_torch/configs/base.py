@@ -1,0 +1,79 @@
+"""Arch registry (twin of ``repro/configs/base.py``): each architecture the
+port runs is a selectable config with its full config, a reduced smoke config
+and one :class:`Cell` per assigned input shape.  :mod:`.steps` builds the step
+function and the input shapes for an (arch, cell).  Only the architectures
+the port has reached are registered (``ROADMAP.md`` queues the rest).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+__all__ = ["Cell", "Arch", "REGISTRY", "register", "get", "list_archs", "lm_cells"]
+
+
+@dataclass(frozen=True)
+class Cell:
+    """One assigned (architecture x input shape) cell."""
+
+    name: str
+    kind: str  # "train" | "prefill" | "decode" | "gen" | "serve"
+    meta: dict = field(default_factory=dict)  # batch, seq_len, img_res, steps...
+    skip: str | None = None  # reason if the cell is inapplicable (recorded)
+
+
+@dataclass(frozen=True)
+class Arch:
+    name: str
+    family: str  # "lm" | "vision" | "diffusion" | "convnet"
+    cfg: Any
+    smoke_cfg: Any
+    cells: dict[str, Cell]
+    module: Any  # the model module (init/forward/...)
+    notes: str = ""
+
+
+REGISTRY: dict[str, Arch] = {}
+
+
+def register(arch: Arch) -> Arch:
+    REGISTRY[arch.name] = arch
+    return arch
+
+
+def get(name: str) -> Arch:
+    if name not in REGISTRY:
+        from . import _load_all
+
+        _load_all()
+    if name not in REGISTRY:
+        raise KeyError(f"{name!r} is not ported to repro_torch (registered: {sorted(REGISTRY)}; "
+                       f"the queue is in ROADMAP.md)")
+    return REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    from . import _load_all
+
+    _load_all()
+    return sorted(REGISTRY)
+
+
+# The assigned LM shape set (shared by the LM archs).
+def lm_cells(*, full_attention: bool) -> dict[str, Cell]:
+    return {
+        "train_4k": Cell("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+        "prefill_32k": Cell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+        "decode_32k": Cell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+        "long_500k": Cell(
+            "long_500k",
+            "decode",
+            {"seq_len": 524288, "global_batch": 1},
+            skip=(
+                "full-attention architecture; long_500k requires sub-quadratic "
+                "attention per the assignment (skip recorded in DESIGN.md)"
+                if full_attention
+                else None
+            ),
+        ),
+    }

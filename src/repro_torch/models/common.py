@@ -2,10 +2,13 @@
 
 Models are plain functions over nested-dict parameter trees of tensors, in the
 JAX package's layouts: conv kernels HWIO ``[k, k, Cin, Cout]`` plus bias
-``[Cout]``, dense ``[d_in, d_out]`` plus bias ``[d_out]``.  So a JAX parameter
-tree converts by ``np.asarray`` alone (:func:`params_from_jax`).  Random
-parameters come from an explicit ``torch.Generator``; they are not the numbers
-``jax.random`` gives for the same seed.
+``[Cout]``, dense ``[d_in, d_out]`` plus bias ``[d_out]``, norms ``scale``
+(plus ``b``), and a stack of identical layers as one tree whose leaves lead
+with the layer axis (:func:`stack_layers`).  So a JAX parameter tree converts
+by ``np.asarray`` alone (:func:`params_from_jax`).  Random parameters come
+from an explicit ``torch.Generator``, on its device unless ``device`` is given
+(``"meta"`` gives shapes only); they are not the numbers ``jax.random`` gives
+for the same seed.
 """
 from __future__ import annotations
 
@@ -18,21 +21,71 @@ import torch
 Params = Any  # nested dict/list tree of tensors
 
 
-def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    """``std * N(0, 1)`` in float32 on the generator's device."""
-    return std * torch.randn(shape, generator=gen, device=gen.device)
+def _normal(gen: torch.Generator, shape, std: float, device=None) -> torch.Tensor:
+    """``std * N(0, 1)`` in float32, on the generator's device or ``device``."""
+    return std * torch.randn(shape, generator=gen, device=device or gen.device)
 
 
-def dense_params(gen: torch.Generator, d_in: int, d_out: int) -> Params:
-    """LeCun-normal float32 ``[d_in, d_out]`` weights and zero bias."""
-    return {"w": _normal(gen, (d_in, d_out), math.sqrt(1.0 / max(1, d_in))),
-            "b": torch.zeros((d_out,), device=gen.device)}
+def trunc_normal(gen: torch.Generator, shape, std: float = 0.02, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """``std * N(0, 1)`` truncated to +-2 (``jax.random.truncated_normal(key,
+    -2, 2)``), drawn in float32 by the inverse CDF of a uniform draw, then
+    cast to ``dtype``."""
+    lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
+    u = torch.rand(shape, generator=gen, device=device or gen.device) * (hi - lo) + lo
+    z = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp_(-2.0, 2.0)
+    return (std * z).to(dtype)
+
+
+def dense_params(gen: torch.Generator, d_in: int, d_out: int, bias: bool = True,
+                 std: float | None = None, dtype=torch.float32, device=None) -> Params:
+    """``[d_in, d_out]`` weights -- LeCun-normal, or truncated normal of ``std``
+    when given -- and a zero bias unless ``bias=False``."""
+    device = device or gen.device
+    if std is None:
+        w = _normal(gen, (d_in, d_out), math.sqrt(1.0 / max(1, d_in)), device).to(dtype)
+    else:
+        w = trunc_normal(gen, (d_in, d_out), std, dtype, device)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 def conv_params(gen: torch.Generator, k: int, c_in: int, c_out: int) -> Params:
     """He-normal float32 HWIO conv kernel and zero bias."""
     return {"w": _normal(gen, (k, k, c_in, c_out), math.sqrt(2.0 / max(1, k * k * c_in))),
             "b": torch.zeros((c_out,), device=gen.device)}
+
+
+def norm_params(dim: int, bias: bool = True, dtype=torch.float32, device="cpu") -> Params:
+    """A norm's unit ``scale`` and, unless ``bias=False``, zero ``b``."""
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+def stack_layers(init_one, gen: torch.Generator, n: int) -> Params:
+    """``n`` layers from ``init_one(gen)`` as one tree whose leaves lead with the
+    layer axis, ``[n, ...]`` -- the layout JAX's ``stack_layers`` (a ``vmap``
+    of the init) gives, so a JAX LM tree converts by :func:`params_from_jax`.
+    Each layer is drawn in turn and copied into its slot: the stack plus one
+    layer are held at a time."""
+    first = init_one(gen)
+    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else init_one(gen)
+        _copy_into(stacked, layer, i)
+    return stacked
+
+
+def _copy_into(stacked: Params, layer: Params, i: int) -> None:
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _copy_into(stacked[k], layer[k], i)
+    elif stacked.device.type != "meta":
+        stacked[i].copy_(layer)
 
 
 def params_from_jax(tree, device: str | torch.device = "cpu",

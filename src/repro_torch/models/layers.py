@@ -1,8 +1,9 @@
-"""Core layers on NHWC tensors (twin of the VGG and ViT subset of ``repro/models/layers.py``).
+"""Core layers on NHWC tensors and [B, T, D] sequences (twin of the VGG, ViT
+and dense-LM subset of ``repro/models/layers.py``).
 
 The conv goes to the hand-written kernel's wrapper (which takes its plain
-version for CPU tensors); pooling, the activation and the dense layers stay
-plain PyTorch, as the JAX package left them to XLA.
+version for CPU tensors); pooling, the activations, the norms and the dense
+layers stay plain PyTorch, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -51,3 +52,18 @@ def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis: the mean square in float32, then
+    ``(x * rsqrt(var + eps).to(x.dtype)) * scale`` -- two products in x's
+    type, rounded in JAX's order."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * p["scale"]
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each step
+    rounded to x's type: the expansion XLA gives ``jax.nn.silu``, so bfloat16
+    rounds where JAX's does (``F.silu`` rounds once)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))

@@ -73,6 +73,9 @@ CASES = [
     (1, 2, 2, 100, 100, 32, True, torch.float32, False),
     (1, 4, 2, 40, 56, 128, True, torch.float32, True),    # GQA at D = 128
     (1, 2, 2, 196, 196, 64, False, torch.bfloat16, True),
+    # the LM's prefill (Qwen3-4B: causal T = S, 4 query heads per KV head, D = 128), heads reduced
+    (1, 8, 2, 80, 80, 128, True, torch.float32, True),
+    (1, 8, 2, 80, 80, 128, True, torch.bfloat16, True),
 ]
 
 
@@ -111,6 +114,27 @@ def test_emulated_kernel_with_unaligned_kv(lib, dt):
     assert k.data_ptr() % 16 and k.stride(2) * k.element_size() % 16
     got = _emulated(lib, q, k, v, causal=True)
     want = attention_ref(q, k, v, causal=True)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_emulated_decode_over_cache_prefix(lib, dt):
+    """The LM's decode step: one query row (T = 1: 15 of the smallest
+    block's 16 rows dead) of 8 heads over 2 KV heads at D = 128, against the
+    first S = 37 keys of a 64-slot KV cache [B, S_max, Hkv, D] -- K and V are
+    the prefix view ``cache[:, :37]``, whose batch stride is the longer
+    cache's -- non-causal, as ``gqa_apply`` hands it over."""
+    b, h, hkv, s, s_max, d = 2, 8, 2, 37, 64, 128
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d), dtype=np.float32)).to(dt).transpose(1, 2)
+    k_cache, v_cache = (torch.from_numpy(rng.standard_normal((b, s_max, hkv, d), dtype=np.float32)).to(dt)
+                        for _ in range(2))
+    k, v = (c[:, :s].transpose(1, 2) for c in (k_cache, v_cache))  # [B, Hkv, S, D] views
+    assert k.stride(0) == s_max * hkv * d and not k.is_contiguous()
+    got = _emulated(lib, q, k, v, causal=False)
+    want = attention_ref(q, k.repeat_interleave(h // hkv, dim=1), v.repeat_interleave(h // hkv, dim=1),
+                         causal=False)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 

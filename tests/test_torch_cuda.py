@@ -320,3 +320,83 @@ def test_spatial_forward_with_other_split_counts_on_card(card):
     got = merge_padded_shards(ys, [h // spatial_alignment(net) for h in heights])
     want = vgg.features(params, cfg, x)
     assert bool(((got - want).abs() <= 2e-5 * (1 + want.abs())).all())
+
+
+# (B, H, Hkv, T, S, D, causal, cache slots): Qwen3-4B's two K3 shapes in
+# chip_smoke.py's phase 3c -- the causal prefill of 512 tokens, and a decode
+# step's one query over the first 64 keys of a 512-slot KV cache (a view)
+LM_ATTN_CASES = [
+    (4, 32, 8, 512, 512, 128, True, None),
+    (4, 32, 8, 1, 64, 128, False, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", LM_ATTN_CASES, ids=["prefill", "decode"])
+def test_flash_attention_lm_shapes_match_plain_on_card(card, dtype, case):
+    b, h, hkv, t, s, d, causal, slots = case
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32)).to(card, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, slots or s, hkv, d), dtype=np.float32)).to(card, dtype)
+            [:, :s] for _ in range(2))
+    got = gqa_flash(q, k, v, causal=causal)
+    g = h // hkv
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(g, dim=1),
+                         v.transpose(1, 2).repeat_interleave(g, dim=1), causal=causal).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_gqa_decode_step_matches_plain_sdpa_on_card(card):
+    """Six decode steps of one GQA layer (8 query heads over 2 KV heads, D =
+    128, qk-norm): the kernel's call over the cache's prefix view gives what
+    JAX's plain ``_sdpa`` under ``decode_mask`` gives over the whole cache."""
+    from repro_torch.models import attention
+
+    cfg = attention.GQAConfig(d_model=256, n_heads=8, n_kv_heads=2, d_head=128, qk_norm=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    p = attention.gqa_init(gen, cfg)
+    x = torch.randn((2, 6, cfg.d_model), generator=gen, device=card)
+    k_cache, v_cache = (torch.zeros((2, 16, 2, 128), device=card) for _ in range(2))
+    calls = []
+
+    def recording(q, k, v, *, causal):
+        calls.append((q, k, v, causal, gqa_flash(q, k, v, causal=causal)))
+        return calls[-1][-1]
+
+    attention.gqa_flash = recording
+    try:
+        for i in range(6):
+            before = flash_attention.launches
+            attention.gqa_apply(p, cfg, x[:, i:i + 1], torch.full((2, 1), i, device=card),
+                                (k_cache, v_cache), i)
+            assert flash_attention.launches == before + 1
+            q, k, v, causal, got = calls[-1]
+            assert not causal and k.shape[1] == i + 1 and k.data_ptr() == k_cache.data_ptr()
+            want = attention._sdpa(q, k_cache, v_cache, attention.decode_mask(16, i, card), 128 ** -0.5)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    finally:
+        attention.gqa_flash = gqa_flash
+
+
+@pytest.mark.cuda
+def test_lm_decode_matches_forward_on_card(card):
+    """Two GQA layers at D = 128: 8 decode steps (one K3 call per layer and
+    step, over the cache's prefix) give the causal prefill's logits at each
+    position, within 1e-4 of the largest |logit| (float32, the two paths sum
+    in other orders)."""
+    from repro_torch.models import transformer_lm as lm
+
+    cfg = lm.LMConfig(name="gqa-d128", n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=128,
+                      d_ff=256, vocab=512, qk_norm=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    params = lm.init(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=gen, device=card, dtype=torch.int32)
+    full, _ = lm.forward(params, cfg, toks)
+    cache = lm.init_cache(cfg, 2, 16, device=card)
+    for i in range(8):
+        before = flash_attention.launches
+        got, cache = lm.decode_step(params, cfg, cache, toks[:, i:i + 1], i)
+        assert flash_attention.launches == before + cfg.n_layers
+        assert (got - full[:, i]).abs().max() <= 1e-4 * full.abs().max()

@@ -54,4 +54,7 @@ print(json.dumps({"imported": names, "bad": bad}))
     assert "repro_torch.kernels.attention.ops" in out["imported"]
     assert "repro_torch.models.vit_spatial" in out["imported"]
     assert "repro_torch.core.topology" in out["imported"]
+    assert "repro_torch.models.transformer_lm" in out["imported"]
+    assert "repro_torch.models.attention" in out["imported"]
+    assert "repro_torch.configs.steps" in out["imported"]
     assert out["bad"] == []

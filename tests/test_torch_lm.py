@@ -1,0 +1,297 @@
+"""The port's dense GQA LM (``repro_torch.models.attention``,
+``models.transformer_lm``, ``configs``) against the JAX package, on the CPU.
+
+The same parameters (JAX's init, the norm scales perturbed by seeded numpy
+noise so the scale paths are covered, converted by ``params_from_jax``) and the
+same seeded numpy tokens and activations go through the JAX function and its
+twin.  On the CPU the port's attention runs the flash kernel's plain version,
+the function JAX's ``_sdpa`` / ``_sdpa_chunked_causal`` compute.  Tolerances
+as ``tests/test_kernels.py: _tol``: 2e-5 x (1 + |y|) in float32 (summation
+order); the bfloat16 forward is held as ``tests/test_torch_bf16_paths.py``
+holds its paths: within 2e-2 of the largest |logit| of JAX's float32 forward
+and no worse than JAX's own bfloat16 error.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as jget
+from repro.configs import steps as jsteps
+from repro.configs.base import lm_cells as jlm_cells
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer_lm as jlm
+from repro_torch.configs import get, list_archs, lm_cells
+from repro_torch.configs.steps import build
+from repro_torch.models import attention, layers
+from repro_torch.models import transformer_lm as lm
+from repro_torch.models.common import params_from_jax, trunc_normal
+
+TOL = 2e-5
+ARCHS = ("qwen3-4b", "codeqwen1.5-7b")
+# two GQA layers with qk-norm at Qwen3's head width, d_head 128
+D128 = jlm.LMConfig(name="gqa-d128", n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=128,
+                    d_ff=256, vocab=512, qk_norm=True)
+
+
+def _close(got, want, tol=TOL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= tol * (1 + np.abs(want))), np.abs(got - want).max()
+
+
+def _port_cfg(jcfg) -> lm.LMConfig:
+    """The port's LMConfig with the JAX config's fields."""
+    return lm.LMConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+
+
+def _jax_params(jcfg, seed=0):
+    """JAX's init, each norm scale times (1 + 0.1 N(0, 1)) from numpy."""
+    rng = np.random.default_rng(seed)
+    params = jlm.init(jax.random.PRNGKey(seed), jcfg)
+
+    def perturb(path, a):
+        if "scale" in jax.tree_util.keystr(path):
+            return a * jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape, dtype=np.float32))
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
+def _tokens(cfg, b, t, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, t), dtype=np.int32)
+
+
+def _jcfg(name):
+    return D128 if name == D128.name else jget(name).smoke_cfg
+
+
+# -- layers ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_matches_jax(theta):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 16, 3, 128), dtype=np.float32)
+    pos = np.sort(rng.integers(0, 4096, (2, 16)), axis=1).astype(np.int32)
+    pos[0, -1] = 4095
+    want = jattn.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = attention.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_and_silu_match_jax(dtype):
+    """bfloat16: the same roundings in the same order, so equal bits."""
+    rng = np.random.default_rng(4)
+    x = 3 * rng.standard_normal((8, 256), dtype=np.float32)
+    scale = rng.standard_normal(256, dtype=np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jlayers.rmsnorm(jnp.asarray(x).astype(jdt), {"scale": jnp.asarray(scale).astype(jdt)})
+    got = layers.rmsnorm(torch.from_numpy(x).to(tdt), {"scale": torch.from_numpy(scale).to(tdt)})
+    want_s = jax.nn.silu(jnp.asarray(x).astype(jdt))
+    got_s = layers.silu(torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt and got_s.dtype == tdt
+    tol = 0 if dtype == "bfloat16" else TOL
+    _close(got.float(), want.astype(jnp.float32), tol)
+    _close(got_s.float(), want_s.astype(jnp.float32), tol)
+
+
+def test_trunc_normal_is_truncated_at_two_std():
+    x = trunc_normal(torch.Generator().manual_seed(0), (200_000,), std=0.5)
+    assert x.abs().max() <= 1.0
+    # the standard deviation of N(0, 1) truncated to +-2 is 0.8796
+    assert abs(x.std().item() / 0.5 - 0.8796) < 0.01 and abs(x.mean().item()) < 0.01
+
+
+# -- attention --------------------------------------------------------------
+
+
+GQA_CASES = [  # (name, B, T, d_model, H, Hkv, d_head, qk_norm)
+    ("T8", 2, 8, 64, 4, 2, 16, True),
+    ("T33-ragged", 2, 33, 64, 4, 1, 32, True),
+    ("T33-mha", 1, 33, 64, 4, 4, 16, False),
+    ("T4096-chunked", 1, 4096, 32, 2, 1, 16, True),  # JAX's _sdpa_chunked_causal branch
+]
+
+
+@pytest.mark.parametrize("case", GQA_CASES, ids=lambda c: c[0])
+def test_gqa_apply_matches_jax(case):
+    _, b, t, d_model, h, hkv, dh, qk_norm = case
+    cfg = jattn.GQAConfig(d_model=d_model, n_heads=h, n_kv_heads=hkv, d_head=dh, qk_norm=qk_norm)
+    jp = jattn.gqa_init(jax.random.PRNGKey(5), cfg)
+    x = np.random.default_rng(6).standard_normal((b, t, d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(t, dtype=np.int32), (b, t)).copy()
+    want, (wk, wv) = jattn.gqa_apply(jp, cfg, jnp.asarray(x), jnp.asarray(pos), jattn.causal_mask(t))
+    got, (gk, gv) = attention.gqa_apply(params_from_jax(jp), attention.GQAConfig(**dataclasses.asdict(cfg)),
+                                        torch.from_numpy(x), torch.from_numpy(pos))
+    _close(got, want)
+    _close(gk, wk)
+    _close(gv, wv)
+
+
+@pytest.mark.parametrize("t", [33, 2048])
+def test_plain_sdpa_matches_jax(t):
+    """The plain versions kept for reference: _sdpa under the causal and the
+    decode masks, and _sdpa_chunked_causal (chunk 512 at T = 2048)."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((1, t, 4, 16), dtype=np.float32)
+    k, v = (rng.standard_normal((1, t, 2, 16), dtype=np.float32) for _ in range(2))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    scale = 16 ** -0.5
+    _close(attention._sdpa(tq, tk, tv, attention.causal_mask(t), scale),
+           jattn._sdpa(jq, jk, jv, jattn.causal_mask(t), scale))
+    _close(attention._sdpa(tq[:, :1], tk, tv, attention.decode_mask(t, t // 2), scale),
+           jattn._sdpa(jq[:, :1], jk, jv, jattn.decode_mask(t, t // 2), scale))
+    if t % 512 == 0:
+        _close(attention._sdpa_chunked_causal(tq, tk, tv, scale, chunk=512),
+               jattn._sdpa_chunked_causal(jq, jk, jv, scale, chunk=512))
+        _close(attention._sdpa_chunked_causal(tq, tk, tv, scale, chunk=512),
+               attention._sdpa(tq, tk, tv, attention.causal_mask(t), scale))
+
+
+# -- the LM -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ARCHS + (D128.name,))
+def test_forward_matches_jax(name):
+    jcfg = _jcfg(name)
+    jp = _jax_params(jcfg)
+    toks = _tokens(jcfg, 2, 24)
+    want, want_lb = jlm.forward(jp, jcfg, jnp.asarray(toks))
+    got, lb = lm.forward(params_from_jax(jp), _port_cfg(jcfg), torch.from_numpy(toks))
+    _close(got, want)
+    assert float(lb) == float(want_lb) == 0.0
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_init_and_cache_layouts_match_jax(name):
+    """The port's init and init_cache give JAX's trees: the same keys, shapes
+    and types, the layers stacked on a leading axis."""
+    jcfg = _jcfg(name)
+    cfg = _port_cfg(jcfg)
+    jshapes = jax.eval_shape(lambda k: jlm.init(k, jcfg), jax.random.PRNGKey(0))
+    got = lm.init(torch.Generator().manual_seed(0), cfg)
+    assert jax.tree_util.tree_structure(jshapes) == jax.tree_util.tree_structure(got)
+    for a, g in zip(jax.tree_util.tree_leaves(jshapes), jax.tree_util.tree_leaves(got)):
+        assert tuple(g.shape) == a.shape and g.dtype == torch.float32
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jc = jlm.init_cache(jcfg, 3, 16, dtype=jdt)
+        c = lm.init_cache(cfg, 3, 16, dtype=tdt)
+        assert jax.tree_util.tree_structure(jc) == jax.tree_util.tree_structure(c)
+        for a, g in zip(jax.tree_util.tree_leaves(jc), jax.tree_util.tree_leaves(c)):
+            assert tuple(g.shape) == a.shape and g.dtype == tdt and not g.any()
+
+
+@pytest.mark.parametrize("name", ARCHS + (D128.name,))
+def test_decode_step_matches_jax(name):
+    """8 decode steps: each step's logits and, after the last, the whole
+    cache against JAX's; then the port's decode against the port's forward
+    (the equivalence tests/test_archs.py holds for JAX)."""
+    jcfg = _jcfg(name)
+    cfg = _port_cfg(jcfg)
+    jp = _jax_params(jcfg, seed=2)
+    p = params_from_jax(jp)
+    toks = _tokens(jcfg, 2, 8, seed=3)
+    jcache, cache = jlm.init_cache(jcfg, 2, 12), lm.init_cache(cfg, 2, 12)
+    full, _ = lm.forward(p, cfg, torch.from_numpy(toks))
+    for i in range(8):
+        want, jcache = jlm.decode_step(jp, jcfg, jcache, jnp.asarray(toks[:, i:i + 1]), i)
+        got, cache = lm.decode_step(p, cfg, cache, torch.from_numpy(toks[:, i:i + 1]), i)
+        _close(got, want)
+        _close(got, full[:, i])
+    for key in ("k", "v"):
+        _close(cache["dense"][key], jcache["dense"][key])
+
+
+@pytest.mark.parametrize("name", ("qwen3-4b", D128.name))
+def test_bfloat16_forward_matches_jax(name):
+    jcfg = _jcfg(name)
+    jp = _jax_params(jcfg)
+    toks = _tokens(jcfg, 2, 24)
+    want = np.asarray(jlm.forward(jp, jcfg, jnp.asarray(toks))[0])
+    jbf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
+    jax_bf16 = np.asarray(jlm.forward(jbf, jcfg, jnp.asarray(toks))[0].astype(jnp.float32))
+    got, _ = lm.forward(params_from_jax(jbf), _port_cfg(jcfg), torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2e-2 * np.abs(want).max(), (err, np.abs(want).max())
+    assert err <= np.abs(jax_bf16 - want).max(), (err, np.abs(jax_bf16 - want).max())
+
+
+# -- configs and steps ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_match_jax(name):
+    ja, a = jget(name), get(name)
+    for attr in ("name", "family", "notes"):
+        assert getattr(a, attr) == getattr(ja, attr)
+    for which in ("cfg", "smoke_cfg"):
+        assert dataclasses.asdict(getattr(a, which)) == dataclasses.asdict(getattr(ja, which))
+        assert dataclasses.asdict(getattr(a, which).gqa) == dataclasses.asdict(getattr(ja, which).gqa)
+    assert {k: dataclasses.asdict(c) for k, c in a.cells.items()} == \
+        {k: dataclasses.asdict(c) for k, c in ja.cells.items()}
+    for full in (True, False):
+        assert {k: dataclasses.asdict(c) for k, c in lm_cells(full_attention=full).items()} == \
+            {k: dataclasses.asdict(c) for k, c in jlm_cells(full_attention=full).items()}
+    assert a.module is lm
+
+
+def test_registry_holds_the_ported_archs_only():
+    assert list_archs() == sorted(ARCHS)
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        get("vit-l16")
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_build_bundles_match_jax(cell, smoke):
+    """The bundle's kind, its inputs' shapes and types and its parameters'
+    shapes against JAX's; the smoke step runs and agrees with JAX's."""
+    ja, a = jget("qwen3-4b"), get("qwen3-4b")
+    jb, b = jsteps.build(ja, cell, smoke=smoke), build(a, cell, smoke=smoke)
+    assert b.kind == jb.kind
+    jdt = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16,
+           jnp.dtype(jnp.int32): torch.int32}
+
+    def same(spec, s):
+        assert spec == (tuple(s.shape), jdt[jnp.dtype(s.dtype)])
+
+    jax.tree_util.tree_map(same, b.inputs, jb.inputs, is_leaf=lambda x: isinstance(x, tuple))
+    jax.tree_util.tree_map(same, b.state, jb.state, is_leaf=lambda x: isinstance(x, tuple))
+    if not smoke:
+        return
+    jp = _jax_params(ja.smoke_cfg)
+    p = params_from_jax(jp)
+    (bsz, t), _ = b.inputs["tokens"]
+    toks = _tokens(ja.smoke_cfg, bsz, t if cell == "prefill_32k" else 1)
+    if cell == "prefill_32k":
+        _close(b.fn(p, torch.from_numpy(toks)), jb.fn(jp, jnp.asarray(toks)))
+    else:
+        cache = lm.init_cache(a.smoke_cfg, bsz, b.inputs["cache"]["dense"]["k"][0][2])
+        jcache = jlm.init_cache(ja.smoke_cfg, bsz, jb.inputs["cache"]["dense"]["k"].shape[2])
+        got, _ = b.fn(p, cache, torch.from_numpy(toks), 0)
+        want, _ = jb.fn(jp, jcache, jnp.asarray(toks), 0)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("jname", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_mla_and_mtp_raise(jname):
+    cfg = _port_cfg(jget(jname).smoke_cfg)
+    for fn in (lambda: lm.init(torch.Generator(), cfg, device="meta"), lambda: lm.init_cache(cfg, 1, 4),
+               lambda: lm.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn()
+
+
+def test_train_step_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build(get("qwen3-4b"), "train_4k", smoke=True)
+    with pytest.raises(ValueError, match="skipped"):
+        build(get("qwen3-4b"), "long_500k")
