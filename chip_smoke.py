@@ -88,6 +88,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the plain versions' own bfloat16 gap where that is larger), then times
    and profiles it.  Phase 3c holds K3 at the LM's two shapes (the causal
    GQA prefill, and a decode step over a 64-key prefix of a 512-slot cache).
+8. runs full-width moonshot-v1-16b-a3b (48 MoE layers, d_model 2048, 16
+   query heads over 16 KV heads at d_head 128, 64 experts top-6 of d_ff
+   1408, capacity factor 1.25, vocab 163840; seeded random weights, 28.06 B
+   parameters) through ``configs.steps.build`` at batch 4 x 512 tokens
+   (``phase_moe``): (a) in float32 at 6 of its 48 layers (the 48 are 112 GB
+   in float32), a prefill with K3 once per layer and no SDPA operator, then
+   the same forward with the plain attention on the card, the plain
+   versions on the CPU over 16 tokens, and 64 teacher-forced decode steps,
+   each held route by route (``hold_routed``: a flipped expert choice must
+   be a near-tie, ``NEAR_TIE``; the logits are held within ``DEPTH_RTOL``
+   where no routing difference, and for decode no dropped route, reaches);
+   the same depth in bf16 held to the float32 forward of its rounded
+   weights by the median and p99 of |diff|; (b) in bf16 at all 48 layers
+   (56.1 GB), a prefill and 16 decode steps, 48 K3 launches each, with the
+   plain attention's forward as a record; (c) steady timing and a profile of
+   each, the device ms split into GEMM, K3, routing and other.  Phase 3c
+   holds K3 at this model's two shapes (16 heads over 16, D = 128).
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -102,6 +119,8 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -135,6 +154,18 @@ BF16_RTOL = 2e-2
 LM_BATCH, LM_LEN, DECODE_STEPS, CPU_TOKENS = 4, 512, 64, 16
 # operators of F.scaled_dot_product_attention, none of which the port calls
 SDPA_OPS = ("scaled_dot_product", "_flash_attention", "_efficient_attention", "_cudnn_attention")
+
+# Phase 8: moonshot-v1-16b-a3b at full width, float32 at MOE_F32_LAYERS of
+# its 48 layers (all 48 are 112 GB in float32, over the card's 80 GB) and
+# bfloat16 at all 48 (56.1 GB), prefill of LM_BATCH x LM_LEN tokens;
+# MOE_BF16_STEPS decode steps at 48 layers (DECODE_STEPS at 6).
+MOE_F32_LAYERS, MOE_BF16_STEPS = 6, 16
+# Routing is discontinuous: two float32 forwards may choose other experts
+# only at a near-tie, the two experts' router probabilities on the reference
+# side less than NEAR_TIE apart; logits are held where no routing difference
+# reaches.  Decode against prefill fails past MAX_EXCLUDED of its positions
+# excluded.
+NEAR_TIE, MAX_EXCLUDED = 1e-5, 0.25
 
 # Phase 5's layouts of full-width VGG-16 over height shards of one card:
 # (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
@@ -292,13 +323,17 @@ def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tup
 
 
 # The port's kernels in a profile, by a substring of the device kernel's name
-# (the split-K reduction is one kernel for K1 and K2 alike), and cuBLAS's
-# matrix products (the LM's dense layers; nvjet is its bf16 family on Hopper).
+# (the split-K reduction is one kernel for K1 and K2 alike), cuBLAS's
+# matrix products (the LM's dense layers and the experts' batched products;
+# nvjet is its bf16 family on Hopper), and the MoE routing's sorts, searches,
+# scatters and gathers (the embedding's row gather falls there too).
 KERNEL_FAMILIES = (("conv2d_igemm<float, (anonymous namespace)::DenseRows", "K1"),
                    ("conv2d_igemm<float, (anonymous namespace)::HaloRows", "K2"),
                    ("splitk_reduce", "K1/K2 split-K reduction"), ("flash_fwd", "K3"),
                    ("conv2d_igemm", "K1/K2 (bf16)"), ("gemm", "GEMM (cuBLAS)"), ("gemv", "GEMM (cuBLAS)"),
-                   ("splitKreduce", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"))
+                   ("splitKreduce", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
+                   ("sort", "routing"), ("Sort", "routing"), ("search", "routing"), ("index", "routing"),
+                   ("Index", "routing"), ("scatter", "routing"), ("gather", "routing"))
 
 
 def kernel_family(name: str) -> str:
@@ -502,6 +537,480 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
                    if key in bf16})
 
 
+def sdpa_ops(prof) -> list:
+    """The rows of a profile that are operators of F.scaled_dot_product_attention."""
+    return [a.key for a in prof.key_averages() if any(op in a.key for op in SDPA_OPS)]
+
+
+def with_plain_attention(fn):
+    """``fn()`` with the LM's attention through K3's plain version on the
+    same device (the KV heads repeated), then K3 restored."""
+    from repro_torch.kernels.attention import attention_ref, gqa_flash
+    from repro_torch.models import attention as lm_attention
+
+    def plain_gqa(q, k, v, *, causal):
+        g = q.shape[2] // k.shape[2]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return attention_ref(qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
+                             causal=causal).transpose(1, 2)
+
+    lm_attention.gqa_flash = plain_gqa
+    try:
+        return fn()
+    finally:
+        lm_attention.gqa_flash = gqa_flash
+
+
+class RouteRecorder:
+    """Records the routing of every MoE layer that runs while it is entered,
+    in order: the router's ids [T, k] and probabilities [T, E] and the
+    dispatch's keep mask [T, k].  It wraps the port's ``moe.router_topk`` and
+    ``moe._dispatch``, as phase 7 swaps ``gqa_flash``: the port's API does
+    not grow for it, and nothing is read back during the run."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.layers = moe, []
+
+    def __enter__(self):
+        topk, dispatch = self.saved = self.moe.router_topk, self.moe._dispatch
+
+        def router_topk(p, cfg, x):
+            gates, ids, probs = topk(p, cfg, x)
+            self.layers.append({"ids": ids, "probs": probs})
+            return gates, ids, probs
+
+        def _dispatch(ids, e, capacity):
+            out = dispatch(ids, e, capacity)
+            self.layers[-1]["keep"] = out[2]
+            return out
+
+        self.moe.router_topk, self.moe._dispatch = router_topk, _dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk, self.moe._dispatch = self.saved
+        return False
+
+    def host(self) -> list:
+        """The records as numpy arrays, one dict per layer."""
+        return [{k: v.cpu().numpy() for k, v in rec.items()} for rec in self.layers]
+
+
+def route_rows(records: list, shape: tuple, rows) -> list:
+    """Records over [B*T] tokens (token-major) cut to ``rows``, an index into
+    the [B, T] grid (e.g. ``np.s_[:1, :16]``), flattened again."""
+    return [{k: v.reshape(shape + v.shape[1:])[rows].reshape((-1,) + v.shape[1:]) for k, v in rec.items()}
+            for rec in records]
+
+
+def compare_routes(ref: list, got: list, b: int, t: int) -> dict:
+    """Two runs' routes over the same B x T tokens (token-major), layer by
+    layer.  A position's output differs after a layer where its chosen or
+    its kept experts (as sets) differ, or where a position of its causal
+    past differed after the layer before (attention carries it).  A chosen
+    expert that differs at a position whose input did not differ is a first
+    flip; its gap is the reference's probability of the expert it chose
+    minus that of the one the other run chose (a near-tie below NEAR_TIE).
+    Returns the count of differing (layer, token, choice) routes, the first
+    flips, their largest gap, and the [B, T] mask ``held`` of the positions
+    no difference reaches."""
+    out = np.zeros((b, t), bool)  # the output differs after this layer
+    n_routes, gaps = 0, []
+    for r, g in zip(ref, got):
+        chose = (np.sort(r["ids"], 1) != np.sort(g["ids"], 1)).any(1)
+        kept = (np.sort(np.where(r["keep"], r["ids"], -1), 1)
+                != np.sort(np.where(g["keep"], g["ids"], -1), 1)).any(1)
+        tainted = np.maximum.accumulate(out, axis=1).reshape(-1)
+        for n in np.flatnonzero(chose):
+            only_ref = np.setdiff1d(r["ids"][n], g["ids"][n])
+            only_got = np.setdiff1d(g["ids"][n], r["ids"][n])
+            n_routes += len(only_ref)
+            if not tainted[n]:
+                gaps.append(float(r["probs"][n, only_ref].max() - r["probs"][n, only_got].min()))
+        out = np.maximum.accumulate(out, axis=1) | (chose | kept).reshape(b, t)
+    return dict(routes=n_routes, first_flips=len(gaps), worst_gap=max(gaps, default=0.0), held=~out)
+
+
+def route_agreement(ref: list, got: list) -> float:
+    """The share of (layer, token) whose chosen experts (as sets) agree."""
+    same = [(np.sort(r["ids"], 1) == np.sort(g["ids"], 1)).all(1) for r, g in zip(ref, got)]
+    return float(np.concatenate(same).mean())
+
+
+def abs_quantiles(torch, diff, qs=(0.5, 0.99)) -> list:
+    """Quantiles of the elements of ``diff`` (every logit), by a sort on the card."""
+    s = torch.sort(diff.flatten()).values
+    return [s[round(q * (s.numel() - 1))].item() for q in qs]
+
+
+
+def hold_routed(torch, label: str, err_bt, ref: list, got: list, b: int, t: int, scale: float) -> dict:
+    """Holds a float32 comparison of two runs over B x T positions route by
+    route: every first flip must be a near-tie, and the largest of
+    ``err_bt`` ([B, T], each position's max |logit diff|) over the positions
+    no routing difference reaches must be within DEPTH_RTOL x ``scale``.
+    Prints the counts; returns them with the held mask."""
+    cmp = compare_routes(ref, got, b, t)
+    held = torch.from_numpy(cmp["held"])
+    check(bool(held.any()), f"{label}: routing differences reach every position")
+    err = err_bt[held].max().item()
+    excluded = int((~held).sum())
+    print(f"  {label}: routes differing {cmp['routes']} (first flips {cmp['first_flips']}, largest gap "
+          f"{cmp['worst_gap']:.3g}, limit {NEAR_TIE}); positions excluded {excluded} of {b * t}; max |diff| "
+          f"at the held positions {err:.4g} (max |logit| {scale:.4g}, limit {DEPTH_RTOL} x that)")
+    check(cmp["worst_gap"] < NEAR_TIE, f"{label}: a route flipped that is no near-tie")
+    check(err <= DEPTH_RTOL * scale, f"{label}: the logits drift")
+    return dict(routes_differing=cmp["routes"], first_flips=cmp["first_flips"], worst_gap=cmp["worst_gap"],
+                excluded=excluded, positions=b * t, max_abs=err, max_abs_logit=scale, held=cmp["held"])
+
+
+def moe_bounds(cfg, n_params: int, capacity: int, elem_bytes: int) -> dict:
+    """What one prefill of LM_BATCH x LM_LEN tokens and one decode step of
+    LM_BATCH tokens at position DECODE_STEPS must do in JAX's design, which
+    runs every slot of the [E, C] table (C = ``capacity`` in the prefill,
+    the batch in a decode step): the operations of the dense products,
+    the attention and the head, and the bytes of every weight read once
+    (the embedding: its rows only)."""
+    e, d, f, k = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff, cfg.moe.top_k
+    hd = cfg.n_heads * cfg.d_head
+
+    def flops(tokens, slots, pairs):
+        per_layer = (2 * tokens * d * (hd + 2 * cfg.n_kv_heads * cfg.d_head + hd)  # q, k, v, o
+                     + 4 * LM_BATCH * cfg.n_heads * pairs * cfg.d_head  # scores and PV
+                     + 2 * tokens * d * e  # the router
+                     + 3 * 2 * e * slots * d * f)  # w1, w3, w2 over the slot table
+        return cfg.n_layers * per_layer + 2 * tokens * d * cfg.vocab
+
+    weight_bytes = (n_params - cfg.vocab * d) * elem_bytes
+    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, capacity, attention_pairs(LM_LEN, LM_LEN, True)),
+                decode_flops=flops(LM_BATCH, LM_BATCH, DECODE_STEPS + 1),
+                decode_bytes=weight_bytes + LM_BATCH * d * elem_bytes)
+
+
+def phase_moe(torch) -> tuple[dict, int]:
+    """Phase 8: full-width moonshot-v1-16b-a3b (48 layers, d_model 2048, 16
+    heads at d_head 128, 64 experts top-6 of d_ff 1408, vocab 163840; seeded
+    random weights, 28.06 B parameters) through ``configs.steps.build`` at
+    LM_BATCH x LM_LEN tokens.  (a) float32 at MOE_F32_LAYERS layers, every
+    comparison route-aware (``hold_routed``): the prefill (K3 once a layer,
+    no SDPA operator), the same forward with the plain attention on the
+    card, the plain versions on the CPU over tokens 0..CPU_TOKENS-1 of batch
+    element 0, DECODE_STEPS teacher-forced decode steps against the prefill
+    (dropped routes excluded too), steady timing; then the bf16 forward at
+    the same depth through K3 and through the plain attention, each held by
+    the median and p99 of |diff| to the float32 forward of the same
+    bf16-rounded weights.  (b) bfloat16 at all 48 layers: prefill and
+    MOE_BF16_STEPS decode steps (48 K3 launches each, no SDPA operator,
+    finite logits), the plain attention's forward as a record, peak device
+    memory below the card's, steady timing.  Returns the report and the K3
+    launches of its counted runs."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.common import tree_map
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    arch = get_arch("moonshot-v1-16b-a3b")
+    full = arch.cfg
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.d_head, full.vocab, full.first_k_dense,
+           full.moe.n_experts, full.moe.top_k, full.moe.d_ff, full.moe.n_shared)
+          == (48, 2048, 16, 16, 128, 163840, 0, 64, 6, 1408, 0), f"moonshot is not full width: {full}")
+    cfg = dataclasses.replace(full, n_layers=MOE_F32_LAYERS)
+    prefill = build(dataclasses.replace(arch, cfg=cfg), "prefill_32k", dtype=torch.float32)
+    decode = build(dataclasses.replace(arch, cfg=cfg), "decode_32k", dtype=torch.float32)
+    capacity = int(full.moe.capacity_factor * LM_BATCH * LM_LEN * full.moe.top_k / full.moe.n_experts)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    params = lm.init(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill.state),
+          "the weights do not match the bundle's shapes")
+    n_params = sum(x.numel() for x in leaves)
+    del leaves
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_LEN), generator=gen, device="cuda", dtype=torch.int32)
+    print(f"moonshot-v1-16b-a3b at {cfg.n_layers} of {full.n_layers} layers, float32: {n_params / 1e9:.4f} B "
+          f"parameters ({n_params * 4 / 1e9:.2f} GB) drawn on the card in {init_s:.2f} s; prefill of "
+          f"{LM_BATCH} x {LM_LEN} tokens (capacity {capacity} slots per expert), {DECODE_STEPS} decode steps")
+    launches = 0
+
+    # (a1) the float32 prefill: K3 once per layer, no SDPA operator
+    flash_attention.launches = 0
+    with RouteRecorder() as rec, torch.profiler.profile(activities=acts) as prof:
+        logits = prefill.fn(params, tokens)
+        torch.cuda.synchronize()
+    n_prefill = flash_attention.launches
+    launches += n_prefill
+    sdpa = sdpa_ops(prof)
+    del prof
+    routes = rec.host()
+    dropped = [1 - float(r["keep"].mean()) for r in routes]
+    print(f"  float32 prefill: K3 launches {n_prefill} (one per layer: {cfg.n_layers}); SDPA operators in its "
+          f"profile: {sdpa or 'none'}; dropped share of (token, choice) pairs per layer: "
+          f"{[round(x, 5) for x in dropped]}")
+    check(n_prefill == cfg.n_layers, f"the MoE prefill launched K3 {n_prefill} times")
+    check(not sdpa, f"the MoE prefill ran {sdpa}")
+    check(len(routes) == cfg.n_layers, f"{len(routes)} MoE layers recorded")
+    check(tuple(logits.shape) == (LM_BATCH, LM_LEN, cfg.vocab), f"MoE logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite MoE logits")
+    scale = logits.abs().max().item()
+
+    # (a2) the same forward with the plain attention on the card
+    with RouteRecorder() as rec:
+        plain = with_plain_attention(lambda: prefill.fn(params, tokens))
+    vs_plain = hold_routed(torch, "vs the same forward with the plain attention on the card",
+                           (logits - plain).abs().amax(-1).cpu(), rec.host(), routes, LM_BATCH, LM_LEN, scale)
+    del plain
+
+    # (a3) the plain versions on the CPU over tokens 0..CPU_TOKENS-1 of batch
+    # element 0: below the capacity in token-major order, so never dropped
+    t0 = time.perf_counter()
+    cparams = tree_map(lambda x: x.cpu(), params)
+    with RouteRecorder() as rec:
+        clogits = lm.forward(cparams, cfg, tokens[:1, :CPU_TOKENS].cpu())[0]
+    cpu_s = time.perf_counter() - t0
+    del cparams
+    first = route_rows(routes, (LM_BATCH, LM_LEN), np.s_[:1, :CPU_TOKENS])
+    check(all(r["keep"].all() for r in first), "the prefill dropped a route of the CPU check's tokens")
+    vs_cpu = hold_routed(torch, f"vs the plain versions on the CPU (float32, tokens 0..{CPU_TOKENS - 1} of "
+                                f"batch element 0; {cpu_s:.1f} s with the host copy)",
+                         (logits[:1, :CPU_TOKENS].cpu() - clogits).abs().amax(-1), rec.host(), first, 1,
+                         CPU_TOKENS, clogits.abs().max().item())
+    vs_cpu["cpu_s"] = cpu_s
+
+    # (a4) teacher-forced decode from init_cache.  A decode step's LM_BATCH
+    # tokens route drop-free (<= dropless_below), and so does a prefill of
+    # the first DECODE_STEPS tokens (LM_BATCH x DECODE_STEPS tokens, at the
+    # limit): the reference the decode is held to.  The 512-token prefill
+    # drops pairs past an expert's capacity, and the decode agrees with it
+    # only where no dropped route reaches: that comparison is printed with
+    # the positions whose causal past had a dropped route, its held
+    # positions gated all the same.
+    check(LM_BATCH * DECODE_STEPS <= cfg.moe.dropless_below, "the short prefill would drop routes")
+    with RouteRecorder() as rec:
+        short = prefill.fn(params, tokens[:, :DECODE_STEPS])
+    short_routes = rec.host()
+    check(all(r["keep"].all() for r in short_routes), "the short prefill dropped a route")
+    cache = lm.init_cache(cfg, LM_BATCH, LM_LEN, device="cuda")
+    check(sorted(cache) == ["moe"] and tuple(cache["moe"]["k"].shape)
+          == (cfg.n_layers, LM_BATCH, LM_LEN, cfg.n_kv_heads, cfg.d_head), "the MoE cache's layout")
+    flash_attention.launches = 0
+    errs, errs_full = [], []
+    with RouteRecorder() as rec:
+        for i in range(DECODE_STEPS):
+            step_logits, cache = decode.fn(params, cache, tokens[:, i:i + 1], i)
+            errs.append((step_logits - short[:, i]).abs().amax(-1))
+            errs_full.append((step_logits - logits[:, i]).abs().amax(-1))
+        torch.cuda.synchronize()
+    n_decode = flash_attention.launches
+    launches += n_decode
+    print(f"  {DECODE_STEPS} decode steps: K3 launches {n_decode} ({cfg.n_layers} per step)")
+    check(n_decode == cfg.n_layers * DECODE_STEPS, f"MoE decode launched K3 {n_decode} times")
+    steps = rec.host()  # step-major: DECODE_STEPS x n_layers records over [LM_BATCH] tokens
+    dec_routes = [{key: np.stack([steps[i * cfg.n_layers + layer][key] for i in range(DECODE_STEPS)], axis=1)
+                   .reshape((LM_BATCH * DECODE_STEPS,) + steps[layer][key].shape[1:]) for key in steps[layer]}
+                  for layer in range(cfg.n_layers)]
+    vs_short = hold_routed(torch, f"decode vs the drop-free prefill of tokens 0..{DECODE_STEPS - 1}",
+                           torch.stack(errs, dim=1).cpu(), short_routes, dec_routes, LM_BATCH, DECODE_STEPS,
+                           short.abs().max().item())
+    check(vs_short["excluded"] <= MAX_EXCLUDED * LM_BATCH * DECODE_STEPS,
+          f"decode vs the drop-free prefill excluded {vs_short['excluded']} positions")
+    prefill_first = route_rows(routes, (LM_BATCH, LM_LEN), np.s_[:, :DECODE_STEPS])
+    vs_prefill = hold_routed(torch, f"decode vs the {LM_LEN}-token prefill (held where no difference reaches)",
+                             torch.stack(errs_full, dim=1).cpu(), prefill_first, dec_routes, LM_BATCH,
+                             DECODE_STEPS, scale)
+    dropped_past = np.maximum.accumulate(
+        np.stack([~r["keep"].all(1) for r in prefill_first]).any(0).reshape(LM_BATCH, DECODE_STEPS), axis=1)
+    print(f"    positions whose causal past had a route the {LM_LEN}-token prefill dropped: "
+          f"{int(dropped_past.sum())} of {LM_BATCH * DECODE_STEPS} (per batch element "
+          f"{dropped_past.sum(1).tolist()})")
+    check(not dropped_past[0].any(), "the prefill dropped a route of batch element 0's first tokens")
+    vs_prefill["dropped_past"] = int(dropped_past.sum())
+    for r in (vs_plain, vs_cpu, vs_short, vs_prefill):
+        del r["held"]
+    del short
+
+    # where the time goes: a steady float32 prefill and decode step
+    bounds32 = moe_bounds(cfg, n_params, capacity, 4)
+    pre_ms, pre_busy, pre_top, pre_fams = steady_and_profiled(
+        torch, lambda: prefill.fn(params, tokens), f"moonshot float32 prefill ({cfg.n_layers} layers)")
+    step_tok = tokens[:, DECODE_STEPS:DECODE_STEPS + 1]
+    dec_ms, dec_busy, dec_top, dec_fams = steady_and_profiled(
+        torch, lambda: decode.fn(params, cache, step_tok, DECODE_STEPS),
+        f"moonshot float32 decode step ({cfg.n_layers} layers)")
+    with torch.profiler.profile(activities=acts) as prof:
+        decode.fn(params, cache, step_tok, DECODE_STEPS)
+        torch.cuda.synchronize()
+    check(not sdpa_ops(prof), f"the MoE decode step ran {sdpa_ops(prof)}")
+    del prof, cache, logits
+    print(f"  tokens/s: prefill {LM_BATCH * LM_LEN / pre_ms * 1e3:.1f}, decode {LM_BATCH / dec_ms * 1e3:.1f}; "
+          f"bounds: prefill {bounds32['prefill_flops'] / 1e12:.3f} TFLOP, {bounds32['prefill_flops'] / FFMA_FLOPS * 1e3:.2f} "
+          f"ms at the FFMA rate; decode step {bounds32['decode_bytes'] / 1e9:.2f} GB of weights, "
+          f"{bounds32['decode_bytes'] / PEAK_BYTES_PER_S * 1e3:.2f} ms at the HBM rate")
+
+    # (a5) bfloat16 at the same depth, held to the float32 forward of the
+    # same bf16-rounded weights by the median and p99 of |diff| over every
+    # logit: flips make a max meaningless here (it is printed all the same)
+    bparams = tree_map(lambda x: x.to(torch.bfloat16), params)
+    del params
+    torch.cuda.empty_cache()
+    rparams = tree_map(lambda x: x.float(), bparams)
+    with RouteRecorder() as rec:
+        rl = prefill.fn(rparams, tokens)
+    r_routes = rec.host()
+    del rparams
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    with RouteRecorder() as rec:
+        bl = prefill.fn(bparams, tokens)
+        torch.cuda.synchronize()
+    n_bf6 = flash_attention.launches
+    launches += n_bf6
+    check(n_bf6 == cfg.n_layers, f"the bf16 MoE prefill launched K3 {n_bf6} times")
+    check(bl.dtype == torch.bfloat16 and bool(torch.isfinite(bl.float()).all()), "bad bf16 MoE logits")
+    k_routes = rec.host()
+    with RouteRecorder() as rec:
+        bp = with_plain_attention(lambda: prefill.fn(bparams, tokens))
+    p_routes = rec.host()
+    r_scale = rl.abs().max().item()
+    bf6 = {}
+    for name, x, rts in (("k3", bl, k_routes), ("plain", bp, p_routes)):
+        diff = (x.float() - rl).abs()
+        med, p99 = abs_quantiles(torch, diff)
+        bf6[name] = dict(median=med, p99=p99, max=diff.max().item(), route_agreement=route_agreement(r_routes, rts))
+        del diff
+    del bl, bp, rl, bparams
+    torch.cuda.empty_cache()
+    limits = {q: max(1.25 * bf6["plain"][q], BF16_RTOL * r_scale) for q in ("median", "p99")}
+    print(f"  bfloat16 prefill at {cfg.n_layers} layers: K3 launches {n_bf6}; vs the float32 forward of the "
+          f"bf16-rounded weights (max |logit| {r_scale:.4g}): K3 median {bf6['k3']['median']:.4g} p99 "
+          f"{bf6['k3']['p99']:.4g} max {bf6['k3']['max']:.4g} routes agreeing {bf6['k3']['route_agreement']:.5f}; "
+          f"plain attention median {bf6['plain']['median']:.4g} p99 {bf6['plain']['p99']:.4g} max "
+          f"{bf6['plain']['max']:.4g} routes agreeing {bf6['plain']['route_agreement']:.5f}; limits (the larger "
+          f"of 1.25 x the plain's and {BF16_RTOL} x max |logit|) median {limits['median']:.4g} p99 "
+          f"{limits['p99']:.4g}")
+    for q in ("median", "p99"):
+        check(bf6["k3"][q] <= limits[q], f"the bf16 MoE forward's {q} |diff| exceeds its limit")
+    bf6.update(limits=limits, max_abs_logit=r_scale, launches=n_bf6)
+
+    # (b) bfloat16 at all 48 layers, drawn layer by layer in bf16 (the float32
+    # expert stack alone would be 35 GB per matrix)
+    prefill48 = build(arch, "prefill_32k", dtype=torch.bfloat16)
+    decode48 = build(arch, "decode_32k", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = lm.init(gen, full, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init48_s = time.perf_counter() - t0
+    leaves = dict_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill48.state),
+          "the 48-layer weights do not match the bundle's shapes")
+    n48 = sum(x.numel() for x in leaves)
+    del leaves
+    print(f"moonshot-v1-16b-a3b, all {full.n_layers} layers, bfloat16: {n48 / 1e9:.4f} B parameters "
+          f"({n48 * 2 / 1e9:.2f} GB) drawn on the card in {init48_s:.2f} s")
+    check(round(n48 / 1e9, 2) == 28.06, f"{n48} parameters, expected 28.06 B")
+    flash_attention.launches = 0
+    with RouteRecorder() as rec, torch.profiler.profile(activities=acts) as prof:
+        bl48 = prefill48.fn(params, tokens)
+        torch.cuda.synchronize()
+    n_bf_prefill = flash_attention.launches
+    launches += n_bf_prefill
+    sdpa48 = sdpa_ops(prof)
+    del prof
+    routes48 = rec.host()
+    dropped48 = [1 - float(r["keep"].mean()) for r in routes48]
+    print(f"  bf16 prefill: K3 launches {n_bf_prefill} (one per layer: {full.n_layers}); SDPA operators in its "
+          f"profile: {sdpa48 or 'none'}; dropped share per layer: min {min(dropped48):.5f} mean "
+          f"{sum(dropped48) / len(dropped48):.5f} max {max(dropped48):.5f}")
+    check(n_bf_prefill == full.n_layers, f"the 48-layer prefill launched K3 {n_bf_prefill} times")
+    check(not sdpa48, f"the 48-layer prefill ran {sdpa48}")
+    check(tuple(bl48.shape) == (LM_BATCH, LM_LEN, full.vocab), f"48-layer logits {tuple(bl48.shape)}")
+    check(bool(torch.isfinite(bl48.float()).all()), "non-finite 48-layer logits")
+    with RouteRecorder() as rec:
+        bp48 = with_plain_attention(lambda: prefill48.fn(params, tokens))
+    diff = (bl48.float() - bp48.float()).abs()
+    med48, p9948 = abs_quantiles(torch, diff)
+    rec48 = dict(route_agreement=route_agreement(rec.host(), routes48), median=med48, p99=p9948,
+                 max=diff.max().item(), max_abs_logit=bl48.abs().max().item())
+    del diff, bp48
+    print(f"  bf16 prefill vs the plain attention's bf16 prefill (a record, no gate): routes agreeing "
+          f"{rec48['route_agreement']:.5f}; |diff| median {med48:.4g} p99 {p9948:.4g} max {rec48['max']:.4g} "
+          f"(max |logit| {rec48['max_abs_logit']:.4g})")
+    cache = lm.init_cache(full, LM_BATCH, LM_LEN, dtype=torch.bfloat16, device="cuda")
+    flash_attention.launches = 0
+    outs = []
+    for i in range(MOE_BF16_STEPS):
+        step_logits, cache = decode48.fn(params, cache, tokens[:, i:i + 1], i)
+        outs.append(step_logits)
+    torch.cuda.synchronize()
+    n_bf_decode = flash_attention.launches
+    launches += n_bf_decode
+    outs = torch.stack(outs, dim=1).float()  # [LM_BATCH, MOE_BF16_STEPS, V]
+    # records: the gap to the 512-token prefill, which drops routes, and to
+    # a drop-free prefill of the decoded tokens alone
+    gaps = (outs - bl48[:, :MOE_BF16_STEPS].float()).abs().amax(-1).cpu()
+    short_gaps = (outs - prefill48.fn(params, tokens[:, :MOE_BF16_STEPS]).float()).abs().amax(-1).cpu()
+    print(f"  {MOE_BF16_STEPS} bf16 decode steps: K3 launches {n_bf_decode} ({full.n_layers} per step); "
+          f"max |decode - prefill| per position (records): against the {LM_LEN}-token prefill median "
+          f"{gaps.median().item():.4g} max {gaps.max().item():.4g}; against a drop-free prefill of the "
+          f"{MOE_BF16_STEPS} tokens median {short_gaps.median().item():.4g} max {short_gaps.max().item():.4g}")
+    check(n_bf_decode == full.n_layers * MOE_BF16_STEPS, f"the 48-layer decode launched K3 {n_bf_decode} times")
+    check(bool(torch.isfinite(outs).all()), "non-finite 48-layer decode logits")
+    with torch.profiler.profile(activities=acts) as prof:
+        decode48.fn(params, cache, step_tok, DECODE_STEPS)
+        torch.cuda.synchronize()
+    check(not sdpa_ops(prof), f"the 48-layer decode step ran {sdpa_ops(prof)}")
+    del prof, bl48, outs
+
+    # (c) where the time goes at 48 layers
+    bounds16 = moe_bounds(full, n48, capacity, 2)
+    bf_ms, bf_busy, bf_top, bf_fams = steady_and_profiled(
+        torch, lambda: prefill48.fn(params, tokens), f"moonshot bfloat16 prefill ({full.n_layers} layers)")
+    bd_ms, bd_busy, bd_top, bd_fams = steady_and_profiled(
+        torch, lambda: decode48.fn(params, cache, step_tok, DECODE_STEPS),
+        f"moonshot bfloat16 decode step ({full.n_layers} layers)")
+    print(f"  tokens/s: bf16 prefill {LM_BATCH * LM_LEN / bf_ms * 1e3:.1f}, decode {LM_BATCH / bd_ms * 1e3:.1f}; "
+          f"bounds: prefill {bounds16['prefill_flops'] / 1e12:.3f} TFLOP, "
+          f"{bounds16['prefill_flops'] / PEAK_FLOPS['bfloat16'] * 1e3:.2f} ms at the bf16 rate; decode step "
+          f"{bounds16['decode_bytes'] / 1e9:.2f} GB of weights, "
+          f"{bounds16['decode_bytes'] / PEAK_BYTES_PER_S * 1e3:.2f} ms at the HBM rate")
+    del params, cache
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    phase_s = time.perf_counter() - t_start
+    print(f"  phase 8: {phase_s:.1f} s, peak device memory allocated {peak / 1e9:.2f} GB of {total / 1e9:.2f}")
+    check(peak < total, "phase 8 peaked above the card's memory")
+
+    def timing(ms, busy, top, fams, tokens_per_call):
+        return dict(steady_ms=ms, device_busy_ms=busy, top_device=top, device_ms_by_kernel=fams,
+                    tokens_per_s=tokens_per_call / ms * 1e3)
+
+    report = dict(
+        phase_s=phase_s, peak_device_gb=peak / 1e9, capacity=capacity, f32_layers=cfg.n_layers,
+        n_params_f32=n_params, n_params=n48, init_s=init_s, init48_s=init48_s, batch=LM_BATCH, seq_len=LM_LEN,
+        decode_steps=DECODE_STEPS, bf16_decode_steps=MOE_BF16_STEPS, prefill_launches=n_prefill,
+        decode_launches=n_decode, bf16_prefill_launches=n_bf_prefill, bf16_decode_launches=n_bf_decode,
+        sdpa_ops=sdpa + sdpa48, dropped_frac=dropped, dropped_frac_48=dropped48, max_abs_logit=scale,
+        vs_plain=vs_plain, vs_cpu=vs_cpu, vs_short_prefill=vs_short, vs_prefill=vs_prefill, bf16_6=bf6, bf16_48_vs_plain=rec48,
+        bf16_48_decode_gap_max=gaps.max().item(), bf16_48_decode_short_gap_max=short_gaps.max().item(), bounds_f32=bounds32, bounds_bf16=bounds16,
+        prefill=timing(pre_ms, pre_busy, pre_top, pre_fams, LM_BATCH * LM_LEN),
+        decode=timing(dec_ms, dec_busy, dec_top, dec_fams, LM_BATCH),
+        bf16_prefill=timing(bf_ms, bf_busy, bf_top, bf_fams, LM_BATCH * LM_LEN),
+        bf16_decode=timing(bd_ms, bd_busy, bd_top, bd_fams, LM_BATCH),
+    )
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -529,13 +1038,12 @@ def main() -> int:
     from repro_torch.configs.steps import build
     from repro_torch.core.partition import _split_counts
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import flash_attention, gqa_flash
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
     from repro_torch.kernels.conv2d.ops import launch_config
     from repro_torch.kernels.halo_conv import halo_conv2d_cuda
     from repro_torch.launch.mesh import make_spatial_comm
     from repro_torch.launch.serve import serve
-    from repro_torch.models import attention as lm_attention
     from repro_torch.models import transformer_lm as lm
     from repro_torch.models import vgg, vit_spatial
     from repro_torch.models.common import tree_map
@@ -688,6 +1196,12 @@ def main() -> int:
     lm_attn = dict(b=LM_BATCH, h=qcfg.n_heads, hkv=qcfg.n_kv_heads, d=qcfg.d_head, per_forward=qcfg.n_layers)
     attn_cases += [dict(lm_attn, t=LM_LEN, s=LM_LEN, causal=True, path="lm-prefill"),
                    dict(lm_attn, t=1, s=DECODE_STEPS, causal=False, path="lm-decode", cache=LM_LEN)]
+    # phase 8's moonshot-v1-16b-a3b: 16 query heads over 16 KV heads (group
+    # 1), D = 128, once per layer of its float32 forward and decode step
+    mcfg = get_arch("moonshot-v1-16b-a3b").cfg
+    moe_attn = dict(b=LM_BATCH, h=mcfg.n_heads, hkv=mcfg.n_kv_heads, d=mcfg.d_head, per_forward=MOE_F32_LAYERS)
+    attn_cases += [dict(moe_attn, t=LM_LEN, s=LM_LEN, causal=True, path="moe-prefill"),
+                   dict(moe_attn, t=1, s=DECODE_STEPS, causal=False, path="moe-decode", cache=LM_LEN)]
     attn_rows = [hold_attention(torch, F, gen, c) for c in attn_cases]
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
@@ -921,7 +1435,7 @@ def main() -> int:
         llogits = prefill.fn(lparams, tokens)
         torch.cuda.synchronize()
     lm_launches = flash_attention.launches
-    sdpa_rows = [a.key for a in prof.key_averages() if any(op in a.key for op in SDPA_OPS)]
+    sdpa_rows = sdpa_ops(prof)
     print(f"  float32 prefill: K3 launches {lm_launches} (one per layer: {qcfg.n_layers}); "
           f"SDPA operators in its profile: {sdpa_rows or 'none'}")
     check(lm_launches == qcfg.n_layers, f"the prefill launched K3 {lm_launches} times")
@@ -931,19 +1445,6 @@ def main() -> int:
     l_scale = llogits.abs().max().item()
 
     # (2) the same forward with the plain attention on the card
-    def plain_gqa(q, k, v, *, causal):
-        g = q.shape[2] // k.shape[2]
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        return attention_ref(qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
-                             causal=causal).transpose(1, 2)
-
-    def with_plain_attention(fn):
-        lm_attention.gqa_flash = plain_gqa
-        try:
-            return fn()
-        finally:
-            lm_attention.gqa_flash = gqa_flash
-
     lplain = with_plain_attention(lambda: prefill.fn(lparams, tokens))
     l_plain_err = (llogits - lplain).abs().max().item()
     print(f"  vs the same forward with the plain attention on the card: max |diff| {l_plain_err:.4g} "
@@ -1047,6 +1548,9 @@ def main() -> int:
                           device_ms_by_kernel=bf_fams, tokens_per_s=LM_BATCH * LM_LEN / bf_ms * 1e3),
     )
 
+    # -- 8. full-width moonshot-v1-16b-a3b: the MoE layer, prefill and decode -
+    moe_report, moe_launches = phase_moe(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5)
@@ -1083,7 +1587,7 @@ def main() -> int:
               sum(v["launches"]["halo_conv2d"] for v in spatial.values())),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
-              got_vit["flash_attention"] + lm_launches + decode_launches),
+              got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches),
     ]
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
@@ -1091,7 +1595,7 @@ def main() -> int:
     # K3 per forward of each path (the LM's decode: per step), and device ms
     # per forward from the profiler windows (us per call x calls per forward)
     k3_per_path = {}
-    for path in ("vit", "lm-prefill", "lm-decode"):
+    for path in ("vit", "lm-prefill", "lm-decode", "moe-prefill", "moe-decode"):
         rs = [r for r in attn_main if r["path"] == path]
         k3_per_path[path] = {key: per_fwd(rs, key) for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms", "bf16_ms", "bf16_library_ms",
@@ -1102,8 +1606,9 @@ def main() -> int:
     per_path["vit"]["flash_attention"] = k3_per_path["vit"]
     for name, v in per_path.items():
         print(f"K1 per forward of {name}: {json.dumps(v)}")
-    for name in ("lm-prefill", "lm-decode"):
-        print(f"K3 per {'forward' if name == 'lm-prefill' else 'step'} of {name}: {json.dumps(k3_per_path[name])}")
+    for name in ("lm-prefill", "lm-decode", "moe-prefill", "moe-decode"):
+        print(f"K3 per {'step' if name.endswith('decode') else 'forward'} of {name}: "
+              f"{json.dumps(k3_per_path[name])}")
     conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")
     by_layout = {name: {key: per_fwd([r for r in halo_main if r["layout"] == name], key)
                         for key in conv_keys}
@@ -1131,7 +1636,7 @@ def main() -> int:
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
-        "lm": lm_report, "k3_per_forward": k3_per_path, "k1_per_forward": per_path, "kernels": kernels,
+        "lm": lm_report, "moe": moe_report, "k3_per_forward": k3_per_path, "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "
                 "run_plan forward (39 calls), the weighted spatial forward's 52 fix-up convs, "
@@ -1139,9 +1644,12 @@ def main() -> int:
                 "forward (39 calls); halo_conv2d over one weighted (52 calls) and one equal "
                 "(91 calls) spatial forward; flash_attention over a ViT-L/16 forward (72 "
                 "calls), a Qwen3-4B prefill forward of 4 x 512 tokens (36 calls) and one of its "
-                "decode steps at position 64 (36 calls).  launches count every main-path run: "
-                "the 4 served batches, one forward of each spatial layout, one ViT forward, one "
-                "VGG-NP forward, one float32 Qwen3-4B prefill and its 64 decode steps.",
+                "decode steps at position 64 (36 calls), and a 6-layer float32 moonshot-v1-16b-a3b "
+                "prefill (6 calls) and decode step at position 64 (6 calls).  launches count every "
+                "main-path run: the 4 served batches, one forward of each spatial layout, one ViT "
+                "forward, one VGG-NP forward, one float32 Qwen3-4B prefill and its 64 decode steps, "
+                "and moonshot's 6-layer float32 prefill, its 64 decode steps and its bf16 prefill "
+                "(6 + 384 + 6), and its 48-layer bf16 prefill and 16 decode steps (48 + 768).",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,17 +1,19 @@
-"""Decoder-only LM, the dense GQA members of the LM family (twin of
+"""Decoder-only LM, the GQA members of the LM family (twin of
 ``repro/models/transformer_lm.py``):
 
 * qwen3-4b        -- dense, GQA (32q/8kv, head 128), qk-norm
 * codeqwen1.5-7b  -- dense, MHA (32/32)
+* moonshot-v1-16b-a3b -- MoE 64e top-6, GQA 16/16
 
 Prefill (:func:`forward`, tokens -> logits) and KV-cache decode
-(:func:`init_cache`, :func:`decode_step`).  The layer stack keeps JAX's
-stacked layout (every leaf ``[L, ...]``), so a JAX parameter tree converts by
-``params_from_jax`` alone; the stack runs as a Python loop over per-layer
-views where JAX scans.  Every attention call goes through
+(:func:`init_cache`, :func:`decode_step`).  The layer stacks keep JAX's
+stacked layout (every leaf ``[L, ...]``): ``first_k_dense`` leading dense
+layers, then the MoE layers (:mod:`.moe`), so a JAX parameter tree converts
+by ``params_from_jax`` alone; each stack runs as a Python loop over
+per-layer views where JAX scans.  Every attention call goes through
 :func:`~repro_torch.models.attention.gqa_apply`, so to the flash-attention
-kernel on the card.  MoE layers, MLA, the MTP head and training are not
-ported yet (``ROADMAP.md``): a config that asks for them raises.
+kernel on the card.  MLA, the MTP head and training are not ported yet
+(``ROADMAP.md``): a config that asks for them raises.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from .attention import GQAConfig, gqa_apply, gqa_init
 from .common import Params, dense_params, norm_params, stack_layers, trunc_normal
 from .layers import dense, rmsnorm, silu
+from .moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["LMConfig", "init", "forward", "decode_step", "init_cache"]
 
@@ -41,7 +44,7 @@ class LMConfig:
     rope_theta: float = 1e6
     attn: str = "gqa"  # "gqa" | "mla"
     mla: Any = None  # JAX's MLAConfig; not ported
-    moe: Any = None  # JAX's MoEConfig; not ported
+    moe: MoEConfig | None = None
     first_k_dense: int = 0
     mtp_depth: int = 0  # DeepSeek multi-token prediction heads
     remat: bool = True
@@ -58,17 +61,30 @@ class LMConfig:
         )
 
     @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense if self.moe else 0
+
+    @property
     def n_dense_layers(self) -> int:
         return self.first_k_dense if self.moe else self.n_layers
 
 
-def _dense_gqa_only(cfg: LMConfig) -> None:
+def _gqa_only(cfg: LMConfig) -> None:
     """Raise for what the port does not run yet."""
-    missing = [what for what, asked in (("MoE layers", cfg.moe is not None), ("MLA", cfg.attn == "mla"),
-                                        ("the MTP head", bool(cfg.mtp_depth))) if asked]
+    missing = [what for what, asked in (("MLA", cfg.attn == "mla"), ("the MTP head", bool(cfg.mtp_depth)))
+               if asked]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
                                   f"(queued in ROADMAP.md)")
+
+
+def _stacks(cfg: LMConfig):
+    """(parameter key, cache key, depth, MoE layers?) of each layer stack the
+    config has, in the order the trunk runs them."""
+    for stack in (("dense_layers", "dense", cfg.n_dense_layers, False),
+                  ("moe_layers", "moe", cfg.n_moe_layers, True)):
+        if stack[2]:
+            yield stack
 
 
 # ---------------------------------------------------------------------------
@@ -82,28 +98,32 @@ def _ffn_init(gen, d, f, dtype, device):
             "w2": dense_params(gen, f, d, **kw)}
 
 
-def _block_init(gen, cfg: LMConfig, dtype, device) -> Params:
+def _block_init(gen, cfg: LMConfig, moe_layer: bool, dtype, device) -> Params:
     return {
         "ln1": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
         "attn": gqa_init(gen, cfg.gqa, dtype, device),
         "ln2": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
-        "ffn": _ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "ffn": (moe_init(gen, cfg.moe, dtype, device) if moe_layer
+                else _ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, device)),
     }
 
 
 def init(gen: torch.Generator, cfg: LMConfig, dtype=torch.float32, device=None) -> Params:
     """Random parameters from ``gen``, on its device unless ``device`` is
     given (``"meta"``: shapes only)."""
-    _dense_gqa_only(cfg)
+    _gqa_only(cfg)
     device = device or gen.device
-    return {
+    p: Params = {
         "embed": trunc_normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype, device),
         "final_norm": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
         "lm_head": dense_params(gen, cfg.d_model, cfg.vocab, bias=False, std=0.02, dtype=dtype,
                                 device=device),
-        "dense_layers": stack_layers(lambda g: _block_init(g, cfg, dtype, device), gen,
-                                     cfg.n_dense_layers),
     }
+    # each stack is drawn layer by layer into its [L, ...] slots (an MoE
+    # layer's experts are never drawn for the whole stack at once)
+    for key, _, n, moe_layer in _stacks(cfg):
+        p[key] = stack_layers(lambda g, m=moe_layer: _block_init(g, cfg, m, dtype, device), gen, n)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +131,19 @@ def init(gen: torch.Generator, cfg: LMConfig, dtype=torch.float32, device=None) 
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(p: Params, cfg: LMConfig, x, positions, cache=None, cache_index=None):
-    """One block; with a cache, the new keys and values are written into it."""
+def _block_apply(p: Params, cfg: LMConfig, moe_layer: bool, x, positions, cache=None, cache_index=None):
+    """One block -> (x, load-balance loss of its MoE layer, or None for a
+    dense one); with a cache, the new keys and values are written into it."""
     h = rmsnorm(x, p["ln1"])
     a, _ = gqa_apply(p["attn"], cfg.gqa, h, positions, cache, cache_index)
     x = x + a
     h = rmsnorm(x, p["ln2"])
+    if moe_layer:
+        b, t, d = h.shape
+        y, aux = moe_apply(p["ffn"], cfg.moe, h.reshape(b * t, d))
+        return x + y.reshape(b, t, d), aux["load_balance_loss"]
     y = dense(silu(dense(h, p["ffn"]["w1"])) * dense(h, p["ffn"]["w3"]), p["ffn"]["w2"])
-    return x + y
+    return x + y, None
 
 
 def _layer(p_stack: Params, i: int) -> Params:
@@ -126,23 +151,28 @@ def _layer(p_stack: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in p_stack.items()}
 
 
-def _scan_stack(p_stack, cfg, x, positions):
+def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
     # JAX scans the stack under remat (recompute in the backward pass) and
     # pins the residual's sharding; an eager forward on one card needs
-    # neither, so the loop just walks the layers.
-    for i in range(cfg.n_dense_layers):
-        x = _block_apply(_layer(p_stack, i), cfg, x, positions)
-    return x
+    # neither, so the loop just walks the layers, summing the MoE layers'
+    # load-balance losses in JAX's order.
+    for i in range(n):
+        x, lb_l = _block_apply(_layer(p_stack, i), cfg, moe_layer, x, positions)
+        if lb_l is not None:
+            lb = lb + lb_l
+    return x, lb
 
 
 def trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens [B, T] -> (pre-head hidden [B, T, D], load_balance_loss)."""
-    _dense_gqa_only(cfg)
+    _gqa_only(cfg)
     b, t = tokens.shape
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, t, -1)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    x = _scan_stack(params["dense_layers"], cfg, x, positions)
-    return x, torch.zeros((), device=x.device)  # dense layers add no load-balance loss
+    lb = torch.zeros((), device=x.device)
+    for key, _, n, moe_layer in _stacks(cfg):
+        x, lb = _scan_stack(params[key], n, cfg, moe_layer, x, positions, lb)
+    return x, lb
 
 
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -159,17 +189,21 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor) -> tuple[torch.
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.float32, device="cpu") -> Params:
-    """Stacked per-layer KV caches: k/v [L, B, S, Hkv, dh], zeros."""
-    _dense_gqa_only(cfg)
-    shape = (cfg.n_dense_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    """Stacked per-layer KV caches, one per layer stack ("dense", "moe"):
+    k/v [L, B, S, Hkv, dh], zeros."""
+    _gqa_only(cfg)
+    cache: Params = {}
+    for _, key, n, _ in _stacks(cfg):
+        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+        cache[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return cache
 
 
-def _decode_stack(p_stack, cache_stack, cfg, x, positions, index):
-    for i in range(cfg.n_dense_layers):
+def _decode_stack(p_stack, cache_stack, n, cfg, moe_layer, x, positions, index):
+    for i in range(n):
         kv = (cache_stack["k"][i], cache_stack["v"][i])  # views: written in place
-        x = _block_apply(_layer(p_stack, i), cfg, x, positions, kv, index)
+        x, _ = _block_apply(_layer(p_stack, i), cfg, moe_layer, x, positions, kv, index)
     return x
 
 
@@ -177,11 +211,12 @@ def decode_step(params: Params, cfg: LMConfig, cache: Params, tokens: torch.Tens
     """One decode step: tokens [B, 1] at position ``index`` against a cache of
     length max_seq.  Returns (logits [B, vocab], cache): the new keys and
     values are written into ``cache`` in place, and it is returned."""
-    _dense_gqa_only(cfg)
+    _gqa_only(cfg)
     b = tokens.shape[0]
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, 1, -1)
     positions = torch.full((b, 1), index, dtype=torch.int32, device=tokens.device)
-    x = _decode_stack(params["dense_layers"], cache["dense"], cfg, x, positions, index)
+    for key, cache_key, n, moe_layer in _stacks(cfg):
+        x = _decode_stack(params[key], cache[cache_key], n, cfg, moe_layer, x, positions, index)
     x = rmsnorm(x, params["final_norm"])
     logits = dense(x, params["lm_head"])[:, 0]
     return logits, cache

@@ -76,6 +76,10 @@ CASES = [
     # the LM's prefill (Qwen3-4B: causal T = S, 4 query heads per KV head, D = 128), heads reduced
     (1, 8, 2, 80, 80, 128, True, torch.float32, True),
     (1, 8, 2, 80, 80, 128, True, torch.bfloat16, True),
+    # moonshot-v1-16b-a3b's prefill: causal T = S, group 1 (16 query heads over 16 KV heads), D = 128,
+    # heads reduced
+    (1, 4, 4, 80, 80, 128, True, torch.float32, True),
+    (1, 4, 4, 80, 80, 128, True, torch.bfloat16, True),
 ]
 
 

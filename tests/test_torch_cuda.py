@@ -400,3 +400,34 @@ def test_lm_decode_matches_forward_on_card(card):
         got, cache = lm.decode_step(params, cfg, cache, toks[:, i:i + 1], i)
         assert flash_attention.launches == before + cfg.n_layers
         assert (got - full[:, i]).abs().max() <= 1e-4 * full.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,capacity_factor", [(24, 1.25), (320, 1.0)], ids=["dropless", "drop"])
+def test_moe_apply_on_card_matches_cpu(card, t, capacity_factor):
+    """The MoE layer on the card (sort, search, scatter and gather on the
+    device, the expert products in cuBLAS) against the same call on the CPU,
+    float32: equal routes (ids, positions, keep) and y within 2e-5.  Above
+    ``dropless_below`` (T = 320) pairs past an expert's capacity drop."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(d_model=64, n_experts=8, top_k=2, d_ff=96, n_shared=1, router_bias=True,
+                        capacity_factor=capacity_factor)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    p = moe.moe_init(gen, cfg)
+    # a router at std 1/sqrt(D) and a bias, so that routing is decided by the input
+    p["router"]["w"] = torch.randn((64, 8), generator=gen, device=card) / 8
+    p["router_b"] = 0.1 * torch.randn((8,), generator=gen, device=card)
+    x = torch.randn((t, 64), generator=gen, device=card)
+    cpu_p = tree_map(lambda a: a.cpu(), p)
+    got, aux = moe.moe_apply(p, cfg, x)
+    want, want_aux = moe.moe_apply(cpu_p, cfg, x.cpu())
+    _, ids, _ = moe.router_topk(p, cfg, x)
+    _, want_ids, _ = moe.router_topk(cpu_p, cfg, x.cpu())
+    capacity = t if t <= cfg.dropless_below else int(capacity_factor * t * 2 / 8)  # as moe_apply
+    for g, w in zip(moe._dispatch(ids, 8, capacity), moe._dispatch(want_ids, 8, capacity)):
+        assert torch.equal(g.cpu(), w)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    for key in ("load_balance_loss", "dropped_frac"):
+        torch.testing.assert_close(aux[key].cpu(), want_aux[key], rtol=2e-5, atol=2e-5)
+    assert (float(want_aux["dropped_frac"]) > 0) == (t > cfg.dropless_below)

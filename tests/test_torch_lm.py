@@ -1,5 +1,6 @@
-"""The port's dense GQA LM (``repro_torch.models.attention``,
-``models.transformer_lm``, ``configs``) against the JAX package, on the CPU.
+"""The port's GQA LM, dense and MoE (``repro_torch.models.attention``,
+``models.moe``, ``models.transformer_lm``, ``configs``) against the JAX
+package, on the CPU.
 
 The same parameters (JAX's init, the norm scales perturbed by seeded numpy
 noise so the scale paths are covered, converted by ``params_from_jax``) and the
@@ -25,17 +26,25 @@ from repro.configs.base import lm_cells as jlm_cells
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer_lm as jlm
+from repro.models.moe import MoEConfig as JMoEConfig
 from repro_torch.configs import get, list_archs, lm_cells
 from repro_torch.configs.steps import build
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models import transformer_lm as lm
 from repro_torch.models.common import params_from_jax, trunc_normal
 
 TOL = 2e-5
-ARCHS = ("qwen3-4b", "codeqwen1.5-7b")
+ARCHS = ("qwen3-4b", "codeqwen1.5-7b", "moonshot-v1-16b-a3b")
 # two GQA layers with qk-norm at Qwen3's head width, d_head 128
 D128 = jlm.LMConfig(name="gqa-d128", n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=128,
                     d_ff=256, vocab=512, qk_norm=True)
+# a dense GQA layer, then an MoE layer (first_k_dense = 1: both stacks run),
+# with a shared expert and the router bias; above 16 tokens (the forward's
+# 2 x 24) pairs past an expert's capacity drop, up to 16 (decode) none do
+MOE2 = jlm.LMConfig(name="gqa-moe-2l", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+                    d_ff=128, vocab=512, qk_norm=True, first_k_dense=1,
+                    moe=JMoEConfig(d_model=64, n_experts=8, top_k=2, d_ff=48, n_shared=1, router_bias=True,
+                                   capacity_factor=1.0, dropless_below=16))
 
 
 def _close(got, want, tol=TOL):
@@ -45,18 +54,25 @@ def _close(got, want, tol=TOL):
 
 
 def _port_cfg(jcfg) -> lm.LMConfig:
-    """The port's LMConfig with the JAX config's fields."""
-    return lm.LMConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    """The port's LMConfig with the JAX config's fields (its MoEConfig as the
+    port's)."""
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    if jcfg.moe is not None:
+        fields["moe"] = moe.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    return lm.LMConfig(**fields)
 
 
 def _jax_params(jcfg, seed=0):
-    """JAX's init, each norm scale times (1 + 0.1 N(0, 1)) from numpy."""
+    """JAX's init, each norm scale times (1 + 0.1 N(0, 1)) and each router
+    bias 0.1 N(0, 1), from numpy."""
     rng = np.random.default_rng(seed)
     params = jlm.init(jax.random.PRNGKey(seed), jcfg)
 
     def perturb(path, a):
         if "scale" in jax.tree_util.keystr(path):
             return a * jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape, dtype=np.float32))
+        if "router_b" in jax.tree_util.keystr(path):
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape, dtype=np.float32))
         return a
 
     return jax.tree_util.tree_map_with_path(perturb, params)
@@ -67,7 +83,7 @@ def _tokens(cfg, b, t, seed=1):
 
 
 def _jcfg(name):
-    return D128 if name == D128.name else jget(name).smoke_cfg
+    return {D128.name: D128, MOE2.name: MOE2}.get(name) or jget(name).smoke_cfg
 
 
 # -- layers ---------------------------------------------------------------
@@ -158,18 +174,24 @@ def test_plain_sdpa_matches_jax(t):
 # -- the LM -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ARCHS + (D128.name,))
+@pytest.mark.parametrize("name", ARCHS + (D128.name, MOE2.name))
 def test_forward_matches_jax(name):
+    """Logits and the load-balance loss: zero for dense layers, the MoE
+    layers' sum otherwise."""
     jcfg = _jcfg(name)
     jp = _jax_params(jcfg)
     toks = _tokens(jcfg, 2, 24)
     want, want_lb = jlm.forward(jp, jcfg, jnp.asarray(toks))
     got, lb = lm.forward(params_from_jax(jp), _port_cfg(jcfg), torch.from_numpy(toks))
     _close(got, want)
-    assert float(lb) == float(want_lb) == 0.0
+    if jcfg.moe is None:
+        assert float(lb) == float(want_lb) == 0.0
+    else:
+        _close(lb, want_lb)
+        assert float(lb) > 0
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + (MOE2.name,))
 def test_init_and_cache_layouts_match_jax(name):
     """The port's init and init_cache give JAX's trees: the same keys, shapes
     and types, the layers stacked on a leading axis."""
@@ -188,7 +210,7 @@ def test_init_and_cache_layouts_match_jax(name):
             assert tuple(g.shape) == a.shape and g.dtype == tdt and not g.any()
 
 
-@pytest.mark.parametrize("name", ARCHS + (D128.name,))
+@pytest.mark.parametrize("name", ARCHS + (D128.name, MOE2.name))
 def test_decode_step_matches_jax(name):
     """8 decode steps: each step's logits and, after the last, the whole
     cache against JAX's; then the port's decode against the port's forward
@@ -205,8 +227,10 @@ def test_decode_step_matches_jax(name):
         got, cache = lm.decode_step(p, cfg, cache, torch.from_numpy(toks[:, i:i + 1]), i)
         _close(got, want)
         _close(got, full[:, i])
-    for key in ("k", "v"):
-        _close(cache["dense"][key], jcache["dense"][key])
+    assert sorted(cache) == sorted(jcache)
+    for stack in cache:
+        for key in ("k", "v"):
+            _close(cache[stack][key], jcache[stack][key])
 
 
 @pytest.mark.parametrize("name", ("qwen3-4b", D128.name))
@@ -222,6 +246,66 @@ def test_bfloat16_forward_matches_jax(name):
     err = np.abs(got.float().numpy() - want).max()
     assert err <= 2e-2 * np.abs(want).max(), (err, np.abs(want).max())
     assert err <= np.abs(jax_bf16 - want).max(), (err, np.abs(jax_bf16 - want).max())
+
+
+def _recording_routes(monkeypatch):
+    """Record each MoE layer's kept routes (the port's ``_dispatch``
+    wrapped): a list of ids [B*T, k], dropped pairs as -1."""
+    routes = []
+    dispatch = moe._dispatch
+
+    def recording_dispatch(ids, e, capacity):
+        out = dispatch(ids, e, capacity)
+        routes.append(torch.where(out[2], ids, -1).numpy())
+        return out
+
+    monkeypatch.setattr(moe, "_dispatch", recording_dispatch)
+    return routes
+
+
+def _held(ref_routes, routes, b, t):
+    """[B, T] positions whose logits no routing difference reaches: a layer's
+    kept experts (as sets) differ at a position, which taints its own output
+    and, through the next layers' causal attention, every later position."""
+    out = np.zeros((b, t), bool)  # the layer's output differs
+    for ref, got in zip(ref_routes, routes):
+        differs = (np.sort(ref, 1) != np.sort(got, 1)).any(1).reshape(b, t)
+        out = np.maximum.accumulate(out, axis=1) | differs
+    return ~out
+
+
+@pytest.mark.parametrize("name", ("moonshot-v1-16b-a3b", MOE2.name))
+def test_moe_bfloat16_forward_matches_jax(name, monkeypatch):
+    """A bfloat16 MoE forward routes as the float32 one except at near-ties,
+    which bfloat16's rounding may flip either way (JAX's own bfloat16 forward
+    flips others): one flip changes a token's FFN output by a share of it,
+    and attention carries that to later tokens.  So the logits are held at
+    the positions whose routes (every layer, the causal past) match the
+    float32 forward's -- at least three quarters of them -- against JAX's
+    float32 forward: the mean |diff| no worse than 1.25x JAX's bfloat16
+    forward's at the same positions, the largest within 2e-2 of the largest
+    |logit| or 1.25x JAX's largest.  The factor: the port rounds in other
+    places than JAX's compiled scan (the attention keeps float32 scores), so
+    the two errors are alike, not equal (measured over three seeds: either
+    one the larger by up to 6 %)."""
+    jcfg = _jcfg(name)
+    jp = _jax_params(jcfg)
+    b, t = 2, 24
+    toks = _tokens(jcfg, b, t)
+    want = np.asarray(jlm.forward(jp, jcfg, jnp.asarray(toks))[0])
+    jbf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
+    jax_err = np.abs(np.asarray(jlm.forward(jbf, jcfg, jnp.asarray(toks))[0].astype(jnp.float32)) - want)
+    routes = _recording_routes(monkeypatch)
+    got32, _ = lm.forward(params_from_jax(jp), _port_cfg(jcfg), torch.from_numpy(toks))
+    ref_routes, routes[:] = routes[:], []
+    got, _ = lm.forward(params_from_jax(jbf), _port_cfg(jcfg), torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16 and len(routes) == len(ref_routes) == _port_cfg(jcfg).n_moe_layers
+    _close(got32, want)
+    held = _held(ref_routes, routes, b, t)
+    assert held.mean() >= 0.75, held
+    err, jax_err = np.abs(got.float().numpy() - want)[held], jax_err[held]
+    assert err.mean() <= 1.25 * jax_err.mean(), (err.mean(), jax_err.mean())
+    assert err.max() <= max(2e-2 * np.abs(want).max(), 1.25 * jax_err.max()), (err.max(), jax_err.max())
 
 
 # -- configs and steps ----------------------------------------------------------
@@ -249,12 +333,10 @@ def test_registry_holds_the_ported_archs_only():
         get("vit-l16")
 
 
-@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
-def test_build_bundles_match_jax(cell, smoke):
+def _check_bundles(name, cell, smoke):
     """The bundle's kind, its inputs' shapes and types and its parameters'
     shapes against JAX's; the smoke step runs and agrees with JAX's."""
-    ja, a = jget("qwen3-4b"), get("qwen3-4b")
+    ja, a = jget(name), get(name)
     jb, b = jsteps.build(ja, cell, smoke=smoke), build(a, cell, smoke=smoke)
     assert b.kind == jb.kind
     jdt = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16,
@@ -274,20 +356,45 @@ def test_build_bundles_match_jax(cell, smoke):
     if cell == "prefill_32k":
         _close(b.fn(p, torch.from_numpy(toks)), jb.fn(jp, jnp.asarray(toks)))
     else:
-        cache = lm.init_cache(a.smoke_cfg, bsz, b.inputs["cache"]["dense"]["k"][0][2])
-        jcache = jlm.init_cache(ja.smoke_cfg, bsz, jb.inputs["cache"]["dense"]["k"].shape[2])
+        (stack,) = b.inputs["cache"]
+        cache = lm.init_cache(a.smoke_cfg, bsz, b.inputs["cache"][stack]["k"][0][2])
+        jcache = jlm.init_cache(ja.smoke_cfg, bsz, jb.inputs["cache"][stack]["k"].shape[2])
         got, _ = b.fn(p, cache, torch.from_numpy(toks), 0)
         want, _ = jb.fn(jp, jcache, jnp.asarray(toks), 0)
         _close(got, want)
 
 
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_build_bundles_match_jax(cell, smoke):
+    _check_bundles("qwen3-4b", cell, smoke)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_moe_build_bundles_match_jax(cell, smoke):
+    """moonshot-v1-16b-a3b's bundles: its 48 MoE layers' stacked experts
+    ([48, 64, 2048, 1408]) as shapes on the meta device, and its "moe" cache."""
+    _check_bundles("moonshot-v1-16b-a3b", cell, smoke)
+
+
 @pytest.mark.parametrize("jname", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
 def test_moe_mla_and_mtp_raise(jname):
+    """MLA and the MTP head raise (DeepSeek-V3); MoE layers on GQA run
+    (moonshot: init, init_cache and a forward, no raise)."""
     cfg = _port_cfg(jget(jname).smoke_cfg)
-    for fn in (lambda: lm.init(torch.Generator(), cfg, device="meta"), lambda: lm.init_cache(cfg, 1, 4),
-               lambda: lm.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
+    fns = (lambda: lm.init(torch.Generator(), cfg, device="meta"), lambda: lm.init_cache(cfg, 1, 4),
+           lambda: lm.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32)))
+    if cfg.attn == "mla":
+        for fn in fns:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                fn()
+        return
+    assert sorted(fns[0]()) == ["embed", "final_norm", "lm_head", "moe_layers"]
+    assert sorted(fns[1]()) == ["moe"]
+    params = lm.init(torch.Generator().manual_seed(0), cfg)
+    logits, lb = lm.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32))
+    assert tuple(logits.shape) == (1, 4, cfg.vocab) and float(lb) > 0
 
 
 def test_train_step_raises():
