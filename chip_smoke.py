@@ -105,6 +105,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain attention's forward as a record; (c) steady timing and a profile of
    each, the device ms split into GEMM, K3, routing and other.  Phase 3c
    holds K3 at this model's two shapes (16 heads over 16, D = 128).
+9. runs full-width DeepSeek-V3 (d_model 7168, MLA with 128 heads at a
+   query/key width of 192 and a value width of 128, q_lora 1536, kv_lora
+   512; 3 dense layers of d_ff 18432, then MoE layers of 256 experts top-8
+   of d_ff 2048 and a shared expert, router bias, capacity factor 1.25;
+   vocab 129280; seeded random weights) through ``configs.steps.build``
+   at batch 4 x 512 tokens, cut to 4 of its 61 layers (the 3 dense and the
+   first MoE layer: 15.11 B parameters, 60.4 GB in float32) and no MTP
+   head (``phase_mla``): (a) float32 with the weights rounded to bf16
+   values, a prefill with K3 once a layer and no SDPA operator, held route
+   by route against the plain attention on the card, the 3 dense layers
+   against the plain versions on the CPU (16 tokens), 64 decode steps from
+   the latent cache against a drop-free prefill; (b) the same weights in
+   bf16, a prefill (held to (a)'s by the median and p99 of |diff|) and 16
+   decode steps; steady timing and profiles of each; peak device memory
+   below the card's.  Phase 3c holds K3 at MLA's two shapes, (DQK, DV) =
+   (192, 128); phase 2 prints each K3 instantiation's registers and spill
+   bytes.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -114,6 +131,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +184,12 @@ MOE_F32_LAYERS, MOE_BF16_STEPS = 6, 16
 # reaches.  Decode against prefill fails past MAX_EXCLUDED of its positions
 # excluded.
 NEAR_TIE, MAX_EXCLUDED = 1e-5, 0.25
+
+# Phase 9: DeepSeek-V3 at full width, MLA_LAYERS of its 61 layers (the 3
+# dense layers and the first MoE layer: 15.11 B parameters, 60.4 GB in
+# float32; a second MoE layer would add 46.0 GB) and no MTP head (only
+# training reads it); MLA_BF16_STEPS bf16 decode steps.
+MLA_LAYERS, MLA_BF16_STEPS = 4, 16
 
 # Phase 5's layouts of full-width VGG-16 over height shards of one card:
 # (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
@@ -312,6 +336,30 @@ def spatial_calls(net, heights, batch: int, weighted: bool) -> list[dict]:
 def dict_leaves(tree) -> list:
     """The leaves of a nested dict, in order."""
     return [x for v in tree.values() for x in (dict_leaves(v) if isinstance(v, dict) else [v])]
+
+
+# K3's instantiations in ptxas's log: flash_fwd<T, DQK, DV, VEC, WQ, WK> mangled
+K3_ENTRY = re.compile(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])ELi(\d)ELi(\d)E")
+
+
+def k3_ptxas(log: str) -> list[dict]:
+    """Registers and spill bytes of each K3 instantiation, from ``nvcc
+    -Xptxas=-v``'s log of attention.cu (a function's stack and spill line
+    and its register line follow its "Compiling entry function" line)."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = K3_ENTRY.search(line) if "Compiling entry function" in line else None
+        if m:
+            t, dqk, dv, vec, wq, wk = m.groups()
+            cur = dict(dtype="float32" if t == "f" else "bfloat16", dqk=int(dqk), dv=int(dv),
+                       copies="16-byte" if vec == "1" else "element", block=f"{16 * int(wq)}x{wk}")
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return rows
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tuple[float, float]:
@@ -464,22 +512,26 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
     are [B, T, H*D] buffers seen as [B, H, T, D] through strides, the layout
     the ViT's and the LM's attention hand the kernel; with ``cache`` slots,
     k and v are the first S rows of a [B, cache, Hkv*D] KV cache (a decode
-    step's view).  At a main path's shapes the kernel's and SDPA's device us
-    per call (a profiler window), the wrapper's host us per call and the
-    largest |score| are added.  Returns the float32 row, with the bfloat16
-    error and times in it."""
+    step's view).  With ``dv`` (MLA: query/key width 192, value width 128)
+    v is the last dv of each head's ``v_width`` values (the value half of
+    MLA's [k_nope | v] expansion, a strided view).  At a main path's shapes
+    the kernel's and SDPA's device us per call (a profiler window), SDPA's
+    backend, the wrapper's host us per call and the largest |score| are
+    added.  Returns the float32 row, with the bfloat16 error and times in it."""
     from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
     from repro_torch.kernels.attention.ops import launch_config
 
     b, h, hkv, t, s, d, causal = (case[key] for key in ("b", "h", "hkv", "t", "s", "d", "causal"))
+    dv = case.get("dv", d)
+    vw = case.get("v_width", dv)
     g = h // hkv
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).removeprefix("torch.")
-        q, k, v = (torch.randn((b, rows, heads * d), generator=gen, device="cuda").to(dt)[:, :n]
-                   .view(b, n, heads, d).transpose(1, 2)
-                   for n, rows, heads in ((t, t, h), (s, case.get("cache") or s, hkv),
-                                          (s, case.get("cache") or s, hkv)))
+        q, k, v = (torch.randn((b, rows, heads * w), generator=gen, device="cuda").to(dt)[:, :n]
+                   .view(b, n, heads, w)[..., w - width:].transpose(1, 2)
+                   for n, rows, heads, w, width in ((t, t, h, d, d), (s, case.get("cache") or s, hkv, d, d),
+                                                    (s, case.get("cache") or s, hkv, vw, dv)))
         kr, vr = (x.repeat_interleave(g, dim=1) for x in (k, v))
 
         def kernel():
@@ -502,8 +554,8 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
         t_kernel = time_ms(torch, kernel)
         t_plain = time_ms(torch, lambda: attention_ref(q, kr, vr, causal=causal))
         t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
-        flops = 4.0 * b * h * attention_pairs(t, s, causal) * d
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
+        flops = 2.0 * b * h * attention_pairs(t, s, causal) * (d + dv)
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()  # q, k, v in; o out
         ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
         t_bound = max(ops_ms, bytes_ms)
         t_ffma = max(bound_ms(flops, nbytes, dname, ffma=True))
@@ -514,17 +566,22 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
             extra = dict(device_us=device_us(torch, kernel), host_us=host_us(torch, kernel),
                          library_device_us=device_us(
                              torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)),
+                         library_backend=sdpa_backend(
+                             torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)),
                          max_abs_score=scores.abs().max().item())
+            del scores
         print(f"attn {dname:8s} {case['path'] or 'extra'} B{b} H{h}/{hkv} T{t} S{s} D{d}"
+              f"{f' DV{dv} (of {vw})' if dv != d else ''}"
               f"{' causal' if causal else ''}{' cache ' + str(case['cache']) if case.get('cache') else ''} "
               f"x{case['per_forward']}/fwd [{config['block']}, "
               f"{config['blocks']} blocks]: max_err {err:.3g} "
               f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.2f} TFLOP/s) plain {t_plain:.4f} ms "
               f"SDPA {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; FFMA {t_ffma:.4f})"
-              + (f"; device us/call kernel {extra['device_us']:.2f} SDPA {extra['library_device_us']:.2f}, "
+              + (f"; device us/call kernel {extra['device_us']:.2f} SDPA {extra['library_device_us']:.2f} "
+                 f"({extra['library_backend']}), "
                  f"wrapper host us/call {extra['host_us']:.2f}, max |score| {extra['max_abs_score']:.3g}"
                  if extra else ""))
-        out[dname] = dict(b=b, h=h, hkv=hkv, t=t, s=s, d=d, causal=causal, path=case["path"],
+        out[dname] = dict(b=b, h=h, hkv=hkv, t=t, s=s, d=d, dv=dv, causal=causal, path=case["path"],
                           cache=case.get("cache"),
                           dtype=dname, per_forward=case["per_forward"], max_abs_err=err, ms=t_kernel,
                           plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, ops_ms=ops_ms,
@@ -540,6 +597,19 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
 def sdpa_ops(prof) -> list:
     """The rows of a profile that are operators of F.scaled_dot_product_attention."""
     return [a.key for a in prof.key_averages() if any(op in a.key for op in SDPA_OPS)]
+
+
+def sdpa_backend(torch, fn) -> str:
+    """Which of SDPA's backends one call of ``fn`` ran: the names of its
+    operators in a profile, past the dispatcher's own (``math`` when it
+    launched none of the fused ones)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({n.removeprefix("aten::") for n in sdpa_ops(prof)} - {"scaled_dot_product_attention"})
+    fused = [n for n in names if "math" not in n]
+    return ", ".join(fused) if fused else "math"
 
 
 def with_plain_attention(fn):
@@ -666,6 +736,59 @@ def hold_routed(torch, label: str, err_bt, ref: list, got: list, b: int, t: int,
                 excluded=excluded, positions=b * t, max_abs=err, max_abs_logit=scale, held=cmp["held"])
 
 
+def hold_decode(torch, prefill, decode, params, cfg, cache, tokens, logits, routes: list, scale: float):
+    """DECODE_STEPS teacher-forced decode steps of an MoE LM from its empty
+    ``cache``, K3 once a layer a step, held route by route.  A decode step's
+    LM_BATCH tokens route drop-free (<= dropless_below), and so does a
+    prefill of the first DECODE_STEPS tokens (LM_BATCH x DECODE_STEPS
+    tokens, at the limit): the reference the decode is held to.  The
+    LM_LEN-token prefill (``logits``, ``routes``) drops pairs past an
+    expert's capacity, and the decode agrees with it only where no dropped
+    route reaches: that comparison is printed with the positions whose
+    causal past had a dropped route, its held positions gated all the same.
+    Returns the two holds and the K3 launches."""
+    from repro_torch.kernels.attention import flash_attention
+
+    n_moe = cfg.n_moe_layers
+    check(LM_BATCH * DECODE_STEPS <= cfg.moe.dropless_below, "the short prefill would drop routes")
+    with RouteRecorder() as rec:
+        short = prefill.fn(params, tokens[:, :DECODE_STEPS])
+    short_routes = rec.host()
+    check(all(r["keep"].all() for r in short_routes), "the short prefill dropped a route")
+    flash_attention.launches = 0
+    errs, errs_full = [], []
+    with RouteRecorder() as rec:
+        for i in range(DECODE_STEPS):
+            step_logits, cache = decode.fn(params, cache, tokens[:, i:i + 1], i)
+            errs.append((step_logits - short[:, i]).abs().amax(-1))
+            errs_full.append((step_logits - logits[:, i]).abs().amax(-1))
+        torch.cuda.synchronize()
+    n_decode = flash_attention.launches
+    print(f"  {DECODE_STEPS} decode steps: K3 launches {n_decode} ({cfg.n_layers} per step)")
+    check(n_decode == cfg.n_layers * DECODE_STEPS, f"MoE decode launched K3 {n_decode} times")
+    steps = rec.host()  # step-major: DECODE_STEPS x n_moe records over [LM_BATCH] tokens
+    dec_routes = [{key: np.stack([steps[i * n_moe + layer][key] for i in range(DECODE_STEPS)], axis=1)
+                   .reshape((LM_BATCH * DECODE_STEPS,) + steps[layer][key].shape[1:]) for key in steps[layer]}
+                  for layer in range(n_moe)]
+    vs_short = hold_routed(torch, f"decode vs the drop-free prefill of tokens 0..{DECODE_STEPS - 1}",
+                           torch.stack(errs, dim=1).cpu(), short_routes, dec_routes, LM_BATCH, DECODE_STEPS,
+                           short.abs().max().item())
+    check(vs_short["excluded"] <= MAX_EXCLUDED * LM_BATCH * DECODE_STEPS,
+          f"decode vs the drop-free prefill excluded {vs_short['excluded']} positions")
+    prefill_first = route_rows(routes, (LM_BATCH, LM_LEN), np.s_[:, :DECODE_STEPS])
+    vs_prefill = hold_routed(torch, f"decode vs the {LM_LEN}-token prefill (held where no difference reaches)",
+                             torch.stack(errs_full, dim=1).cpu(), prefill_first, dec_routes, LM_BATCH,
+                             DECODE_STEPS, scale)
+    dropped_past = np.maximum.accumulate(
+        np.stack([~r["keep"].all(1) for r in prefill_first]).any(0).reshape(LM_BATCH, DECODE_STEPS), axis=1)
+    print(f"    positions whose causal past had a route the {LM_LEN}-token prefill dropped: "
+          f"{int(dropped_past.sum())} of {LM_BATCH * DECODE_STEPS} (per batch element "
+          f"{dropped_past.sum(1).tolist()})")
+    check(not dropped_past[0].any(), "the prefill dropped a route of batch element 0's first tokens")
+    vs_prefill["dropped_past"] = int(dropped_past.sum())
+    return vs_short, vs_prefill, n_decode
+
+
 def moe_bounds(cfg, n_params: int, capacity: int, elem_bytes: int) -> dict:
     """What one prefill of LM_BATCH x LM_LEN tokens and one decode step of
     LM_BATCH tokens at position DECODE_STEPS must do in JAX's design, which
@@ -787,57 +910,15 @@ def phase_moe(torch) -> tuple[dict, int]:
                          CPU_TOKENS, clogits.abs().max().item())
     vs_cpu["cpu_s"] = cpu_s
 
-    # (a4) teacher-forced decode from init_cache.  A decode step's LM_BATCH
-    # tokens route drop-free (<= dropless_below), and so does a prefill of
-    # the first DECODE_STEPS tokens (LM_BATCH x DECODE_STEPS tokens, at the
-    # limit): the reference the decode is held to.  The 512-token prefill
-    # drops pairs past an expert's capacity, and the decode agrees with it
-    # only where no dropped route reaches: that comparison is printed with
-    # the positions whose causal past had a dropped route, its held
-    # positions gated all the same.
-    check(LM_BATCH * DECODE_STEPS <= cfg.moe.dropless_below, "the short prefill would drop routes")
-    with RouteRecorder() as rec:
-        short = prefill.fn(params, tokens[:, :DECODE_STEPS])
-    short_routes = rec.host()
-    check(all(r["keep"].all() for r in short_routes), "the short prefill dropped a route")
+    # (a4) teacher-forced decode from init_cache, held route by route
     cache = lm.init_cache(cfg, LM_BATCH, LM_LEN, device="cuda")
     check(sorted(cache) == ["moe"] and tuple(cache["moe"]["k"].shape)
           == (cfg.n_layers, LM_BATCH, LM_LEN, cfg.n_kv_heads, cfg.d_head), "the MoE cache's layout")
-    flash_attention.launches = 0
-    errs, errs_full = [], []
-    with RouteRecorder() as rec:
-        for i in range(DECODE_STEPS):
-            step_logits, cache = decode.fn(params, cache, tokens[:, i:i + 1], i)
-            errs.append((step_logits - short[:, i]).abs().amax(-1))
-            errs_full.append((step_logits - logits[:, i]).abs().amax(-1))
-        torch.cuda.synchronize()
-    n_decode = flash_attention.launches
+    vs_short, vs_prefill, n_decode = hold_decode(torch, prefill, decode, params, cfg, cache, tokens, logits,
+                                                 routes, scale)
     launches += n_decode
-    print(f"  {DECODE_STEPS} decode steps: K3 launches {n_decode} ({cfg.n_layers} per step)")
-    check(n_decode == cfg.n_layers * DECODE_STEPS, f"MoE decode launched K3 {n_decode} times")
-    steps = rec.host()  # step-major: DECODE_STEPS x n_layers records over [LM_BATCH] tokens
-    dec_routes = [{key: np.stack([steps[i * cfg.n_layers + layer][key] for i in range(DECODE_STEPS)], axis=1)
-                   .reshape((LM_BATCH * DECODE_STEPS,) + steps[layer][key].shape[1:]) for key in steps[layer]}
-                  for layer in range(cfg.n_layers)]
-    vs_short = hold_routed(torch, f"decode vs the drop-free prefill of tokens 0..{DECODE_STEPS - 1}",
-                           torch.stack(errs, dim=1).cpu(), short_routes, dec_routes, LM_BATCH, DECODE_STEPS,
-                           short.abs().max().item())
-    check(vs_short["excluded"] <= MAX_EXCLUDED * LM_BATCH * DECODE_STEPS,
-          f"decode vs the drop-free prefill excluded {vs_short['excluded']} positions")
-    prefill_first = route_rows(routes, (LM_BATCH, LM_LEN), np.s_[:, :DECODE_STEPS])
-    vs_prefill = hold_routed(torch, f"decode vs the {LM_LEN}-token prefill (held where no difference reaches)",
-                             torch.stack(errs_full, dim=1).cpu(), prefill_first, dec_routes, LM_BATCH,
-                             DECODE_STEPS, scale)
-    dropped_past = np.maximum.accumulate(
-        np.stack([~r["keep"].all(1) for r in prefill_first]).any(0).reshape(LM_BATCH, DECODE_STEPS), axis=1)
-    print(f"    positions whose causal past had a route the {LM_LEN}-token prefill dropped: "
-          f"{int(dropped_past.sum())} of {LM_BATCH * DECODE_STEPS} (per batch element "
-          f"{dropped_past.sum(1).tolist()})")
-    check(not dropped_past[0].any(), "the prefill dropped a route of batch element 0's first tokens")
-    vs_prefill["dropped_past"] = int(dropped_past.sum())
     for r in (vs_plain, vs_cpu, vs_short, vs_prefill):
         del r["held"]
-    del short
 
     # where the time goes: a steady float32 prefill and decode step
     bounds32 = moe_bounds(cfg, n_params, capacity, 4)
@@ -1011,6 +1092,295 @@ def phase_moe(torch) -> tuple[dict, int]:
     return report, launches
 
 
+def round_to_bf16_(torch, x, chunk: int = 1 << 26) -> None:
+    """Round a float32 tensor to bfloat16-representable values in place, a
+    chunk at a time (one expert leaf of DeepSeek-V3 is 15.0 GB)."""
+    for part in x.view(-1).split(chunk):
+        part.copy_(part.to(torch.bfloat16))
+
+
+def mla_bounds(cfg, n_params: int, capacity: int, elem_bytes: int) -> dict:
+    """What one prefill of LM_BATCH x LM_LEN tokens and one decode step at
+    position DECODE_STEPS of DeepSeek-V3's cut must do in JAX's design (the
+    MoE layers run every slot of the [E, C] table): the operations of the
+    products, the attention and the head, and the bytes of every weight
+    read once (the embedding: its rows only)."""
+    m, d = cfg.mla, cfg.d_model
+    h = cfg.n_heads
+    attn_macs = (d * m.q_lora_rank + m.q_lora_rank * h * m.qk_head_dim + d * m.kv_lora_rank
+                 + d * m.qk_rope_head_dim + h * m.v_head_dim * d)  # per token; + wukv per key row
+    ukv_macs = m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+    e, f = cfg.moe.n_experts, cfg.moe.d_ff
+
+    def flops(tokens, keys, pairs, slots):
+        per_layer = 2 * tokens * attn_macs + 2 * keys * ukv_macs + 2 * LM_BATCH * h * pairs * (
+            m.qk_head_dim + m.v_head_dim)
+        dense = per_layer + 2 * tokens * 3 * d * cfg.d_ff
+        moe_layer = per_layer + 2 * tokens * d * e + 2 * 3 * d * f * (e * slots + tokens * cfg.moe.n_shared)
+        return cfg.n_dense_layers * dense + cfg.n_moe_layers * moe_layer + 2 * tokens * d * cfg.vocab
+
+    weight_bytes = (n_params - cfg.vocab * d) * elem_bytes
+    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, LM_BATCH * LM_LEN, attention_pairs(LM_LEN, LM_LEN, True),
+                                    capacity),
+                decode_flops=flops(LM_BATCH, LM_BATCH * (DECODE_STEPS + 1), DECODE_STEPS + 1, LM_BATCH),
+                decode_bytes=weight_bytes + LM_BATCH * d * elem_bytes)
+
+
+def phase_mla(torch) -> tuple[dict, dict]:
+    """Phase 9: full-width DeepSeek-V3 (d_model 7168, MLA with 128 heads,
+    q_lora 1536, kv_lora 512, no-RoPE 128 / RoPE 64 / value 128; d_ff 18432
+    in the 3 dense layers; 256 routed experts top-8 of d_ff 2048 and 1
+    shared expert, router bias, capacity factor 1.25; vocab 129280; seeded
+    random weights) through ``configs.steps.build`` at LM_BATCH x LM_LEN
+    tokens, cut to MLA_LAYERS layers (3 dense + 1 MoE) and no MTP head.
+    (a) float32, its weights first rounded to bf16 values in place: the
+    prefill (K3 once a layer, no SDPA operator, the MoE layer's dropped
+    share), held route by route against the same forward with the plain
+    attention on the card; the 3 dense layers alone against the plain
+    versions on the CPU over tokens 0..CPU_TOKENS-1 of batch element 0;
+    DECODE_STEPS teacher-forced decode steps from the latent cache
+    (``hold_decode``); steady timing.  (b) bfloat16, the weights converted
+    leaf by leaf: a prefill and MLA_BF16_STEPS decode steps (K3 once a layer
+    each, no SDPA operator, finite logits), the prefill held to (a)'s by the
+    median and p99 of |diff|; steady timing.  (c) peak device memory below
+    the card's.  Returns the report and the K3 launches of its counted runs
+    by run."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.common import tree_map
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    arch = get_arch("deepseek-v3-671b")
+    full = arch.cfg
+    m, moe_cfg = full.mla, full.moe
+    check((full.n_layers, full.d_model, full.n_heads, m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+           m.qk_rope_head_dim, m.v_head_dim, full.d_ff, moe_cfg.n_experts, moe_cfg.top_k, moe_cfg.d_ff,
+           moe_cfg.n_shared, moe_cfg.router_bias, moe_cfg.capacity_factor, full.vocab, full.first_k_dense,
+           full.mtp_depth)
+          == (61, 7168, 128, 1536, 512, 128, 64, 128, 18432, 256, 8, 2048, 1, True, 1.25, 129280, 3, 1),
+          f"deepseek-v3-671b is not full width: {full}")
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS, mtp_depth=0)
+    print(f"deepseek-v3-671b cut: n_layers {full.n_layers} -> {cfg.n_layers} ({cfg.n_dense_layers} dense + "
+          f"{cfg.n_moe_layers} MoE), mtp_depth {full.mtp_depth} -> 0 (read by training only); every width full")
+    cut = dataclasses.replace(arch, cfg=cfg)
+    prefill = build(cut, "prefill_32k", dtype=torch.float32)
+    decode = build(cut, "decode_32k", dtype=torch.float32)
+    check(decode.inputs["cache"] == {
+        key: ((n, 128, 32768, m.kv_lora_rank + m.qk_rope_head_dim), torch.float32)
+        for key, n in (("dense", cfg.n_dense_layers), ("moe", cfg.n_moe_layers))}, "the latent cache spec")
+    capacity = int(moe_cfg.capacity_factor * LM_BATCH * LM_LEN * moe_cfg.top_k / moe_cfg.n_experts)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    params = lm.init(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill.state),
+          "the weights do not match the bundle's shapes")
+    n_params = sum(x.numel() for x in leaves)
+    check(round(n_params / 1e9, 2) == 15.11, f"{n_params} parameters, expected 15.11 B")
+    # bf16-representable float32 weights: (b) is then held to (a)'s forward
+    for x in leaves:
+        round_to_bf16_(torch, x)
+    del leaves
+    peak_init = torch.cuda.max_memory_allocated()
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_LEN), generator=gen, device="cuda", dtype=torch.int32)
+    print(f"deepseek-v3-671b at {cfg.n_layers} of {full.n_layers} layers, float32: {n_params / 1e9:.4f} B "
+          f"parameters ({n_params * 4 / 1e9:.2f} GB) drawn on the card in {init_s:.2f} s (peak "
+          f"{peak_init / 1e9:.2f} GB), rounded to bf16 values; prefill of {LM_BATCH} x {LM_LEN} tokens "
+          f"(capacity {capacity} slots per expert), {DECODE_STEPS} decode steps")
+    launches = {}
+
+    # (a1) the float32 prefill: K3 once per layer, no SDPA operator
+    flash_attention.launches = 0
+    with RouteRecorder() as rec, torch.profiler.profile(activities=acts) as prof:
+        logits = prefill.fn(params, tokens)
+        torch.cuda.synchronize()
+    launches["prefill"] = flash_attention.launches
+    sdpa = sdpa_ops(prof)
+    del prof
+    routes = rec.host()
+    dropped = [1 - float(r["keep"].mean()) for r in routes]
+    print(f"  float32 prefill: K3 launches {launches['prefill']} (one per layer: {cfg.n_layers}); SDPA operators "
+          f"in its profile: {sdpa or 'none'}; dropped share of the MoE layer's (token, choice) pairs: "
+          f"{[round(x, 5) for x in dropped]}")
+    check(launches["prefill"] == cfg.n_layers, f"the MLA prefill launched K3 {launches['prefill']} times")
+    check(not sdpa, f"the MLA prefill ran {sdpa}")
+    check(len(routes) == cfg.n_moe_layers, f"{len(routes)} MoE layers recorded")
+    check(tuple(logits.shape) == (LM_BATCH, LM_LEN, cfg.vocab), f"MLA logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite MLA logits")
+    scale = logits.abs().max().item()
+
+    # (a2) the same forward with the plain attention on the card
+    with RouteRecorder() as rec:
+        plain = with_plain_attention(lambda: prefill.fn(params, tokens))
+    vs_plain = hold_routed(torch, "vs the same forward with the plain attention on the card",
+                           (logits - plain).abs().amax(-1).cpu(), rec.host(), routes, LM_BATCH, LM_LEN, scale)
+    del plain
+
+    # (a3) the 3 dense layers alone: the card's forward of that cut against
+    # the plain versions on the CPU over tokens 0..CPU_TOKENS-1 of batch element 0
+    cfg3 = dataclasses.replace(cfg, n_layers=cfg.first_k_dense)
+    p3 = {k: params[k] for k in ("embed", "final_norm", "lm_head", "dense_layers")}
+    dense_logits = lm.forward(p3, cfg3, tokens[:1, :CPU_TOKENS])[0].cpu()
+    t0 = time.perf_counter()
+    cparams = tree_map(lambda x: x.cpu(), p3)
+    clogits = lm.forward(cparams, cfg3, tokens[:1, :CPU_TOKENS].cpu())[0]
+    cpu_s = time.perf_counter() - t0
+    del cparams, p3
+    c_err = (dense_logits - clogits).abs().max().item()
+    c_scale = clogits.abs().max().item()
+    print(f"  the {cfg3.n_layers} dense layers vs the plain versions on the CPU (float32, tokens 0..{CPU_TOKENS - 1} "
+          f"of batch element 0; {cpu_s:.1f} s with the host copy): max |diff| {c_err:.4g} (max |logit| "
+          f"{c_scale:.4g}, limit {DEPTH_RTOL} x that)")
+    check(c_err <= DEPTH_RTOL * c_scale, "the dense MLA layers drift from the plain versions on the CPU")
+    vs_cpu = dict(max_abs=c_err, max_abs_logit=c_scale, cpu_s=cpu_s, layers=cfg3.n_layers)
+
+    # (a4) teacher-forced decode from the latent cache, held route by route
+    cache = lm.init_cache(cfg, LM_BATCH, LM_LEN, device="cuda")
+    width = m.kv_lora_rank + m.qk_rope_head_dim
+    check({k: tuple(v.shape) for k, v in cache.items()}
+          == {"dense": (3, LM_BATCH, LM_LEN, width), "moe": (1, LM_BATCH, LM_LEN, width)}, "the latent cache")
+    vs_short, vs_prefill, launches["decode"] = hold_decode(torch, prefill, decode, params, cfg, cache, tokens,
+                                                           logits, routes, scale)
+    for r in (vs_plain, vs_short, vs_prefill):
+        del r["held"]
+
+    # where the time goes: a steady float32 prefill and decode step
+    bounds32 = mla_bounds(cfg, n_params, capacity, 4)
+    step_tok = tokens[:, DECODE_STEPS:DECODE_STEPS + 1]
+    timing = {}
+    timing["prefill"] = steady_and_profiled(torch, lambda: prefill.fn(params, tokens),
+                                            f"deepseek-v3 float32 prefill ({cfg.n_layers} layers)")
+    timing["decode"] = steady_and_profiled(torch, lambda: decode.fn(params, cache, step_tok, DECODE_STEPS),
+                                           f"deepseek-v3 float32 decode step ({cfg.n_layers} layers)")
+    with torch.profiler.profile(activities=acts) as prof:
+        decode.fn(params, cache, step_tok, DECODE_STEPS)
+        torch.cuda.synchronize()
+    check(not sdpa_ops(prof), f"the MLA decode step ran {sdpa_ops(prof)}")
+    del prof, cache
+    print(f"  tokens/s: prefill {LM_BATCH * LM_LEN / timing['prefill'][0] * 1e3:.1f}, decode "
+          f"{LM_BATCH / timing['decode'][0] * 1e3:.1f}; bounds: prefill {bounds32['prefill_flops'] / 1e12:.3f} "
+          f"TFLOP, {bounds32['prefill_flops'] / PEAK_FLOPS['float32'] * 1e3:.2f} ms at the 3xTF32 rate, "
+          f"{bounds32['prefill_flops'] / FFMA_FLOPS * 1e3:.2f} at the FFMA rate; decode step "
+          f"{bounds32['decode_bytes'] / 1e9:.2f} GB of weights, "
+          f"{bounds32['decode_bytes'] / PEAK_BYTES_PER_S * 1e3:.2f} ms at the HBM rate")
+
+    # (b) bfloat16: each leaf converted, its float32 tensor freed before the
+    # next (the peak stays near the float32 weights plus one leaf)
+    def to_bf16(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                to_bf16(v)
+            else:
+                tree[k] = v.to(torch.bfloat16)
+                del v
+
+    to_bf16(params)
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    with RouteRecorder() as rec, torch.profiler.profile(activities=acts) as prof:
+        bl = prefill.fn(params, tokens)
+        torch.cuda.synchronize()
+    launches["bf16_prefill"] = flash_attention.launches
+    sdpa_bf = sdpa_ops(prof)
+    del prof
+    k_routes = rec.host()
+    check(launches["bf16_prefill"] == cfg.n_layers, f"the bf16 MLA prefill launched K3 "
+                                                    f"{launches['bf16_prefill']} times")
+    check(not sdpa_bf, f"the bf16 MLA prefill ran {sdpa_bf}")
+    check(bl.dtype == torch.bfloat16 and bool(torch.isfinite(bl.float()).all()), "bad bf16 MLA logits")
+    with RouteRecorder() as rec:
+        bp = with_plain_attention(lambda: prefill.fn(params, tokens))
+    p_routes = rec.host()
+    bf = {}
+    for name, x, rts in (("k3", bl, k_routes), ("plain", bp, p_routes)):
+        diff = (x.float() - logits).abs()
+        med, p99 = abs_quantiles(torch, diff)
+        bf[name] = dict(median=med, p99=p99, max=diff.max().item(), route_agreement=route_agreement(routes, rts))
+        del diff
+    del bp
+    limits = {q: max(1.25 * bf["plain"][q], BF16_RTOL * scale) for q in ("median", "p99")}
+    print(f"  bfloat16 prefill: K3 launches {launches['bf16_prefill']}; vs the float32 forward of the same "
+          f"(bf16-valued) weights (max |logit| {scale:.4g}): K3 median {bf['k3']['median']:.4g} p99 "
+          f"{bf['k3']['p99']:.4g} max {bf['k3']['max']:.4g} routes agreeing {bf['k3']['route_agreement']:.5f}; "
+          f"plain attention median {bf['plain']['median']:.4g} p99 {bf['plain']['p99']:.4g} max "
+          f"{bf['plain']['max']:.4g} routes agreeing {bf['plain']['route_agreement']:.5f}; limits (the larger of "
+          f"1.25 x the plain's and {BF16_RTOL} x max |logit|) median {limits['median']:.4g} p99 "
+          f"{limits['p99']:.4g}")
+    for q in ("median", "p99"):
+        check(bf["k3"][q] <= limits[q], f"the bf16 MLA forward's {q} |diff| exceeds its limit")
+    bf.update(limits=limits, max_abs_logit=scale)
+    del logits
+    prefill16 = build(cut, "prefill_32k", dtype=torch.bfloat16)
+    decode16 = build(cut, "decode_32k", dtype=torch.bfloat16)
+    cache = lm.init_cache(cfg, LM_BATCH, LM_LEN, dtype=torch.bfloat16, device="cuda")
+    flash_attention.launches = 0
+    outs = []
+    for i in range(MLA_BF16_STEPS):
+        step_logits, cache = decode16.fn(params, cache, tokens[:, i:i + 1], i)
+        outs.append(step_logits)
+    torch.cuda.synchronize()
+    launches["bf16_decode"] = flash_attention.launches
+    outs = torch.stack(outs, dim=1).float()
+    # records: the gap to the 512-token bf16 prefill (which drops routes)
+    # and to a drop-free bf16 prefill of the decoded tokens alone
+    gaps = (outs - bl[:, :MLA_BF16_STEPS].float()).abs().amax(-1).cpu()
+    short_gaps = (outs - prefill16.fn(params, tokens[:, :MLA_BF16_STEPS]).float()).abs().amax(-1).cpu()
+    print(f"  {MLA_BF16_STEPS} bf16 decode steps: K3 launches {launches['bf16_decode']} ({cfg.n_layers} per step); "
+          f"max |decode - prefill| per position (records): against the {LM_LEN}-token prefill median "
+          f"{gaps.median().item():.4g} max {gaps.max().item():.4g}; against a drop-free prefill of the "
+          f"{MLA_BF16_STEPS} tokens median {short_gaps.median().item():.4g} max {short_gaps.max().item():.4g}")
+    check(launches["bf16_decode"] == cfg.n_layers * MLA_BF16_STEPS,
+          f"the bf16 MLA decode launched K3 {launches['bf16_decode']} times")
+    check(bool(torch.isfinite(outs).all()), "non-finite bf16 MLA decode logits")
+    with torch.profiler.profile(activities=acts) as prof:
+        decode16.fn(params, cache, step_tok, DECODE_STEPS)
+        torch.cuda.synchronize()
+    check(not sdpa_ops(prof), f"the bf16 MLA decode step ran {sdpa_ops(prof)}")
+    del prof, bl, outs
+    bounds16 = mla_bounds(cfg, n_params, capacity, 2)
+    timing["bf16_prefill"] = steady_and_profiled(torch, lambda: prefill16.fn(params, tokens),
+                                                 f"deepseek-v3 bfloat16 prefill ({cfg.n_layers} layers)")
+    timing["bf16_decode"] = steady_and_profiled(
+        torch, lambda: decode16.fn(params, cache, step_tok, DECODE_STEPS),
+        f"deepseek-v3 bfloat16 decode step ({cfg.n_layers} layers)")
+    print(f"  tokens/s: bf16 prefill {LM_BATCH * LM_LEN / timing['bf16_prefill'][0] * 1e3:.1f}, decode "
+          f"{LM_BATCH / timing['bf16_decode'][0] * 1e3:.1f}; bounds: prefill "
+          f"{bounds16['prefill_flops'] / PEAK_FLOPS['bfloat16'] * 1e3:.2f} ms at the bf16 rate; decode step "
+          f"{bounds16['decode_bytes'] / 1e9:.2f} GB of weights, "
+          f"{bounds16['decode_bytes'] / PEAK_BYTES_PER_S * 1e3:.2f} ms at the HBM rate")
+    del params, cache
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    phase_s = time.perf_counter() - t_start
+    print(f"  phase 9: {phase_s:.1f} s, peak device memory allocated {peak / 1e9:.2f} GB of {total / 1e9:.2f}")
+    check(peak < total, "phase 9 peaked above the card's memory")
+    tokens_per_call = {"prefill": LM_BATCH * LM_LEN, "decode": LM_BATCH, "bf16_prefill": LM_BATCH * LM_LEN,
+                       "bf16_decode": LM_BATCH}
+    report = dict(
+        phase_s=phase_s, peak_device_gb=peak / 1e9, peak_init_gb=peak_init / 1e9, capacity=capacity,
+        layers=cfg.n_layers, cut={"n_layers": [full.n_layers, cfg.n_layers], "mtp_depth": [full.mtp_depth, 0]},
+        n_params=n_params, init_s=init_s, batch=LM_BATCH, seq_len=LM_LEN, decode_steps=DECODE_STEPS,
+        bf16_decode_steps=MLA_BF16_STEPS, launches=launches, sdpa_ops=sdpa + sdpa_bf, dropped_frac=dropped,
+        max_abs_logit=scale, vs_plain=vs_plain, vs_cpu=vs_cpu, vs_short_prefill=vs_short, vs_prefill=vs_prefill,
+        bf16=bf, bf16_decode_gap_max=gaps.max().item(), bf16_decode_short_gap_max=short_gaps.max().item(),
+        bounds_f32=bounds32, bounds_bf16=bounds16,
+        **{name: dict(steady_ms=ms, device_busy_ms=busy, top_device=top, device_ms_by_kernel=fams,
+                      tokens_per_s=tokens_per_call[name] / ms * 1e3)
+           for name, (ms, busy, top, fams) in timing.items()},
+    )
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -1074,9 +1444,17 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"build: {sorted(_build.sources())} in {build_s:.1f} s")
     for name, log in _build.build_logs().items():
+        if name == "attention":
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    k3_regs = k3_ptxas(_build.build_logs().get("attention", ""))
+    check(len(k3_regs) == 60, f"ptxas reported {len(k3_regs)} K3 instantiations, expected 60")
+    for r in k3_regs:
+        print(f"  attention: flash_fwd {r['dtype']:8s} ({r['dqk']}, {r['dv']}) {r['copies']:7s} {r['block']}: "
+              f"{r['registers']} registers, {r['spill_store_bytes']} / {r['spill_load_bytes']} bytes spill "
+              f"stores / loads")
 
     # -- 3. the kernel against its plain version, on the card -----------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1202,6 +1580,15 @@ def main() -> int:
     moe_attn = dict(b=LM_BATCH, h=mcfg.n_heads, hkv=mcfg.n_kv_heads, d=mcfg.d_head, per_forward=MOE_F32_LAYERS)
     attn_cases += [dict(moe_attn, t=LM_LEN, s=LM_LEN, causal=True, path="moe-prefill"),
                    dict(moe_attn, t=1, s=DECODE_STEPS, causal=False, path="moe-decode", cache=LM_LEN)]
+    # phase 9's DeepSeek-V3: MLA's 128 heads at query/key width 192 and value
+    # width 128, v the value half of the [k_nope | v] expansion (a strided
+    # view), once per layer of its float32 forward and of a decode step at
+    # position DECODE_STEPS (its 65 keys)
+    dm = get_arch("deepseek-v3-671b").cfg.mla
+    mla_attn = dict(b=LM_BATCH, h=dm.n_heads, hkv=dm.n_heads, d=dm.qk_head_dim, dv=dm.v_head_dim,
+                    v_width=dm.qk_nope_head_dim + dm.v_head_dim, per_forward=MLA_LAYERS)
+    attn_cases += [dict(mla_attn, t=LM_LEN, s=LM_LEN, causal=True, path="mla-prefill"),
+                   dict(mla_attn, t=1, s=DECODE_STEPS + 1, causal=False, path="mla-decode")]
     attn_rows = [hold_attention(torch, F, gen, c) for c in attn_cases]
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
@@ -1551,6 +1938,9 @@ def main() -> int:
     # -- 8. full-width moonshot-v1-16b-a3b: the MoE layer, prefill and decode -
     moe_report, moe_launches = phase_moe(torch)
 
+    # -- 9. full-width DeepSeek-V3 at 4 layers: MLA, prefill and latent-cache decode
+    mla_report, mla_launches = phase_mla(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5)
@@ -1587,7 +1977,8 @@ def main() -> int:
               sum(v["launches"]["halo_conv2d"] for v in spatial.values())),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
-              got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches),
+              got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
+              + sum(mla_launches.values())),
     ]
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
@@ -1595,7 +1986,7 @@ def main() -> int:
     # K3 per forward of each path (the LM's decode: per step), and device ms
     # per forward from the profiler windows (us per call x calls per forward)
     k3_per_path = {}
-    for path in ("vit", "lm-prefill", "lm-decode", "moe-prefill", "moe-decode"):
+    for path in ("vit", "lm-prefill", "lm-decode", "moe-prefill", "moe-decode", "mla-prefill", "mla-decode"):
         rs = [r for r in attn_main if r["path"] == path]
         k3_per_path[path] = {key: per_fwd(rs, key) for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms", "bf16_ms", "bf16_library_ms",
@@ -1606,7 +1997,7 @@ def main() -> int:
     per_path["vit"]["flash_attention"] = k3_per_path["vit"]
     for name, v in per_path.items():
         print(f"K1 per forward of {name}: {json.dumps(v)}")
-    for name in ("lm-prefill", "lm-decode", "moe-prefill", "moe-decode"):
+    for name in ("lm-prefill", "lm-decode", "moe-prefill", "moe-decode", "mla-prefill", "mla-decode"):
         print(f"K3 per {'step' if name.endswith('decode') else 'forward'} of {name}: "
               f"{json.dumps(k3_per_path[name])}")
     conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")
@@ -1617,7 +2008,7 @@ def main() -> int:
     for name, v in by_layout.items():
         print(f"per forward of spatial {name}: {json.dumps(v)}")
     report = {
-        "device": kind, "nvidia_smi": smi, "build_s": build_s, "conv_cases": rows,
+        "device": kind, "nvidia_smi": smi, "build_s": build_s, "k3_ptxas": k3_regs, "conv_cases": rows,
         "serve": dict(stats, wall_s=out["wall_s"], requests_per_s=out["requests_per_s"],
                       n_requests=N_REQUESTS, max_batch=MAX_BATCH, launches=launches,
                       batch_done_ms=batch_done, first_submission_ms=first * 1e3,
@@ -1636,7 +2027,8 @@ def main() -> int:
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
-        "lm": lm_report, "moe": moe_report, "k3_per_forward": k3_per_path, "k1_per_forward": per_path, "kernels": kernels,
+        "lm": lm_report, "moe": moe_report, "mla": mla_report, "k3_per_forward": k3_per_path,
+        "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "
                 "run_plan forward (39 calls), the weighted spatial forward's 52 fix-up convs, "
@@ -1645,11 +2037,15 @@ def main() -> int:
                 "(91 calls) spatial forward; flash_attention over a ViT-L/16 forward (72 "
                 "calls), a Qwen3-4B prefill forward of 4 x 512 tokens (36 calls) and one of its "
                 "decode steps at position 64 (36 calls), and a 6-layer float32 moonshot-v1-16b-a3b "
-                "prefill (6 calls) and decode step at position 64 (6 calls).  launches count every "
+                "prefill (6 calls) and decode step at position 64 (6 calls), and a 4-layer float32 "
+                "DeepSeek-V3 prefill (4 calls, MLA: query/key width 192, value width 128) and decode step "
+                "at position 64 (4 calls).  launches count every "
                 "main-path run: the 4 served batches, one forward of each spatial layout, one ViT "
                 "forward, one VGG-NP forward, one float32 Qwen3-4B prefill and its 64 decode steps, "
                 "and moonshot's 6-layer float32 prefill, its 64 decode steps and its bf16 prefill "
-                "(6 + 384 + 6), and its 48-layer bf16 prefill and 16 decode steps (48 + 768).",
+                "(6 + 384 + 6), its 48-layer bf16 prefill and 16 decode steps (48 + 768), and "
+                "DeepSeek-V3's 4-layer float32 prefill and 64 decode steps and bf16 prefill and 16 decode "
+                "steps (4 + 256 + 4 + 64).",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

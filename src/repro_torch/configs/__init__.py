@@ -10,6 +10,6 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import codeqwen15_7b, moonshot_v1_16b_a3b, qwen3_4b  # noqa: F401
+    from . import codeqwen15_7b, deepseek_v3_671b, moonshot_v1_16b_a3b, qwen3_4b  # noqa: F401
 
     _LOADED = True

@@ -27,7 +27,7 @@ class StepBundle:
 
     fn: Callable  # fn(params, *inputs)
     state: Any  # the parameters as a tree of (shape, dtype)
-    inputs: dict[str, Any]  # name -> (shape, dtype), or a tree of them (a KV cache)
+    inputs: dict[str, Any]  # name -> (shape, dtype), or a tree of them (a KV or latent cache)
     kind: str
 
 

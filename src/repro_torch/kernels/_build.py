@@ -3,7 +3,8 @@
 Every ``*.cu`` file under ``repro_torch/kernels`` exposes a plain C interface
 and is compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``).  All sources compile in parallel, one ``nvcc`` process each.
+``.gitignore``), with what ``nvcc``/``ptxas`` printed beside it.  All sources
+compile in parallel, one ``nvcc`` process each.
 A library's file name carries a hash of its source, of every shared header
 (``*.cuh`` under ``repro_torch/kernels``) and of the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.  No file includes PyTorch's
@@ -71,9 +72,13 @@ def _lib_path(name: str, src: Path) -> Path:
 
 
 def _compile(nvcc: str, name: str, src: Path) -> tuple[Path, str]:
+    """Build (or reuse) the library of ``src``; returns it and what
+    ``nvcc``/``ptxas`` printed, which is kept beside it (``.log``) and read
+    back when the library is reused."""
     out = _lib_path(name, src)
-    if out.is_file():
-        return out, ""
+    log = out.with_suffix(".log")
+    if out.is_file() and log.is_file():
+        return out, log.read_text()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -82,7 +87,12 @@ def _compile(nvcc: str, name: str, src: Path) -> tuple[Path, str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent reader never sees half a file
+    # each file atomically, the log first: a concurrent reader never sees half
+    # a file, and a library it finds has its log
+    tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+    tmp_log.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp_log, log)
+    os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
 
 
@@ -105,8 +115,9 @@ def build_all() -> float:
 
 
 def build_logs() -> dict[str, str]:
-    """What ``nvcc``/``ptxas`` printed for each library built in this process
-    (registers, shared memory and spills per kernel); empty when reused."""
+    """What ``nvcc``/``ptxas`` printed for each library loaded in this
+    process (registers, shared memory and spills per kernel), the same
+    whether the library was compiled now or reused from ``BUILD_DIR``."""
     return dict(_build_logs)
 
 

@@ -6,15 +6,21 @@
 // attention/ops.py: gqa_flash (which repeats the KV heads in memory).
 //
 // What it computes, per batch b and head h (KV head h / (H / Hkv)):
-//   o[t] = sum_j softmax_j(q[t] . k[j] * scale) v[j],  scale = 1/sqrt(D),
+//   o[t] = sum_j softmax_j(q[t] . k[j] * scale) v[j],  scale = 1/sqrt(DQK),
 // over the keys j < S, or with the causal mask over j <= t (aligned top-left:
 // query t sees keys 0..t whatever S is, as the Pallas kernel's
 // q_pos >= kv_pos).  Masked logits are -1e30; the running max, normaliser and
 // accumulator are f32, the normaliser is floored at 1e-30 before the
 // division, and the output is cast once to the input type (f32 or bf16).
+// q and k have one head width DQK, v and o another, DV: the compiled pairs
+// (DQK, DV) are (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128), the
+// last MLA's (DeepSeek-V3: 128 no-RoPE + 64 RoPE query/key dims, value 128;
+// replacing the two einsums of src/repro/models/attention.py: mla_apply,
+// whose sum is one dot product over the concatenated 192 dims).  QK^T runs
+// over DQK; PV, the accumulator, the merge and the store over DV.
 //
-// Bound on an H100 SXM.  A head does 4*T*S'*D FLOPs (S' the unmasked keys)
-// and moves (2T + 2S)*D elements.  Per ViT-L/16 forward (24 blocks x heads
+// Bound on an H100 SXM.  A head does 2*T*S'*(DQK + DV) FLOPs (S' the
+// unmasked keys) and moves (T + S)*DQK + (T + S)*DV elements.  Per ViT-L/16 forward (24 blocks x heads
 // 8 + 5 + 3, batch 4, T = S = 196, D = 64) that is 15.1 GFLOP and 308 MB in
 // float32: 0.092 ms of 3xTF32 products at 165 TFLOP/s and 0.092 ms of HBM
 // at 3.35 TB/s -- the two bounds meet; in bf16 it is bytes-bound (0.046 ms
@@ -72,6 +78,10 @@
 //    loads are predicated (`if (ok) v = load;`), never an early return.
 // Measured against it on the card (tools/k3_variants.py): 32-key steps, a
 // truncating TF32 split and a 168-register cap, none faster per forward.
+// At (192, 128) in float32 Q's fragments (96 registers a thread) and the
+// accumulator (64) stay in registers as at the square widths; what ptxas
+// spills there is printed by the build (chip_smoke.py phase 2) and recorded
+// in PERF.md.
 // q, k, v and o are read and written through batch/head/row strides with a
 // dense head dimension, so the model layout [B, T, H, D] needs no transpose,
 // and a KV head shared by g query heads is indexed, never repeated.
@@ -140,24 +150,24 @@ __device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* s
 // Row strides of a staged K and V step, in elements: padded so a warp's
 // fragment reads fall on distinct banks -- K by 8 elements (f32: a row
 // offset of 8 banks for the 8-byte reads of a key's two head dims), V by 16
-// bytes (rows 2t and 2t + 1: 8 banks apart).
-template <typename T, int D>
-constexpr int kLdK = D + 8;
-template <typename T, int D>
-constexpr int kLdV = D + 16 / (int)sizeof(T);
-template <typename T, int D>
-constexpr int kStage = KB * (kLdK<T, D> + kLdV<T, D>);  // elements of one staged step
+// bytes (rows 2t and 2t + 1: 8 banks apart).  K rows are DQK wide, V rows DV.
+template <typename T, int DQK>
+constexpr int kLdK = DQK + 8;
+template <typename T, int DV>
+constexpr int kLdV = DV + 16 / (int)sizeof(T);
+template <typename T, int DQK, int DV>
+constexpr int kStage = KB * (kLdK<T, DQK> + kLdV<T, DV>);  // elements of one staged step
 
 // The products of one warp, by type.  Fragment layouts: sm90_ops.cuh; g =
 // lane / 4, t = lane % 4; the warp's rows are r0 = its first + g and r1 = r0 + 8.
 // s[j][e] is the score of row (e < 2 ? r0 : r1) and key j*8 + 2t + e%2 of the step.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 struct Warp;
 
-template <int D>
-struct Warp<float, D> {
-  static constexpr int LDK = kLdK<float, D>, LDV = kLdV<float, D>;
-  float qf[D / 8][4];  // Q's A fragments, split into TF32 hi / lo where used
+template <int DQK, int DV>
+struct Warp<float, DQK, DV> {
+  static constexpr int LDK = kLdK<float, DQK>, LDV = kLdV<float, DV>;
+  float qf[DQK / 8][4];  // Q's A fragments, split into TF32 hi / lo where used
 
   // q0 / q1: rows r0 / r1 of q, or null for a row past T (read as zeros).
   // QK^T sums over the head dims in any order, so within each 8-dim slice
@@ -165,7 +175,7 @@ struct Warp<float, D> {
   // the same: a lane's two dims of a key are one 8-byte read.
   __device__ __forceinline__ void load_q(const float* q0, const float* q1, int t) {
 #pragma unroll
-    for (int kc = 0; kc < D / 8; ++kc) {
+    for (int kc = 0; kc < DQK / 8; ++kc) {
       float x[4] = {0.f, 0.f, 0.f, 0.f};
       if (q0 != nullptr) {
         x[0] = q0[kc * 8 + 2 * t];
@@ -189,7 +199,7 @@ struct Warp<float, D> {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int k2 = 0; k2 < D / 16; ++k2) {
+    for (int k2 = 0; k2 < DQK / 16; ++k2) {
       float part[NJ][4] = {};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -220,7 +230,7 @@ struct Warp<float, D> {
   // acc = alpha * acc + P V for the step (p as s; vs: the staged V step).
   // A's column t is key 2t and column t + 4 key 2t + 1 of each 8-key slice,
   // and V's B rows are read in that order.
-  __device__ __forceinline__ static void pv(const float p[NJ][4], const float* vs, float acc[D / 8][4],
+  __device__ __forceinline__ static void pv(const float p[NJ][4], const float* vs, float acc[DV / 8][4],
                                             float a0, float a1, int g, int t) {
     uint32_t ph[NJ][4], pl[NJ][4];
 #pragma unroll
@@ -231,7 +241,7 @@ struct Warp<float, D> {
       split_tf32(p[j][3], ph[j][3], pl[j][3]);  // (r1, key 2t + 1)
     }
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < DV / 8; ++nt) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -251,15 +261,15 @@ struct Warp<float, D> {
   }
 };
 
-template <int D>
-struct Warp<__nv_bfloat16, D> {
+template <int DQK, int DV>
+struct Warp<__nv_bfloat16, DQK, DV> {
   using T = __nv_bfloat16;
-  static constexpr int LDK = kLdK<T, D>, LDV = kLdV<T, D>;
-  uint32_t qa[D / 16][4];  // Q's A fragments
+  static constexpr int LDK = kLdK<T, DQK>, LDV = kLdV<T, DV>;
+  uint32_t qa[DQK / 16][4];  // Q's A fragments
 
   __device__ __forceinline__ void load_q(const T* q0, const T* q1, int t) {
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
+    for (int kc = 0; kc < DQK / 16; ++kc) {
       const int c = kc * 16 + 2 * t;
       uint32_t x[4] = {0u, 0u, 0u, 0u};
       if (q0 != nullptr) {
@@ -282,7 +292,7 @@ struct Warp<__nv_bfloat16, D> {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
+      for (int kc = 0; kc < DQK / 16; ++kc) {
         const T* kr = ks + (j * 8 + g) * LDK + kc * 16 + 2 * t;
         const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
                                *reinterpret_cast<const uint32_t*>(kr + 8)};
@@ -292,7 +302,7 @@ struct Warp<__nv_bfloat16, D> {
   }
 
   // P rounds to bf16: the C fragments of two 8-key tiles are m16n8k16's A.
-  __device__ __forceinline__ static void pv(const float p[NJ][4], const T* vs, float acc[D / 8][4],
+  __device__ __forceinline__ static void pv(const float p[NJ][4], const T* vs, float acc[DV / 8][4],
                                             float a0, float a1, int g, int t) {
     uint32_t a[NJ / 2][4];
 #pragma unroll
@@ -303,7 +313,7 @@ struct Warp<__nv_bfloat16, D> {
       a[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
     }
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < DV / 8; ++nt) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kk = 0; kk < NJ / 2; ++kk) {
@@ -320,22 +330,52 @@ struct Warp<__nv_bfloat16, D> {
 };
 
 // Dynamic shared memory: the K/V stages of every warp group, then reused by
-// the merge (each group's raw accumulators [16 WQ][D + 4], maxima and sums).
-template <typename T, int D, int WQ, int WK>
+// the merge (each group's raw accumulators [16 WQ][DV + 4], maxima and sums).
+// At (192, 128) in float32 a stage is 16 keys x (200 + 132) x 4 B = 21.2 KB,
+// so the 4-group shapes take 170 KB and one block fits on an SM (the
+// launcher's pick sees that through the occupancy query).
+template <typename T, int DQK, int DV, int WQ, int WK>
 constexpr int smem_bytes() {
-  constexpr int kv = WK * kStages * kStage<T, D> * (int)sizeof(T);
-  constexpr int merge = WK * 16 * WQ * (D + 4 + 2) * 4;
+  constexpr int kv = WK * kStages * kStage<T, DQK, DV> * (int)sizeof(T);
+  constexpr int merge = WK * 16 * WQ * (DV + 4 + 2) * 4;
   return kv > merge ? kv : merge;
 }
 
+// One staged row (D elements) of K or V: thread `part` of the CPY threads
+// copying the row issues its share of the 16-byte copies (zero-fill where
+// !ok) -- or, unaligned (copy_row1), of the single elements.
+template <int D, int CPY, typename T>
+__device__ __forceinline__ void copy_row16(T* dst, const T* src, int part, bool ok) {
+  constexpr int VE = 16 / (int)sizeof(T), CPR = D / VE;  // 16-byte copies per row
+  constexpr int CPT = CPR >= CPY ? CPR / CPY : 1;        // ... per thread
+  static_assert(CPR < CPY || CPR % CPY == 0, "a row's copies must split evenly over its threads");
+  if (part * CPT < CPR) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = (part * CPT + i) * VE;
+      sm90::cp_async16(dst + c, src + c, ok);
+    }
+  }
+}
+template <int D, int CPY, typename T>
+__device__ __forceinline__ void copy_row1(T* dst, const T* src, int part, bool ok) {
+  constexpr int EPC = D / CPY;  // elements per thread
+  static_assert(D % CPY == 0, "a row's elements must split evenly over its threads");
+#pragma unroll 4
+  for (int i = 0; i < EPC; ++i) {
+    const int c = part * EPC + i;
+    copy1(dst + c, src + c, ok);
+  }
+}
+
 // VEC: every K/V base and stride 16-byte aligned (16-byte cp.async copies).
-template <typename T, int D, bool VEC, int WQ, int WK>
+template <typename T, int DQK, int DV, bool VEC, int WQ, int WK>
 __global__ void __launch_bounds__(32 * WQ * WK)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, Params p) {
   constexpr int NT = 32 * WQ * WK;  // threads
   constexpr int BQ = 16 * WQ;       // query rows
-  constexpr int LDK = kLdK<T, D>, LDV = kLdV<T, D>;
+  constexpr int LDK = kLdK<T, DQK>, LDV = kLdV<T, DV>;
   constexpr int KTILE = KB * LDK;  // a stage: K [KB][LDK], then V [KB][LDV]
   T* smem = reinterpret_cast<T*>(sm90::dynamic_smem());
 
@@ -365,7 +405,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   constexpr int CPY = 32 * WQ / KB;  // threads copying a key row
   const int kr = gl % KB, part = gl / KB;
   auto load = [&](int stage, int st) {
-    T* ks = smem + (wk * kStages + stage) * kStage<T, D>;
+    T* ks = smem + (wk * kStages + stage) * kStage<T, DQK, DV>;
     T* vs = ks + KTILE;
     const int j = st * KB + kr;
     const bool ok = j < n_keys;
@@ -373,30 +413,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const T* ksrc = kb + (ok ? j * p.ks[2] : 0);
     const T* vsrc = vb + (ok ? j * p.vs[2] : 0);
     if constexpr (VEC) {
-      constexpr int VE = 16 / (int)sizeof(T), CPR = D / VE;  // 16-byte copies per row
-      constexpr int CPT = CPR >= CPY ? CPR / CPY : 1;        // ... per thread
-      if (part * CPT < CPR) {
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          const int c = (part * CPT + i) * VE;
-          sm90::cp_async16(ks + kr * LDK + c, ksrc + c, ok);
-          sm90::cp_async16(vs + kr * LDV + c, vsrc + c, ok);
-        }
-      }
+      copy_row16<DQK, CPY>(ks + kr * LDK, ksrc, part, ok);
+      copy_row16<DV, CPY>(vs + kr * LDV, vsrc, part, ok);
     } else {
-      constexpr int EPC = D / CPY;  // elements per thread
-#pragma unroll 4
-      for (int i = 0; i < EPC; ++i) {
-        const int c = part * EPC + i;
-        copy1(ks + kr * LDK + c, ksrc + c, ok);
-        copy1(vs + kr * LDV + c, vsrc + c, ok);
-      }
+      copy_row1<DQK, CPY>(ks + kr * LDK, ksrc, part, ok);
+      copy_row1<DV, CPY>(vs + kr * LDV, vsrc, part, ok);
     }
   };
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows r0, r1; l per lane
@@ -407,7 +434,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     sm90::cp_async_commit();  // an empty group keeps the count uniform
   }
   // Q's fragments while the first steps' copies are in flight
-  Warp<T, D> w;
+  Warp<T, DQK, DV> w;
   {
     const T* qb = q + b * p.qs[0] + h * p.qs[1];
     w.load_q(r0 < p.t ? qb + r0 * p.qs[2] : nullptr, r1 < p.t ? qb + r1 * p.qs[2] : nullptr, t);
@@ -419,7 +446,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     if (nx < cnt) load(nx % kStages, st0 + nx);
     sm90::cp_async_commit();
     if (r < cnt) {  // warp-uniform: a group with fewer steps idles the last round
-      const T* ks = smem + (wk * kStages + r % kStages) * kStage<T, D>;
+      const T* ks = smem + (wk * kStages + r % kStages) * kStage<T, DQK, DV>;
       float s[NJ][4];
       w.scores(ks, s, g, t);
       const int key0 = (st0 + r) * KB + 2 * t;
@@ -455,7 +482,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       }
       l0 = l0 * a0 + sum0;
       l1 = l1 * a1 + sum1;
-      Warp<T, D>::pv(s, ks + KTILE, acc, a0, a1, g, t);
+      Warp<T, DQK, DV>::pv(s, ks + KTILE, acc, a0, a1, g, t);
       m0 = n0;
       m1 = n1;
     }
@@ -466,7 +493,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   // max_i m_i); a group that saw no visible key has m_i = -1e30, so f_i = 0.
   sm90::cp_async_wait<0>();
   __syncthreads();  // every group is done with its stages
-  constexpr int RLD = D + 4;
+  constexpr int RLD = DV + 4;
   float* red = reinterpret_cast<float*>(smem);
   float* ms = red + WK * BQ * RLD;
   float* ls = ms + WK * BQ;
@@ -482,7 +509,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     ls[lr1] = l1;
   }
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
+  for (int nt = 0; nt < DV / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
     red[lr0 * RLD + c] = acc[nt][0];
     red[lr0 * RLD + c + 1] = acc[nt][1];
@@ -491,7 +518,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
   __syncthreads();
   // each thread finishes EPT consecutive head dims of one row
-  constexpr int TPR = NT / BQ, EPT = D / TPR;
+  constexpr int TPR = NT / BQ, EPT = DV / TPR;
   const int rl = tid / TPR, d0 = (tid % TPR) * EPT;
   float m_all = kNegInf;
 #pragma unroll
@@ -516,19 +543,19 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 // One kernel instantiation: its shared memory, raised past 48 KB once per
 // device, and the blocks of it an SM holds (0 if it cannot run).
-template <typename T, int D, bool VEC, int WQ, int WK>
+template <typename T, int DQK, int DV, bool VEC, int WQ, int WK>
 int resident(int device) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> cache[kMaxDevices];  // resident blocks + 1; 0: not asked yet
   if (device < 0 || device >= kMaxDevices) return 0;
   int n = cache[device].load();
   if (n == 0) {
-    constexpr int smem = smem_bytes<T, D, WQ, WK>();
+    constexpr int smem = smem_bytes<T, DQK, DV, WQ, WK>();
     int blocks = 0;
-    if (cudaFuncSetAttribute(flash_fwd<T, D, VEC, WQ, WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (cudaFuncSetAttribute(flash_fwd<T, DQK, DV, VEC, WQ, WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd<T, D, VEC, WQ, WK>, 32 * WQ * WK,
-                                                      smem) != cudaSuccess)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd<T, DQK, DV, VEC, WQ, WK>,
+                                                      32 * WQ * WK, smem) != cudaSuccess)
       blocks = 0;
     (void)cudaGetLastError();  // a refusal here shows as 0 blocks, not as the launch's error
     n = blocks + 1;
@@ -537,30 +564,30 @@ int resident(int device) {
   return n - 1;
 }
 
-template <typename T, int D, bool VEC, int WQ, int WK>
+template <typename T, int DQK, int DV, bool VEC, int WQ, int WK>
 void launch(const void* q, const void* k, const void* v, void* o, int bh, const Params& p,
             cudaStream_t stream) {
   const dim3 grid((p.t + 16 * WQ - 1) / (16 * WQ), bh);
-  flash_fwd<T, D, VEC, WQ, WK><<<grid, 32 * WQ * WK, smem_bytes<T, D, WQ, WK>(), stream>>>(
+  flash_fwd<T, DQK, DV, VEC, WQ, WK><<<grid, 32 * WQ * WK, smem_bytes<T, DQK, DV, WQ, WK>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), p);
 }
 
-// The calls of one instantiation (T, D, VEC) by block shape index.
-template <typename T, int D, bool VEC>
+// The calls of one instantiation (T, DQK, DV, VEC) by block shape index.
+template <typename T, int DQK, int DV, bool VEC>
 struct Kernels {
   static int resident(int shape, int device) {
     switch (shape) {
-      case 0: return ::resident<T, D, VEC, 1, 4>(device);
-      case 1: return ::resident<T, D, VEC, 2, 4>(device);
-      default: return ::resident<T, D, VEC, 4, 1>(device);
+      case 0: return ::resident<T, DQK, DV, VEC, 1, 4>(device);
+      case 1: return ::resident<T, DQK, DV, VEC, 2, 4>(device);
+      default: return ::resident<T, DQK, DV, VEC, 4, 1>(device);
     }
   }
   static void launch(int shape, const void* q, const void* k, const void* v, void* o, int bh,
                      const Params& p, cudaStream_t stream) {
     switch (shape) {
-      case 0: ::launch<T, D, VEC, 1, 4>(q, k, v, o, bh, p, stream); break;
-      case 1: ::launch<T, D, VEC, 2, 4>(q, k, v, o, bh, p, stream); break;
-      default: ::launch<T, D, VEC, 4, 1>(q, k, v, o, bh, p, stream);
+      case 0: ::launch<T, DQK, DV, VEC, 1, 4>(q, k, v, o, bh, p, stream); break;
+      case 1: ::launch<T, DQK, DV, VEC, 2, 4>(q, k, v, o, bh, p, stream); break;
+      default: ::launch<T, DQK, DV, VEC, 4, 1>(q, k, v, o, bh, p, stream);
     }
   }
   // The block shape of a call: the one whose grid takes the fewest waves of
@@ -598,37 +625,42 @@ bool vec16(const void* k, const void* v, const Params& p) {
 
 // Pick the block shape (shape < 0) or take the one given, and launch unless
 // `launch_it` is false; returns the shape index, or a negative CUDA error.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int run_d(const void* q, const void* k, const void* v, void* o, int bh, const Params& p, int shape,
           bool launch_it, int device, cudaStream_t stream) {
+  using KV = Kernels<T, DQK, DV, true>;    // 16-byte copies
+  using K1 = Kernels<T, DQK, DV, false>;   // element copies
   const bool vec = vec16<T>(k, v, p);
-  if (shape < 0) shape = vec ? Kernels<T, D, true>::pick(p, bh, device) : Kernels<T, D, false>::pick(p, bh, device);
+  if (shape < 0) shape = vec ? KV::pick(p, bh, device) : K1::pick(p, bh, device);
   if (shape < 0 || shape >= kShapes) return -(int)cudaErrorInvalidConfiguration;
   if (launch_it) {
-    if ((vec ? Kernels<T, D, true>::resident(shape, device) : Kernels<T, D, false>::resident(shape, device)) == 0)
+    if ((vec ? KV::resident(shape, device) : K1::resident(shape, device)) == 0)
       return -(int)cudaErrorInvalidConfiguration;
     if (vec)
-      Kernels<T, D, true>::launch(shape, q, k, v, o, bh, p, stream);
+      KV::launch(shape, q, k, v, o, bh, p, stream);
     else
-      Kernels<T, D, false>::launch(shape, q, k, v, o, bh, p, stream);
+      K1::launch(shape, q, k, v, o, bh, p, stream);
   }
   return shape;
 }
 
+// The compiled (DQK, DV) pairs, those of ops.py: HEAD_DIMS; any other is refused.
 template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int bh, int d, const Params& p, int shape,
-        bool launch_it, int device, cudaStream_t stream) {
-  switch (d) {
-    case 16: return run_d<T, 16>(q, k, v, o, bh, p, shape, launch_it, device, stream);
-    case 32: return run_d<T, 32>(q, k, v, o, bh, p, shape, launch_it, device, stream);
-    case 64: return run_d<T, 64>(q, k, v, o, bh, p, shape, launch_it, device, stream);
-    case 128: return run_d<T, 128>(q, k, v, o, bh, p, shape, launch_it, device, stream);
-    default: return -(int)cudaErrorInvalidValue;
-  }
+int run(const void* q, const void* k, const void* v, void* o, int bh, int d, int dv, const Params& p,
+        int shape, bool launch_it, int device, cudaStream_t stream) {
+#define K3_PAIR(DQK, DV) \
+  if (d == DQK && dv == DV) return run_d<T, DQK, DV>(q, k, v, o, bh, p, shape, launch_it, device, stream);
+  K3_PAIR(16, 16)
+  K3_PAIR(32, 32)
+  K3_PAIR(64, 64)
+  K3_PAIR(128, 128)
+  K3_PAIR(192, 128)
+#undef K3_PAIR
+  return -(int)cudaErrorInvalidValue;
 }
 
 int run_any(const void* q, const void* k, const void* v, void* o, int dtype, int b, int h, int hkv, int t,
-            int s, int d, const long long* strides, float scale, int causal, int device, void* stream,
+            int s, int d, int dv, const long long* strides, float scale, int causal, int device, void* stream,
             int shape, bool launch_it) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
@@ -646,23 +678,25 @@ int run_any(const void* q, const void* k, const void* v, void* o, int dtype, int
   p.scale = scale;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(q, k, v, o, b * h, d, p, shape, launch_it, device, st);
-  if (dtype == 1) return run<__nv_bfloat16>(q, k, v, o, b * h, d, p, shape, launch_it, device, st);
+  if (dtype == 0) return run<float>(q, k, v, o, b * h, d, dv, p, shape, launch_it, device, st);
+  if (dtype == 1) return run<__nv_bfloat16>(q, k, v, o, b * h, d, dv, p, shape, launch_it, device, st);
   return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B, H, T, D], k / v [B, Hkv, S, D], o [B, H, T, D], each through
-// `strides` = its (batch, head, row) strides in elements, q's, k's, v's, then
-// o's (12 values); the head dimension is dense.  dtype: 0 = float32,
-// 1 = bfloat16.  H must be a multiple of Hkv; B*H at most 65535.  Returns the
-// CUDA error code of the launch (0 on success); the caller checks it and raises.
+// q [B, H, T, D], k [B, Hkv, S, D], v [B, Hkv, S, DV], o [B, H, T, DV], each
+// through `strides` = its (batch, head, row) strides in elements, q's, k's,
+// v's, then o's (12 values); the head dimension is dense.  (d, dv) one of
+// the compiled pairs (run() above; any other: cudaErrorInvalidValue).
+// dtype: 0 = float32, 1 = bfloat16.  H must be a multiple of Hkv; B*H at
+// most 65535.  Returns the CUDA error code of the launch (0 on success); the
+// caller checks it and raises.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int b, int h, int hkv, int t, int s, int d,
+                                   int dtype, int b, int h, int hkv, int t, int s, int d, int dv,
                                    const long long* strides, float scale, int causal,
                                    int device, void* stream) {
-  const int r = run_any(q, k, v, o, dtype, b, h, hkv, t, s, d, strides, scale, causal, device, stream,
+  const int r = run_any(q, k, v, o, dtype, b, h, hkv, t, s, d, dv, strides, scale, causal, device, stream,
                         -1, true);
   return r < 0 ? -r : (int)cudaGetLastError();
 }
@@ -670,11 +704,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // The same with the block shape given (0: 16 rows x 4 key groups, 1: 32 x 4,
 // 2: 64 x 1), for tests and measurements of the shapes the launcher picks from.
 extern "C" int flash_attention_fwd_shape(const void* q, const void* k, const void* v, void* o,
-                                         int dtype, int b, int h, int hkv, int t, int s, int d,
+                                         int dtype, int b, int h, int hkv, int t, int s, int d, int dv,
                                          const long long* strides, float scale, int causal,
                                          int device, void* stream, int shape) {
   if (shape < 0 || shape >= kShapes) return (int)cudaErrorInvalidValue;
-  const int r = run_any(q, k, v, o, dtype, b, h, hkv, t, s, d, strides, scale, causal, device, stream,
+  const int r = run_any(q, k, v, o, dtype, b, h, hkv, t, s, d, dv, strides, scale, causal, device, stream,
                         shape, true);
   return r < 0 ? -r : (int)cudaGetLastError();
 }
@@ -682,9 +716,9 @@ extern "C" int flash_attention_fwd_shape(const void* q, const void* k, const voi
 // The block shape flash_attention_fwd picks for these arguments (o and the
 // stream unused), or a negative CUDA error code; launches nothing.
 extern "C" int flash_attention_shape(const void* q, const void* k, const void* v, int dtype, int b, int h,
-                                     int hkv, int t, int s, int d, const long long* strides, int causal,
-                                     int device) {
-  return run_any(q, k, v, nullptr, dtype, b, h, hkv, t, s, d, strides, 1.f, causal, device, nullptr, -1,
+                                     int hkv, int t, int s, int d, int dv, const long long* strides,
+                                     int causal, int device) {
+  return run_any(q, k, v, nullptr, dtype, b, h, hkv, t, s, d, dv, strides, 1.f, causal, device, nullptr, -1,
                  false);
 }
 

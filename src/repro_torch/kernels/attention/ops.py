@@ -7,8 +7,9 @@ CUDA tensors they launch the kernel or raise -- there is no fallback.  The
 operands are read in place through their batch/head/row strides (the head
 dimension must be dense), so the model layout [B, T, H, D] goes to the kernel
 as a transposed view, without a copy, and a KV head shared by several query
-heads is indexed, never repeated.  The output is allocated here, in q's memory
-layout where q is dense.
+heads is indexed, never repeated.  v may be narrower than q and k (MLA: a
+query/key width of 192, a value width of 128); the output has v's width and
+is allocated here, in q's memory layout where q is dense.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from .ref import attention_ref
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's block shapes, by its index: (query rows, key groups)
 BLOCK_SHAPES = ((16, 4), (32, 4), (64, 1))
-HEAD_DIMS = (16, 32, 64, 128)
+# the kernel's (query/key, value) head widths; attention.cu: run() dispatches the same
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 MAX_GRID_Y = 65535  # B*H blocks along the grid's second axis
 INT32_MAX = 2**31 - 1
 
@@ -35,13 +37,13 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p, i,                          # q, k, v, o, dtype
-        i, i, i, i, i, i,                       # b, h, hkv, t, s, d
+        i, i, i, i, i, i, i,                    # b, h, hkv, t, s, d, dv
         ctypes.POINTER(ctypes.c_longlong),      # strides [12]
         ctypes.c_float, i, i, p,                # scale, causal, device, stream
     ]
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_shape.argtypes = [
-        p, p, p, i, i, i, i, i, i, i,           # q, k, v, dtype, b, h, hkv, t, s, d
+        p, p, p, i, i, i, i, i, i, i, i,        # q, k, v, dtype, b, h, hkv, t, s, d, dv
         ctypes.POINTER(ctypes.c_longlong), i, i,  # strides [12], causal, device
     ]
     lib.flash_attention_shape.restype = ctypes.c_int
@@ -52,19 +54,22 @@ def _lib() -> ctypes.CDLL:
 
 def _check(fn: str, q, k, v) -> None:
     """Raise on operands the kernel does not take ([B,H,T,D] q, [B,Hkv,S,D]
-    k and v); checked alike on both devices."""
+    k, [B,Hkv,S,DV] v, (D, DV) one of ``HEAD_DIMS``); checked alike on both
+    devices, so a CPU call shows what the card would refuse."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} takes CPU or CUDA tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{fn} needs 4-d q, k, v, got {q.dim()}, {k.dim()}, {v.dim()}")
     b, h, t, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    dv = v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{fn}: k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     hkv = k.shape[1]
     if hkv == 0 or h % hkv:
         raise ValueError(f"{fn}: {h} query heads are not a multiple of {hkv} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{fn}: head dimension {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head widths (query/key {d}, value {dv}) are not one of the kernel's "
+                         f"pairs {HEAD_DIMS}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"{fn} takes float32 or bfloat16, got {q.dtype}")
     for name, x in (("k", k), ("v", v)):
@@ -88,23 +93,33 @@ def launch_config(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, q) for st in x.stride()[:3]])
     lib = _lib()
     c = lib.flash_attention_shape(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype], b, h,
-                                  k.shape[1], t, k.shape[2], d, strides, int(causal), q.device.index or 0)
+                                  k.shape[1], t, k.shape[2], d, v.shape[3], strides, int(causal),
+                                  q.device.index or 0)
     if c < 0:
         raise RuntimeError(f"flash attention has no block shape here: {lib.kernel_error_string(-c).decode()}")
     rows, groups = BLOCK_SHAPES[c]
     return {"block": f"{rows}x{groups}", "blocks": -(-t // rows) * b * h}
 
 
+def _output(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty [B, H, T, DV] output, dense, its dimensions in the order of
+    q's strides (a transposed view of the model layout stays one)."""
+    order = sorted(range(4), key=lambda i: -q.stride(i))
+    o = q.new_empty([(tuple(q.shape[:3]) + (dv,))[i] for i in order])
+    return o.permute([order.index(i) for i in range(4)])
+
+
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     """Allocate the output and enqueue the kernel (arguments checked, output
     not empty); raises if the launch is refused."""
     b, h, t, d = q.shape
-    o = torch.empty_like(q)  # q's strides where q is dense (a transposed view stays one)
+    dv = v.shape[3]
+    o = _output(q, dv)
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, o) for st in x.stride()[:3]])
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), DTYPE_CODES[q.dtype],
-        b, h, k.shape[1], t, k.shape[2], d, strides, 1.0 / math.sqrt(d), int(causal),
+        b, h, k.shape[1], t, k.shape[2], d, dv, strides, 1.0 / math.sqrt(d), int(causal),
         q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -116,32 +131,32 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
 def flash_attention(
     q: torch.Tensor,  # [B, H, T, D]
     k: torch.Tensor,  # [B, H, S, D]
-    v: torch.Tensor,  # [B, H, S, D]
+    v: torch.Tensor,  # [B, H, S, DV]
     *,
     causal: bool = True,
 ) -> torch.Tensor:
     """Online-softmax attention, scale 1/sqrt(D), the causal mask aligned
-    top-left; output [B, H, T, D] in q's dtype.  Any T and S (no block
-    multiples); D in {16, 32, 64, 128}."""
+    top-left; output [B, H, T, DV] in q's dtype.  Any T and S (no block
+    multiples); (D, DV) one of ``HEAD_DIMS``."""
     _check("flash_attention", q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention: k has {k.shape[1]} heads, q {q.shape[1]} (use gqa_flash)")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.numel() == 0:  # nothing to compute: no launch, no count
-        return torch.empty_like(q)
+        return _output(q, v.shape[3])
     return _launch(q, k, v, causal)
 
 
 def gqa_flash(
     q: torch.Tensor,  # [B, T, H, D]  (model layout)
     k: torch.Tensor,  # [B, S, Hkv, D]
-    v: torch.Tensor,
+    v: torch.Tensor,  # [B, S, Hkv, DV]
     *,
     causal: bool = True,
 ) -> torch.Tensor:
     """Grouped-query flash attention in the model layout: query head ``h``
-    reads KV head ``h // (H / Hkv)``; output [B, T, H, D]."""
+    reads KV head ``h // (H / Hkv)``; output [B, T, H, DV]."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, T, D] views
     _check("gqa_flash", qt, kt, vt)
     if q.device.type == "cpu":
@@ -149,7 +164,7 @@ def gqa_flash(
         kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
         return attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
     if q.numel() == 0:
-        return torch.empty_like(q)
+        return _output(qt, v.shape[3]).transpose(1, 2)
     return _launch(qt, kt, vt, causal).transpose(1, 2)
 
 

@@ -15,7 +15,8 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """q [B,H,T,D], k/v [B,H,S,D] -> [B,H,T,D] (f32 math)."""
+    """q/k [B,H,T,D] / [B,H,S,D], v [B,H,S,DV] -> [B,H,T,DV] (f32 math; the
+    scale 1/sqrt(D) of the query/key width)."""
     t, d = q.shape[2], q.shape[3]
     s = k.shape[2]
     logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(d)

@@ -66,26 +66,37 @@ def norm_params(dim: int, bias: bool = True, dtype=torch.float32, device="cpu") 
     return p
 
 
-def stack_layers(init_one, gen: torch.Generator, n: int) -> Params:
-    """``n`` layers from ``init_one(gen)`` as one tree whose leaves lead with the
-    layer axis, ``[n, ...]`` -- the layout JAX's ``stack_layers`` (a ``vmap``
-    of the init) gives, so a JAX LM tree converts by :func:`params_from_jax`.
-    Each layer is drawn in turn and copied into its slot: the stack plus one
-    layer are held at a time."""
-    first = init_one(gen)
-    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+def stack_layers(init_one, gen: torch.Generator, n: int, device=None) -> Params:
+    """``n`` layers from ``init_one(gen, device, out)`` as one tree whose
+    leaves lead with the layer axis, ``[n, ...]`` -- the layout JAX's
+    ``stack_layers`` (a ``vmap`` of the init) gives, so a JAX LM tree converts
+    by :func:`params_from_jax`.
+
+    Each stacked leaf is allocated once, from the shapes of a draw on the
+    ``meta`` device; then each layer is drawn in turn into its slot:
+    ``init_one`` gets the slot's views as ``out`` and either draws into them
+    in place (an MoE layer's experts, one expert at a time:
+    :func:`~repro_torch.models.moe.moe_init`) or returns fresh leaves, which
+    are copied in.  So the draw holds the stack plus one layer's other leaves
+    and one expert's matrix, never a second copy of a layer."""
+    device = torch.device(device or gen.device)
+    shapes = init_one(torch.Generator(), "meta", None)
+    stacked = tree_map(lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=device), shapes)
+    if device.type == "meta":
+        return stacked
     for i in range(n):
-        layer = first if i == 0 else init_one(gen)
-        _copy_into(stacked, layer, i)
+        slot = tree_map(lambda a: a[i], stacked)
+        _copy_into(slot, init_one(gen, device, slot))
     return stacked
 
 
-def _copy_into(stacked: Params, layer: Params, i: int) -> None:
-    if isinstance(stacked, dict):
-        for k in stacked:
-            _copy_into(stacked[k], layer[k], i)
-    elif stacked.device.type != "meta":
-        stacked[i].copy_(layer)
+def _copy_into(slot: Params, layer: Params) -> None:
+    """Copy a layer's leaves into its slot, except those drawn there in place."""
+    if isinstance(slot, dict):
+        for k in slot:
+            _copy_into(slot[k], layer[k])
+    elif layer.data_ptr() != slot.data_ptr():
+        slot.copy_(layer)
 
 
 def params_from_jax(tree, device: str | torch.device = "cpu",

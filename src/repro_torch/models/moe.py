@@ -35,22 +35,29 @@ class MoEConfig:
     dropless_below: int = 256  # token counts <= this route drop-free (decode)
 
 
-def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype=torch.float32, device=None) -> Params:
+def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype=torch.float32, device=None,
+             out: Params | None = None) -> Params:
     """The router ``[D, E]``, the experts stacked ``w1``/``w3`` ``[E, D, F]``
-    and ``w2`` ``[E, F, D]`` (normal, std 1/sqrt(fan-in), drawn in float32 one
-    matrix at a time and cast), the zero ``router_b`` and the shared experts
-    where the config asks for them."""
+    and ``w2`` ``[E, F, D]`` (normal, std 1/sqrt(fan-in)), the zero
+    ``router_b`` and the shared experts where the config asks for them.
+
+    The experts are drawn one expert at a time, in float32, and written into
+    their slots rounded to ``dtype``: into ``out["experts"]`` where ``out``
+    is given (a layer's slot of a stacked tree, :func:`~.common.stack_layers`),
+    else into tensors allocated once here.  So a draw never holds more than
+    one expert's matrix in float32 beside the parameters (DeepSeek-V3's
+    ``w1`` is 15.0 GB in float32 a layer)."""
     device = device or gen.device
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     kw = dict(bias=False, dtype=dtype, device=device)
-    p = {
-        "router": dense_params(gen, d, e, std=0.02, **kw),
-        "experts": {
-            "w1": _normal(gen, (e, d, f), (1.0 / d) ** 0.5, device).to(dtype),
-            "w3": _normal(gen, (e, d, f), (1.0 / d) ** 0.5, device).to(dtype),
-            "w2": _normal(gen, (e, f, d), (1.0 / f) ** 0.5, device).to(dtype),
-        },
-    }
+    shapes = {"w1": ((d, f), d), "w3": ((d, f), d), "w2": ((f, d), f)}  # matrix, fan-in
+    experts = out["experts"] if out is not None else {
+        name: torch.empty((e,) + shape, dtype=dtype, device=device) for name, (shape, _) in shapes.items()}
+    p = {"router": dense_params(gen, d, e, std=0.02, **kw), "experts": experts}
+    if torch.device(device).type != "meta":
+        for name, (shape, fan_in) in shapes.items():
+            for j in range(e):
+                experts[name][j].copy_(_normal(gen, shape, (1.0 / fan_in) ** 0.5, device))
     if cfg.router_bias:
         p["router_b"] = torch.zeros((e,), dtype=dtype, device=device)
     if cfg.n_shared:

@@ -1,9 +1,9 @@
-"""Decoder-only LM, the GQA members of the LM family (twin of
-``repro/models/transformer_lm.py``):
+"""Decoder-only LM, the LM family (twin of ``repro/models/transformer_lm.py``):
 
 * qwen3-4b        -- dense, GQA (32q/8kv, head 128), qk-norm
 * codeqwen1.5-7b  -- dense, MHA (32/32)
 * moonshot-v1-16b-a3b -- MoE 64e top-6, GQA 16/16
+* deepseek-v3-671b    -- MLA + MoE (1 shared + 256 routed top-8) + MTP
 
 Prefill (:func:`forward`, tokens -> logits) and KV-cache decode
 (:func:`init_cache`, :func:`decode_step`).  The layer stacks keep JAX's
@@ -11,18 +11,20 @@ stacked layout (every leaf ``[L, ...]``): ``first_k_dense`` leading dense
 layers, then the MoE layers (:mod:`.moe`), so a JAX parameter tree converts
 by ``params_from_jax`` alone; each stack runs as a Python loop over
 per-layer views where JAX scans.  Every attention call goes through
-:func:`~repro_torch.models.attention.gqa_apply`, so to the flash-attention
-kernel on the card.  MLA, the MTP head and training are not ported yet
-(``ROADMAP.md``): a config that asks for them raises.
+:func:`~repro_torch.models.attention.gqa_apply` or, for MLA,
+:func:`~repro_torch.models.attention.mla_apply`, so to the flash-attention
+kernel on the card.  :func:`init` builds DeepSeek's MTP head (``mtp``) so
+that JAX's tree converts whole; only training reads it, and training is not
+ported (``ROADMAP.md``): ``forward`` and ``decode_step`` ignore it, as JAX's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 
-from .attention import GQAConfig, gqa_apply, gqa_init
+from .. import resolve_device
+from .attention import GQAConfig, MLAConfig, gqa_apply, gqa_init, mla_apply, mla_init
 from .common import Params, dense_params, norm_params, stack_layers, trunc_normal
 from .layers import dense, rmsnorm, silu
 from .moe import MoEConfig, moe_apply, moe_init
@@ -43,7 +45,7 @@ class LMConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     attn: str = "gqa"  # "gqa" | "mla"
-    mla: Any = None  # JAX's MLAConfig; not ported
+    mla: MLAConfig | None = None
     moe: MoEConfig | None = None
     first_k_dense: int = 0
     mtp_depth: int = 0  # DeepSeek multi-token prediction heads
@@ -69,15 +71,6 @@ class LMConfig:
         return self.first_k_dense if self.moe else self.n_layers
 
 
-def _gqa_only(cfg: LMConfig) -> None:
-    """Raise for what the port does not run yet."""
-    missing = [what for what, asked in (("MLA", cfg.attn == "mla"), ("the MTP head", bool(cfg.mtp_depth)))
-               if asked]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
-                                  f"(queued in ROADMAP.md)")
-
-
 def _stacks(cfg: LMConfig):
     """(parameter key, cache key, depth, MoE layers?) of each layer stack the
     config has, in the order the trunk runs them."""
@@ -98,20 +91,33 @@ def _ffn_init(gen, d, f, dtype, device):
             "w2": dense_params(gen, f, d, **kw)}
 
 
-def _block_init(gen, cfg: LMConfig, moe_layer: bool, dtype, device) -> Params:
+def _block_init(gen, cfg: LMConfig, moe_layer: bool, dtype, device, out=None) -> Params:
+    """One block; ``out``, a slot of a stacked tree, takes an MoE layer's
+    experts in place (:func:`~.common.stack_layers`)."""
     return {
         "ln1": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
-        "attn": gqa_init(gen, cfg.gqa, dtype, device),
+        "attn": (mla_init(gen, cfg.mla, dtype, device) if cfg.attn == "mla"
+                 else gqa_init(gen, cfg.gqa, dtype, device)),
         "ln2": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
-        "ffn": (moe_init(gen, cfg.moe, dtype, device) if moe_layer
+        "ffn": (moe_init(gen, cfg.moe, dtype, device, out=None if out is None else out["ffn"]) if moe_layer
                 else _ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, device)),
+    }
+
+
+def _mtp_init(gen, cfg: LMConfig, dtype, device, out=None) -> Params:
+    """One MTP module (JAX's ``init``: DeepSeek-V3's multi-token prediction
+    head): the projection of [h | embedding], a full block, two norms."""
+    return {
+        "proj": dense_params(gen, 2 * cfg.d_model, cfg.d_model, bias=False, dtype=dtype, device=device),
+        "block": _block_init(gen, cfg, bool(cfg.moe), dtype, device, None if out is None else out["block"]),
+        "norm_h": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
+        "norm_e": norm_params(cfg.d_model, bias=False, dtype=dtype, device=device),
     }
 
 
 def init(gen: torch.Generator, cfg: LMConfig, dtype=torch.float32, device=None) -> Params:
     """Random parameters from ``gen``, on its device unless ``device`` is
     given (``"meta"``: shapes only)."""
-    _gqa_only(cfg)
     device = device or gen.device
     p: Params = {
         "embed": trunc_normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype, device),
@@ -119,10 +125,14 @@ def init(gen: torch.Generator, cfg: LMConfig, dtype=torch.float32, device=None) 
         "lm_head": dense_params(gen, cfg.d_model, cfg.vocab, bias=False, std=0.02, dtype=dtype,
                                 device=device),
     }
-    # each stack is drawn layer by layer into its [L, ...] slots (an MoE
-    # layer's experts are never drawn for the whole stack at once)
+    # each stack is allocated once and drawn layer by layer into its
+    # [L, ...] slots, an MoE layer's experts one expert at a time
     for key, _, n, moe_layer in _stacks(cfg):
-        p[key] = stack_layers(lambda g, m=moe_layer: _block_init(g, cfg, m, dtype, device), gen, n)
+        p[key] = stack_layers(lambda g, dev, out, m=moe_layer: _block_init(g, cfg, m, dtype, dev, out),
+                              gen, n, device)
+    if cfg.mtp_depth:
+        p["mtp"] = stack_layers(lambda g, dev, out: _mtp_init(g, cfg, dtype, dev, out), gen, cfg.mtp_depth,
+                                device)
     return p
 
 
@@ -133,9 +143,13 @@ def init(gen: torch.Generator, cfg: LMConfig, dtype=torch.float32, device=None) 
 
 def _block_apply(p: Params, cfg: LMConfig, moe_layer: bool, x, positions, cache=None, cache_index=None):
     """One block -> (x, load-balance loss of its MoE layer, or None for a
-    dense one); with a cache, the new keys and values are written into it."""
+    dense one); with a cache (GQA: (k, v); MLA: the latent), the new token's
+    entries are written into it."""
     h = rmsnorm(x, p["ln1"])
-    a, _ = gqa_apply(p["attn"], cfg.gqa, h, positions, cache, cache_index)
+    if cfg.attn == "mla":
+        a, _ = mla_apply(p["attn"], cfg.mla, h, positions, cache, cache_index)
+    else:
+        a, _ = gqa_apply(p["attn"], cfg.gqa, h, positions, cache, cache_index)
     x = x + a
     h = rmsnorm(x, p["ln2"])
     if moe_layer:
@@ -165,7 +179,6 @@ def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
 
 def trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens [B, T] -> (pre-head hidden [B, T, D], load_balance_loss)."""
-    _gqa_only(cfg)
     b, t = tokens.shape
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, t, -1)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -188,12 +201,20 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor) -> tuple[torch.
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.float32, device="cpu") -> Params:
-    """Stacked per-layer KV caches, one per layer stack ("dense", "moe"):
-    k/v [L, B, S, Hkv, dh], zeros."""
-    _gqa_only(cfg)
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.float32, device="cuda") -> Params:
+    """Stacked per-layer caches, one per layer stack ("dense", "moe"), zeros,
+    on the card unless ``device`` says ``"cpu"`` (or ``"meta"``: shapes
+    only).  GQA: k/v [L, B, S, Hkv, dh]; MLA: the compressed latent
+    [L, B, S, kv_lora + rope] (MLA's memory advantage)."""
+    device = torch.device(device)
+    if device.type != "meta":
+        device = resolve_device(device)
     cache: Params = {}
     for _, key, n, _ in _stacks(cfg):
+        if cfg.attn == "mla":
+            shape = (n, batch, max_seq, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+            cache[key] = torch.zeros(shape, dtype=dtype, device=device)
+            continue
         shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
         cache[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -202,7 +223,8 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.float32, dev
 
 def _decode_stack(p_stack, cache_stack, n, cfg, moe_layer, x, positions, index):
     for i in range(n):
-        kv = (cache_stack["k"][i], cache_stack["v"][i])  # views: written in place
+        # views of layer i's cache, written in place
+        kv = cache_stack[i] if cfg.attn == "mla" else (cache_stack["k"][i], cache_stack["v"][i])
         x, _ = _block_apply(_layer(p_stack, i), cfg, moe_layer, x, positions, kv, index)
     return x
 
@@ -210,8 +232,8 @@ def _decode_stack(p_stack, cache_stack, n, cfg, moe_layer, x, positions, index):
 def decode_step(params: Params, cfg: LMConfig, cache: Params, tokens: torch.Tensor, index: int):
     """One decode step: tokens [B, 1] at position ``index`` against a cache of
     length max_seq.  Returns (logits [B, vocab], cache): the new keys and
-    values are written into ``cache`` in place, and it is returned."""
-    _gqa_only(cfg)
+    values (MLA: latents) are written into ``cache`` in place, and it is
+    returned."""
     b = tokens.shape[0]
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, 1, -1)
     positions = torch.full((b, 1), index, dtype=torch.int32, device=tokens.device)

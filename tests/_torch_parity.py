@@ -1,10 +1,14 @@
 """Shared inputs of the port's parity tests (tests/test_torch_*.py)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from repro.models import vgg as jvgg
 from repro.models import vit_spatial as jvit
+from repro_torch.models import attention, moe
+from repro_torch.models import transformer_lm as lm
 
 # the JAX package's reduced VGG-16 (repro/configs/vgg16.py SMOKE)
 JCFG = jvgg.VGGConfig(img_res=64, width_mult=0.125, num_classes=10)
@@ -35,3 +39,29 @@ def jax_vit_params(cfg=JVIT_CFG, seed=0):
     """A JAX spatial-ViT parameter tree (the shapes of ``jvit.init``) of
     seeded numpy values, as :func:`jax_vgg_params`."""
     return _seeded_tree(jax.eval_shape(lambda k: jvit.init(k, cfg), jax.random.PRNGKey(0)), seed)
+
+
+def perturb_norms(tree, seed):
+    """A JAX parameter tree with each norm scale times (1 + 0.1 N(0, 1)) and
+    each router bias 0.1 N(0, 1), from numpy, so those paths are covered."""
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        if "scale" in jax.tree_util.keystr(path):
+            return a * jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape, dtype=np.float32))
+        if "router_b" in jax.tree_util.keystr(path):
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape, dtype=np.float32))
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+def port_lm_config(jcfg) -> lm.LMConfig:
+    """The port's LMConfig with a JAX LMConfig's fields (its MoEConfig and
+    MLAConfig as the port's)."""
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    if jcfg.moe is not None:
+        fields["moe"] = moe.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    if jcfg.mla is not None:
+        fields["mla"] = attention.MLAConfig(**dataclasses.asdict(jcfg.mla))
+    return lm.LMConfig(**fields)

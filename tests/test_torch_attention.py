@@ -10,6 +10,8 @@ kernel's own arithmetic is run on the CPU by
 ``tests/test_torch_attention_emu.py`` and held against the plain version on
 the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,3 +120,43 @@ def test_flash_attention_needs_equal_heads_and_dense_head_dim():
         flash_attention(q, q, torch.zeros((1, 4, 16, 8)).transpose(2, 3))
     with pytest.raises(TypeError):
         flash_attention(q, q, q.double())
+
+
+@pytest.mark.parametrize("pair", [(24, 16), (192, 64), (128, 192)], ids=lambda p: f"{p[0]}-{p[1]}")
+def test_rejects_a_width_pair_the_kernel_does_not_compile(pair):
+    """A (query/key, value) width pair outside ``HEAD_DIMS`` raises, naming
+    the pairs -- the DeepSeek-V3 smoke config's (24, 16) among them -- alike
+    on a CUDA tensor (a fake one: the check runs before any launch) and on a
+    CPU tensor, whose plain version could compute it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.attention.ops import HEAD_DIMS
+
+    d, dv = pair
+
+    def refused(q, k, v):
+        for call in (lambda: flash_attention(q, k, v), lambda: gqa_flash(*(x.transpose(1, 2) for x in (q, k, v)))):
+            with pytest.raises(ValueError, match=re.escape(str(HEAD_DIMS))):
+                call()
+
+    with FakeTensorMode():
+        q, v = torch.empty((1, 2, 8, d), device="cuda"), torch.empty((1, 2, 8, dv), device="cuda")
+        refused(q, q, v)
+    refused(*(torch.from_numpy(a) for a in _qkv(d + dv, (1, 2, 8, d), (1, 2, 8, d), (1, 2, 8, dv))))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_widths_on_the_cpu_match_the_plain_version(causal):
+    """The kernel's (192, 128) pair -- MLA's query/key and value widths -- on
+    the CPU, in the model layout with v a strided slice of a 256-wide
+    expansion (as ``mla_apply`` hands it over): the output takes v's width,
+    the scale 1/sqrt(192)."""
+    b, t, h = 2, 24, 4
+    q, k, kv = (torch.from_numpy(a) for a in _qkv(3, (b, t, h, 192), (b, t, h, 192), (b, t, h, 256)))
+    got = gqa_flash(q, k, kv[..., 128:], causal=causal)
+    assert tuple(got.shape) == (b, t, h, 128)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / 192 ** 0.5
+    if causal:
+        scores = scores.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1), float("-inf"))
+    want = torch.einsum("bhts,bshd->bthd", scores.softmax(-1), kv[..., 128:])
+    torch.testing.assert_close(got, want, rtol=TOL["float32"], atol=TOL["float32"])

@@ -8,7 +8,8 @@ key tiles, the top-left causal mask with T != S, the tensor-core fragment
 layouts (3xTF32 and bf16, P handed from S's accumulators to PV's operands),
 the merge of the four key quarters' partial softmaxes of a row, GQA head
 indexing through the model layout's strides, the 16-byte and the unaligned
-copies, the head widths and the bfloat16 rounding -- where there is no card;
+copies, the head widths (MLA's query/key width 192 with value width 128
+among them) and the bfloat16 rounding -- where there is no card;
 timing and the real compiler are checked only on the card
 (``chip_smoke.py``).  The shim's warp shuffle, which the row maxima and sums
 go through, is checked on its own.  Tolerances as in tests/test_torch_attention.py: 2e-5
@@ -23,6 +24,7 @@ import torch
 
 from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.attention import attention_ref
+from repro_torch.kernels.attention.ops import HEAD_DIMS
 
 SOURCE = KERNELS / "attention" / "attention.cu"
 
@@ -31,10 +33,11 @@ SOURCE = KERNELS / "attention" / "attention.cu"
 def lib(tmp_path_factory):
     lib = build_emulated(SOURCE, tmp_path_factory.mktemp("emu"), launches=1)
     p, i = ctypes.c_void_p, ctypes.c_int
-    args = [p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p]
+    args = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.argtypes = args
     lib.flash_attention_fwd_shape.argtypes = args + [i]
-    lib.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), i, i]
+    lib.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                                          i, i]
     return lib
 
 
@@ -42,13 +45,13 @@ def _args(q, k, v, o):
     b, h, t, d = q.shape
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, o) for st in x.stride()[:3]])
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0 if q.dtype == torch.float32 else 1,
-            b, h, k.shape[1], t, k.shape[2], d, strides)
+            b, h, k.shape[1], t, k.shape[2], d, v.shape[3], strides)
 
 
 def _emulated(lib, q, k, v, causal, shape=None):
-    """q [B,H,T,D], k/v [B,Hkv,S,D], any strides with a dense head dimension;
-    the block shape the launcher picks, or the one given."""
-    o = torch.empty_like(q)
+    """q [B,H,T,D], k [B,Hkv,S,D], v [B,Hkv,S,DV], any strides with a dense
+    head dimension; the block shape the launcher picks, or the one given."""
+    o = q.new_empty(q.shape[:3] + (v.shape[3],))
     args = _args(q, k, v, o) + (1.0 / math.sqrt(q.shape[3]), int(causal), 0, None)
     err = lib.flash_attention_fwd(*args) if shape is None else lib.flash_attention_fwd_shape(*args, shape)
     assert err == 0
@@ -217,3 +220,111 @@ def test_emulated_launcher_picks_fewest_waves(lib):
 
     assert pick(1, 3, 196) == 1      # 7 x 3 blocks of 32 rows: the most warps, one wave
     assert pick(4, 16, 196) == 2     # 13 x 64 / 7 x 64 blocks need three / two waves, 4 x 64 one
+
+
+@pytest.mark.parametrize("pair", HEAD_DIMS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_emulated_kernel_takes_the_wrappers_pairs(lib, pair):
+    """Every (query/key, value) width pair the wrapper lets through
+    (``ops.HEAD_DIMS``) is compiled: it launches, and matches the plain
+    version over one ragged query tile."""
+    d, dv = pair
+    rng = np.random.default_rng(d + dv)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, w), dtype=np.float32)) for n, w in
+               ((20, d), (24, d), (24, dv)))
+    torch.testing.assert_close(_emulated(lib, q, k, v, causal=True), attention_ref(q, k, v, causal=True),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("pair", [(24, 16), (24, 24), (8, 8), (192, 64), (128, 192), (128, 64)],
+                         ids=lambda p: f"{p[0]}-{p[1]}")
+def test_emulated_kernel_refuses_other_pairs(lib, pair):
+    """A width pair outside ``HEAD_DIMS`` -- the DeepSeek-V3 smoke config's
+    (24, 16) among them -- is refused with cudaErrorInvalidValue (1), by the
+    launch and by the block-shape query, and nothing is written."""
+    d, dv = pair
+    q, v = torch.zeros((1, 2, 8, d)), torch.zeros((1, 2, 8, dv))
+    o = torch.full((1, 2, 8, dv), 7.0)
+    args = _args(q, q, v, o)
+    assert lib.flash_attention_fwd(*args, 1.0, 1, 0, None) == 1
+    assert lib.flash_attention_shape(*args[:3], *args[4:], 1, 0) == -1
+    assert bool((o == 7.0).all())
+
+
+def _mla_operands(rng, b, h, t, s, dt, s_max=None):
+    """MLA's operands as ``mla_apply`` hands them to K3, as [B, H, n, D]
+    views: q [B, T, H, 192] and k [B, S, H, 192] in the model layout (k the
+    first S rows of an S_max-row buffer, a cache prefix's view, where
+    ``s_max`` is given), and v the value half of a [B, S, H, 256]
+    expansion (k_nope | v), a strided slice."""
+    q = torch.from_numpy(rng.standard_normal((b, t, h, 192), dtype=np.float32)).to(dt)
+    k = torch.from_numpy(rng.standard_normal((b, s_max or s, h, 192), dtype=np.float32)).to(dt)[:, :s]
+    kv = torch.from_numpy(rng.standard_normal((b, s, h, 256), dtype=np.float32)).to(dt)
+    v = kv[..., 128:]
+    assert v.stride(2) == 256 and not v.is_contiguous()
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", [None, 0, 1, 2], ids=["auto", "16x4", "32x4", "64x1"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_emulated_mla_prefill_matches_plain(lib, dt, shape):
+    """MLA's causal prefill at (DQK, DV) = (192, 128): ragged T = S = 40,
+    two heads (H = Hkv), the value a strided slice of the wider expansion;
+    the launcher's pick and each block shape forced."""
+    q, k, v = _mla_operands(np.random.default_rng(40), 1, 2, 40, 40, dt)
+    got = _emulated(lib, q, k, v, causal=True, shape=shape)
+    assert tuple(got.shape) == (1, 2, 40, 128)
+    want = attention_ref(q, k, v, causal=True)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [None, 0, 1, 2], ids=["auto", "16x4", "32x4", "64x1"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_emulated_mla_decode_over_cache_prefix(lib, dt, shape):
+    """An MLA decode step: one query row of 4 heads at (192, 128) over the
+    first 37 keys -- k the prefix view of a 64-slot buffer, v a strided
+    slice of the 256-wide expansion of those 37 rows -- non-causal; the
+    launcher's pick and each block shape forced."""
+    q, k, v = _mla_operands(np.random.default_rng(41), 2, 4, 1, 37, dt, s_max=64)
+    assert k.stride(0) == 64 * 4 * 192
+    got = _emulated(lib, q, k, v, causal=False, shape=shape)
+    want = attention_ref(q, k, v, causal=False)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [None, 0, 1, 2], ids=["auto", "16x4", "32x4", "64x1"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_emulated_mla_with_unaligned_kv(lib, dt, shape):
+    """MLA's (192, 128) with K and V one element into wider buffers: neither
+    their bases nor their row strides are 16-byte aligned, so the element
+    copies' instantiation runs (its float32 stages take 170 KB at the
+    4-group shapes); causal T = S = 24, the launcher's pick and each block
+    shape forced."""
+    rng = np.random.default_rng(42)
+    q = torch.from_numpy(rng.standard_normal((1, 24, 2, 192), dtype=np.float32)).to(dt)
+    k = torch.from_numpy(rng.standard_normal((1, 24, 2, 193), dtype=np.float32)).to(dt)[..., 1:]
+    kv = torch.from_numpy(rng.standard_normal((1, 24, 2, 257), dtype=np.float32)).to(dt)[..., 1:]
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), kv[..., 128:].transpose(1, 2)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16 and (v.stride(2) * v.element_size()) % 16
+    got = _emulated(lib, q, k, v, causal=True, shape=shape)
+    want = attention_ref(q, k, v, causal=True)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_emulated_launcher_pick_at_mla_widths(lib):
+    """At (192, 128) a float32 K/V stage is 21.2 KB, so the 4-group shapes
+    take 170 KB and one block fits on an SM: the launcher (through the
+    shim's occupancy of threads and shared memory) takes 64x1 for MLA's
+    prefill (B 4, 128 heads, T = 512) and a decode step (T = 1), and the
+    shape with the most warps where every grid fits one wave."""
+    def pick(b, h, t, dt=torch.float32):
+        q = torch.zeros((b, t, h, 192), dtype=dt).transpose(1, 2)
+        v = torch.zeros((b, t, h, 128), dtype=dt).transpose(1, 2)
+        return lib.flash_attention_shape(*_args(q, q, v, v)[:3], *_args(q, q, v, v)[4:], 1, 0)
+
+    assert pick(4, 128, 512) == 2
+    assert pick(4, 128, 1) == 2
+    assert pick(1, 2, 40) == 1      # 2 / 3 / 6 blocks, one wave each: 32x4 has the most warps
+    assert pick(4, 128, 512, torch.bfloat16) == 2

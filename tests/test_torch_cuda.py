@@ -431,3 +431,36 @@ def test_moe_apply_on_card_matches_cpu(card, t, capacity_factor):
     for key in ("load_balance_loss", "dropped_frac"):
         torch.testing.assert_close(aux[key].cpu(), want_aux[key], rtol=2e-5, atol=2e-5)
     assert (float(want_aux["dropped_frac"]) > 0) == (t > cfg.dropless_below)
+
+
+@pytest.mark.cuda
+def test_mla_apply_on_card_matches_cpu(card):
+    """MLA at DeepSeek-V3's head widths (K3's (192, 128) pair: 128 no-RoPE +
+    64 RoPE query/key dims, value 128, the value a strided view of the
+    expansion) on the card against the same call on the CPU, float32: a
+    causal prefill of 40 tokens (one K3 launch), then 6 decode steps over
+    the latent cache (one launch each), each step also against the prefill
+    at its position."""
+    from repro_torch.models import attention
+
+    cfg = attention.MLAConfig(d_model=256, n_heads=8, q_lora_rank=64, kv_lora_rank=32)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = attention.mla_init(gen, cfg)
+    cpu_p = tree_map(lambda a: a.cpu(), p)
+    x = torch.randn((2, 40, cfg.d_model), generator=gen, device=card)
+    pos = torch.arange(40, device=card).expand(2, 40)
+    before = flash_attention.launches
+    got, _ = attention.mla_apply(p, cfg, x, pos)
+    assert flash_attention.launches == before + 1
+    want, _ = attention.mla_apply(cpu_p, cfg, x.cpu(), pos.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    cache = torch.zeros((2, 16, cfg.kv_lora_rank + cfg.qk_rope_head_dim), device=card)
+    cpu_cache = cache.cpu()
+    for i in range(6):
+        before = flash_attention.launches
+        step, _ = attention.mla_apply(p, cfg, x[:, i:i + 1], pos[:, i:i + 1], cache, i)
+        assert flash_attention.launches == before + 1
+        want_step, _ = attention.mla_apply(cpu_p, cfg, x[:, i:i + 1].cpu(), pos[:, i:i + 1].cpu(), cpu_cache, i)
+        torch.testing.assert_close(step.cpu(), want_step, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(cache.cpu(), cpu_cache, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(step[:, 0], got[:, i], rtol=2e-5, atol=2e-5)

@@ -57,4 +57,5 @@ print(json.dumps({"imported": names, "bad": bad}))
     assert "repro_torch.models.transformer_lm" in out["imported"]
     assert "repro_torch.models.attention" in out["imported"]
     assert "repro_torch.configs.steps" in out["imported"]
+    assert "repro_torch.configs.deepseek_v3_671b" in out["imported"]
     assert out["bad"] == []

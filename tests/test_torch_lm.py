@@ -1,6 +1,6 @@
-"""The port's GQA LM, dense and MoE (``repro_torch.models.attention``,
+"""The port's LM, dense and MoE, GQA and MLA (``repro_torch.models.attention``,
 ``models.moe``, ``models.transformer_lm``, ``configs``) against the JAX
-package, on the CPU.
+package, on the CPU (MLA's own module tests: ``tests/test_torch_mla.py``).
 
 The same parameters (JAX's init, the norm scales perturbed by seeded numpy
 noise so the scale paths are covered, converted by ``params_from_jax``) and the
@@ -27,6 +27,7 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer_lm as jlm
 from repro.models.moe import MoEConfig as JMoEConfig
+from _torch_parity import perturb_norms, port_lm_config
 from repro_torch.configs import get, list_archs, lm_cells
 from repro_torch.configs.steps import build
 from repro_torch.models import attention, layers, moe
@@ -34,7 +35,7 @@ from repro_torch.models import transformer_lm as lm
 from repro_torch.models.common import params_from_jax, trunc_normal
 
 TOL = 2e-5
-ARCHS = ("qwen3-4b", "codeqwen1.5-7b", "moonshot-v1-16b-a3b")
+ARCHS = ("qwen3-4b", "codeqwen1.5-7b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
 # two GQA layers with qk-norm at Qwen3's head width, d_head 128
 D128 = jlm.LMConfig(name="gqa-d128", n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=128,
                     d_ff=256, vocab=512, qk_norm=True)
@@ -53,29 +54,10 @@ def _close(got, want, tol=TOL):
     assert np.all(np.abs(got - want) <= tol * (1 + np.abs(want))), np.abs(got - want).max()
 
 
-def _port_cfg(jcfg) -> lm.LMConfig:
-    """The port's LMConfig with the JAX config's fields (its MoEConfig as the
-    port's)."""
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    if jcfg.moe is not None:
-        fields["moe"] = moe.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    return lm.LMConfig(**fields)
-
-
 def _jax_params(jcfg, seed=0):
     """JAX's init, each norm scale times (1 + 0.1 N(0, 1)) and each router
     bias 0.1 N(0, 1), from numpy."""
-    rng = np.random.default_rng(seed)
-    params = jlm.init(jax.random.PRNGKey(seed), jcfg)
-
-    def perturb(path, a):
-        if "scale" in jax.tree_util.keystr(path):
-            return a * jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape, dtype=np.float32))
-        if "router_b" in jax.tree_util.keystr(path):
-            return jnp.asarray(0.1 * rng.standard_normal(a.shape, dtype=np.float32))
-        return a
-
-    return jax.tree_util.tree_map_with_path(perturb, params)
+    return perturb_norms(jlm.init(jax.random.PRNGKey(seed), jcfg), seed)
 
 
 def _tokens(cfg, b, t, seed=1):
@@ -182,7 +164,7 @@ def test_forward_matches_jax(name):
     jp = _jax_params(jcfg)
     toks = _tokens(jcfg, 2, 24)
     want, want_lb = jlm.forward(jp, jcfg, jnp.asarray(toks))
-    got, lb = lm.forward(params_from_jax(jp), _port_cfg(jcfg), torch.from_numpy(toks))
+    got, lb = lm.forward(params_from_jax(jp), port_lm_config(jcfg), torch.from_numpy(toks))
     _close(got, want)
     if jcfg.moe is None:
         assert float(lb) == float(want_lb) == 0.0
@@ -196,7 +178,7 @@ def test_init_and_cache_layouts_match_jax(name):
     """The port's init and init_cache give JAX's trees: the same keys, shapes
     and types, the layers stacked on a leading axis."""
     jcfg = _jcfg(name)
-    cfg = _port_cfg(jcfg)
+    cfg = port_lm_config(jcfg)
     jshapes = jax.eval_shape(lambda k: jlm.init(k, jcfg), jax.random.PRNGKey(0))
     got = lm.init(torch.Generator().manual_seed(0), cfg)
     assert jax.tree_util.tree_structure(jshapes) == jax.tree_util.tree_structure(got)
@@ -204,7 +186,7 @@ def test_init_and_cache_layouts_match_jax(name):
         assert tuple(g.shape) == a.shape and g.dtype == torch.float32
     for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
         jc = jlm.init_cache(jcfg, 3, 16, dtype=jdt)
-        c = lm.init_cache(cfg, 3, 16, dtype=tdt)
+        c = lm.init_cache(cfg, 3, 16, dtype=tdt, device="cpu")
         assert jax.tree_util.tree_structure(jc) == jax.tree_util.tree_structure(c)
         for a, g in zip(jax.tree_util.tree_leaves(jc), jax.tree_util.tree_leaves(c)):
             assert tuple(g.shape) == a.shape and g.dtype == tdt and not g.any()
@@ -216,11 +198,11 @@ def test_decode_step_matches_jax(name):
     cache against JAX's; then the port's decode against the port's forward
     (the equivalence tests/test_archs.py holds for JAX)."""
     jcfg = _jcfg(name)
-    cfg = _port_cfg(jcfg)
+    cfg = port_lm_config(jcfg)
     jp = _jax_params(jcfg, seed=2)
     p = params_from_jax(jp)
     toks = _tokens(jcfg, 2, 8, seed=3)
-    jcache, cache = jlm.init_cache(jcfg, 2, 12), lm.init_cache(cfg, 2, 12)
+    jcache, cache = jlm.init_cache(jcfg, 2, 12), lm.init_cache(cfg, 2, 12, device="cpu")
     full, _ = lm.forward(p, cfg, torch.from_numpy(toks))
     for i in range(8):
         want, jcache = jlm.decode_step(jp, jcfg, jcache, jnp.asarray(toks[:, i:i + 1]), i)
@@ -229,6 +211,9 @@ def test_decode_step_matches_jax(name):
         _close(got, full[:, i])
     assert sorted(cache) == sorted(jcache)
     for stack in cache:
+        if cfg.attn == "mla":  # the latent [L, B, S, kv_lora + rope]
+            _close(cache[stack], jcache[stack])
+            continue
         for key in ("k", "v"):
             _close(cache[stack][key], jcache[stack][key])
 
@@ -241,7 +226,7 @@ def test_bfloat16_forward_matches_jax(name):
     want = np.asarray(jlm.forward(jp, jcfg, jnp.asarray(toks))[0])
     jbf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
     jax_bf16 = np.asarray(jlm.forward(jbf, jcfg, jnp.asarray(toks))[0].astype(jnp.float32))
-    got, _ = lm.forward(params_from_jax(jbf), _port_cfg(jcfg), torch.from_numpy(toks))
+    got, _ = lm.forward(params_from_jax(jbf), port_lm_config(jcfg), torch.from_numpy(toks))
     assert got.dtype == torch.bfloat16
     err = np.abs(got.float().numpy() - want).max()
     assert err <= 2e-2 * np.abs(want).max(), (err, np.abs(want).max())
@@ -274,7 +259,7 @@ def _held(ref_routes, routes, b, t):
     return ~out
 
 
-@pytest.mark.parametrize("name", ("moonshot-v1-16b-a3b", MOE2.name))
+@pytest.mark.parametrize("name", ("moonshot-v1-16b-a3b", MOE2.name, "deepseek-v3-671b"))
 def test_moe_bfloat16_forward_matches_jax(name, monkeypatch):
     """A bfloat16 MoE forward routes as the float32 one except at near-ties,
     which bfloat16's rounding may flip either way (JAX's own bfloat16 forward
@@ -296,10 +281,10 @@ def test_moe_bfloat16_forward_matches_jax(name, monkeypatch):
     jbf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
     jax_err = np.abs(np.asarray(jlm.forward(jbf, jcfg, jnp.asarray(toks))[0].astype(jnp.float32)) - want)
     routes = _recording_routes(monkeypatch)
-    got32, _ = lm.forward(params_from_jax(jp), _port_cfg(jcfg), torch.from_numpy(toks))
+    got32, _ = lm.forward(params_from_jax(jp), port_lm_config(jcfg), torch.from_numpy(toks))
     ref_routes, routes[:] = routes[:], []
-    got, _ = lm.forward(params_from_jax(jbf), _port_cfg(jcfg), torch.from_numpy(toks))
-    assert got.dtype == torch.bfloat16 and len(routes) == len(ref_routes) == _port_cfg(jcfg).n_moe_layers
+    got, _ = lm.forward(params_from_jax(jbf), port_lm_config(jcfg), torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16 and len(routes) == len(ref_routes) == port_lm_config(jcfg).n_moe_layers
     _close(got32, want)
     held = _held(ref_routes, routes, b, t)
     assert held.mean() >= 0.75, held
@@ -356,9 +341,12 @@ def _check_bundles(name, cell, smoke):
     if cell == "prefill_32k":
         _close(b.fn(p, torch.from_numpy(toks)), jb.fn(jp, jnp.asarray(toks)))
     else:
-        (stack,) = b.inputs["cache"]
-        cache = lm.init_cache(a.smoke_cfg, bsz, b.inputs["cache"][stack]["k"][0][2])
-        jcache = jlm.init_cache(ja.smoke_cfg, bsz, jb.inputs["cache"][stack]["k"].shape[2])
+        # the cache's length from the spec of its first stack: {k, v} (GQA)
+        # or the latent (MLA)
+        spec, jspec = next(iter(b.inputs["cache"].values())), next(iter(jb.inputs["cache"].values()))
+        s_max = (spec["k"] if isinstance(spec, dict) else spec)[0][2]
+        cache = lm.init_cache(a.smoke_cfg, bsz, s_max, device="cpu")
+        jcache = jlm.init_cache(ja.smoke_cfg, bsz, (jspec["k"] if isinstance(jspec, dict) else jspec).shape[2])
         got, _ = b.fn(p, cache, torch.from_numpy(toks), 0)
         want, _ = jb.fn(jp, jcache, jnp.asarray(toks), 0)
         _close(got, want)
@@ -378,20 +366,28 @@ def test_moe_build_bundles_match_jax(cell, smoke):
     _check_bundles("moonshot-v1-16b-a3b", cell, smoke)
 
 
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_mla_build_bundles_match_jax(cell, smoke):
+    """deepseek-v3-671b's bundles: its 3 dense and 58 MoE layers' MLA and
+    expert weights and the MTP head as shapes on the meta device, and its
+    latent cache spec ([L, 128, 32768, 576] per stack, a tensor, not
+    {k, v})."""
+    _check_bundles("deepseek-v3-671b", cell, smoke)
+
+
 @pytest.mark.parametrize("jname", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
 def test_moe_mla_and_mtp_raise(jname):
-    """MLA and the MTP head raise (DeepSeek-V3); MoE layers on GQA run
-    (moonshot: init, init_cache and a forward, no raise)."""
-    cfg = _port_cfg(jget(jname).smoke_cfg)
-    fns = (lambda: lm.init(torch.Generator(), cfg, device="meta"), lambda: lm.init_cache(cfg, 1, 4),
-           lambda: lm.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32)))
-    if cfg.attn == "mla":
-        for fn in fns:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                fn()
-        return
-    assert sorted(fns[0]()) == ["embed", "final_norm", "lm_head", "moe_layers"]
-    assert sorted(fns[1]()) == ["moe"]
+    """MoE layers on GQA (moonshot) and on MLA with the MTP head (DeepSeek-V3)
+    run -- init, init_cache and a forward -- where the MLA and MTP configs
+    raised before they were ported; the MTP head is built (``mtp``) and
+    ignored by the forward, as JAX's."""
+    cfg = port_lm_config(jget(jname).smoke_cfg)
+    stacks = {"moonshot-v1-16b-a3b": ["moe"], "deepseek-v3-671b": ["dense", "moe"]}[jname]
+    extra = ["mtp"] if cfg.mtp_depth else []
+    assert sorted(lm.init(torch.Generator(), cfg, device="meta")) == sorted(
+        ["embed", "final_norm", "lm_head"] + [f"{s}_layers" for s in stacks] + extra)
+    assert sorted(lm.init_cache(cfg, 1, 4, device="cpu")) == stacks
     params = lm.init(torch.Generator().manual_seed(0), cfg)
     logits, lb = lm.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32))
     assert tuple(logits.shape) == (1, 4, cfg.vocab) and float(lb) > 0

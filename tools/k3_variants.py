@@ -2,18 +2,17 @@
 """Time the block shapes and source variants of the port's flash-attention
 kernel (K3) on the card, side by side in one process.
 
-    python3 tools/k3_variants.py [--variants NAME ...] [--source FILE] [--probe]
+    python3 tools/k3_variants.py [--variants NAME ...] [--probe]
                                  [--out chiprun_out/k3_variants.json]
+    python3 tools/k3_variants.py --source PARENT_ATTENTION_CU [--source-no-dv]
 
 A variant is a block shape -- the one the launcher picks ("auto"), or one
 forced through ``flash_attention_fwd_shape``: 16 query rows x 4 key groups,
 32 x 4, or 64 x 1 (the 64-row block with no key split) -- of
 ``src/repro_torch/kernels/attention/attention.cu`` as it is or with an edit
-(``EDITS``).  ``--source`` builds another kernel instead (its ``auto`` or
-``as-is`` variants only: e.g. the parent commit's ``attention.cu``).  Each
-distinct source is compiled by ``nvcc`` for ``sm_90a`` with the port's
-flags, all in parallel, into ``build/k3_variants/``, and called through the
-wrapper's C interface.  At the ViT-L/16 path's attention shapes (batch 4, 8 /
+(``EDITS``).  Each distinct source is compiled by ``nvcc`` for ``sm_90a``
+with the port's flags, all in parallel, into ``build/k3_variants/``, and
+called through the wrapper's C interface.  At the ViT-L/16 path's attention shapes (batch 4, 8 /
 5 / 3 heads of 16 over the 14x14 grid, D = 64, the model layout's strides,
 non-causal) and a causal T = S = 256 -- with ``--probe`` also shapes that
 take one block's time apart -- in float32 and bfloat16, each variant is held
@@ -21,7 +20,16 @@ against the plain version (2e-5 / 2e-2 x (1 + |y|)) and timed: device us per
 call from a ``torch.profiler`` window over back-to-back launches (the event
 time of a launch this short is the host's).  Prints one line per variant
 and shape, the shape "auto" picked, and each variant's sum over one ViT
-forward (24 calls of each head shard).  Needs the card, ``nvcc``, no JAX.
+forward (24 calls of each head shard).
+
+``--source FILE`` holds this checkout's kernel against another source of it
+(a parent commit's ``attention.cu``; ``--source-no-dv`` when its C interface
+predates the value width, ``d`` its last width argument) at the shapes the
+main paths hand it with one head width (the ViT's head shards at D = 64,
+causal T = S = 256 at D = 64, and Qwen3-4B's and moonshot-v1-16b-a3b's
+prefill and decode at D = 128): the two outputs must be equal bit for bit,
+and device us per call are taken in turns -- source, change, change, source
+-- in one process.  Needs the card, ``nvcc``, no JAX.
 """
 from __future__ import annotations
 
@@ -64,7 +72,6 @@ VARIANTS = {
     "auto-trunc": (None, ("trunc-split",)),
     "auto-kb32": (None, ("kb32",)),
     "auto-lb3": (None, ("lb3",)),
-    "as-is": (None, ()),  # --source unchanged, through flash_attention_fwd
 }
 # (B, H, T, S, causal, calls per ViT forward)
 SHAPES = [(4, 8, 196, 196, False, 24), (4, 5, 196, 196, False, 24), (4, 3, 196, 196, False, 24),
@@ -87,8 +94,8 @@ def edited_source(source: Path, edits) -> str:
     return src
 
 
-def build(source: Path, edits) -> tuple[tuple, ctypes.CDLL, str]:
-    d = OUT_DIR / "-".join((source.stem,) + tuple(edits))
+def build(source: Path, edits, tag: str | None = None) -> tuple[tuple, ctypes.CDLL, str]:
+    d = OUT_DIR / (tag or "-".join((source.stem,) + tuple(edits)))
     d.mkdir(parents=True, exist_ok=True)
     cu = d / "attention.cu"
     cu.write_text(edited_source(source, edits))
@@ -101,14 +108,18 @@ def build(source: Path, edits) -> tuple[tuple, ctypes.CDLL, str]:
     return tuple(edits), ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def bind(lib: ctypes.CDLL, takes_dv: bool = True) -> ctypes.CDLL:
+    """Set the C interface's argument types: ``d`` then ``dv`` (this
+    checkout's), or ``d`` alone (``takes_dv`` false: a source from before
+    the value width)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    args = [p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p]
+    lib.takes_dv = takes_dv
+    widths = [i, i] if takes_dv else [i]
+    args = [p, p, p, p, i, i, i, i, i, i, *widths, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.argtypes = args
-    if hasattr(lib, "flash_attention_fwd_shape"):
-        lib.flash_attention_fwd_shape.argtypes = args + [i]
-        lib.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, i,
-                                              ctypes.POINTER(ctypes.c_longlong), i, i]
+    lib.flash_attention_fwd_shape.argtypes = args + [i]
+    lib.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, *widths,
+                                          ctypes.POINTER(ctypes.c_longlong), i, i]
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -120,8 +131,8 @@ def call(torch, lib, q, k, v, causal: bool, shape=None):
     o = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, o) for st in x.stride()[:3]])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0 if q.dtype == torch.float32 else 1,
-            b, h, k.shape[1], t, k.shape[2], d, strides, 1.0 / math.sqrt(d), int(causal),
-            q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+            b, h, k.shape[1], t, k.shape[2], d, *((d,) if lib.takes_dv else ()), strides, 1.0 / math.sqrt(d),
+            int(causal), q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     err = lib.flash_attention_fwd(*args) if shape is None else lib.flash_attention_fwd_shape(*args, shape)
     if err != 0:
         raise RuntimeError(f"launch failed: {lib.kernel_error_string(err).decode()}")
@@ -129,13 +140,12 @@ def call(torch, lib, q, k, v, causal: bool, shape=None):
 
 
 def picked(torch, lib, q, k, v, causal: bool) -> str:
-    """The block shape the launcher picks for this call ("-" for a kernel without the choice)."""
-    if not hasattr(lib, "flash_attention_shape"):
-        return "-"
+    """The block shape the launcher picks for this call."""
     b, h, t, d = q.shape
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, q) for st in x.stride()[:3]])
     c = lib.flash_attention_shape(q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if q.dtype == torch.float32 else 1,
-                                  b, h, k.shape[1], t, k.shape[2], d, strides, int(causal), q.device.index or 0)
+                                  b, h, k.shape[1], t, k.shape[2], d, *((d,) if lib.takes_dv else ()), strides,
+                                  int(causal), q.device.index or 0)
     return SHAPE_NAMES[c] if 0 <= c < len(SHAPE_NAMES) else f"error {c}"
 
 
@@ -155,10 +165,61 @@ def device_us(torch, fn, reps: int = 20) -> float:
     return total / count * max(1, round(count / reps)) if total > 0 else float("nan")
 
 
+# --source: (name, B, H, Hkv, T, S, D, causal, cache slots) -- the ViT's head
+# shards, causal D = 64, and the LMs' prefill and decode (one query over the
+# first 64 keys of a 512-slot cache)
+COMPARE_SHAPES = [
+    ("vit-8", 4, 8, 8, 196, 196, 64, False, None), ("vit-5", 4, 5, 5, 196, 196, 64, False, None),
+    ("vit-3", 4, 3, 3, 196, 196, 64, False, None), ("causal-256", 4, 16, 16, 256, 256, 64, True, None),
+    ("qwen3-prefill", 4, 32, 8, 512, 512, 128, True, None), ("qwen3-decode", 4, 32, 8, 1, 64, 128, False, 512),
+    ("moe-prefill", 4, 16, 16, 512, 512, 128, True, None), ("moe-decode", 4, 16, 16, 1, 64, 128, False, 512),
+]
+
+
+def compare(torch, parent: Path, parent_takes_dv: bool, out: Path, smi: str) -> int:
+    """Another source ("parent") and this checkout's ("change") at
+    COMPARE_SHAPES: equal bits, device us in turns."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(lambda a: build(a[0], (), a[1]),
+                              ((parent, "parent"), (ATTENTION_DIR / "attention.cu", "change"))))
+    for (_, lib, log), name in zip(built, ("parent", "change")):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {name}: {line.strip()[:160]}")
+    libs = {"parent": bind(built[0][1], parent_takes_dv), "change": bind(built[1][1])}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, same_all = [], True
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        for name, b, h, hkv, t, s, d, causal, slots in COMPARE_SHAPES:
+            # [B, n, heads*D] buffers seen as [B, heads, n, D]: the model layout
+            q, k, v = (torch.randn((b, rows_, heads * d), generator=gen, device="cuda").to(dt)[:, :n]
+                       .view(b, n, heads, d).transpose(1, 2)
+                       for n, rows_, heads in ((t, t, h), (s, slots or s, hkv), (s, slots or s, hkv)))
+            outs = {key: call(torch, lib, q, k, v, causal) for key, lib in libs.items()}
+            torch.cuda.synchronize()
+            iv = torch.int16 if dt == torch.bfloat16 else torch.int32
+            same = torch.equal(outs["parent"].contiguous().view(iv), outs["change"].contiguous().view(iv))
+            same_all &= same
+            us = {key: [] for key in libs}
+            for key in ("parent", "change", "change", "parent"):
+                lib = libs[key]
+                us[key].append(device_us(torch, lambda: call(torch, lib, q, k, v, causal)))
+            rows.append(dict(shape=name, dtype=dname, b=b, h=h, hkv=hkv, t=t, s=s, d=d, causal=causal,
+                             bit_identical=same, parent_us=us["parent"], change_us=us["change"]))
+            print(f"compare {dname:8s} {name:14s} B{b} H{h}/{hkv} T{t} S{s} D{d}{' causal' if causal else ''}: "
+                  f"bit-identical {same}; device us/call parent {us['parent'][0]:.2f} / {us['parent'][1]:.2f}, "
+                  f"change {us['change'][0]:.2f} / {us['change'][1]:.2f}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(nvidia_smi=smi, parent=str(parent), rows=rows), indent=1))
+    return 0 if same_all else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=["auto", "16x4", "32x4", "64x1"], choices=sorted(VARIANTS))
-    ap.add_argument("--source", help="another attention.cu to build (variants auto / as-is)")
+    ap.add_argument("--source", help="another attention.cu (a parent's): bits and device time at COMPARE_SHAPES")
+    ap.add_argument("--source-no-dv", action="store_true", help="--source's C interface has no value width")
     ap.add_argument("--probe", action="store_true", help="also time the latency probes (PROBES)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "k3_variants.json"))
     args = ap.parse_args()
@@ -173,7 +234,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
-    source = Path(args.source).resolve() if args.source else ATTENTION_DIR / "attention.cu"
+    if args.source:
+        return compare(torch, Path(args.source).resolve(), not args.source_no_dv, Path(args.out), smi)
+    source = ATTENTION_DIR / "attention.cu"
     edit_sets = sorted({VARIANTS[n][1] for n in args.variants})
     with ThreadPoolExecutor(max_workers=len(edit_sets)) as pool:
         built = list(pool.map(lambda e: build(source, e), edit_sets))
