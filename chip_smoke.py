@@ -122,6 +122,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    below the card's.  Phase 3c holds K3 at MLA's two shapes, (DQK, DV) =
    (192, 128); phase 2 prints each K3 instantiation's registers and spill
    bytes.
+10. runs the plan analysers and the paper's deadline-aware serving (§V.D)
+   over full-width VGG-16 under ``plan_halp(overlap_rows=4)`` with phase 4's
+   weights and images (``phase_serving``): (1) ``check_plan`` on phase 4's,
+   phase 5's ``plan_even`` and phase 6's two scheme plans, and
+   ``check_plan_kernels`` on the first two, each clean, with its host ms and
+   checks; one K2 launch at every conv geometry the probe accepts, of the
+   probe's shape and within ``TOL`` of the plain version; a row-gap copy of
+   the plan refused by ``run_plan(verify=True)`` with no K1 launch; (2) the
+   latency curve of ``run_plan`` + head at batch 1..8 (host clock,
+   synchronised, mean of 5 after 3 warm-up calls; K1 launches per forward;
+   device busy ms at 4 and 8); (3) ``choose_batch_size`` over that curve and
+   the reliability at batch 4, D = 4/30 s, at Table III's seven channel
+   states and targets 0.999 / 0.99999; (4) a burst of 32 requests through
+   ``BatchingEngine`` at the width admitted at 100 Mbps, sigma 2 ms (fatal if
+   0), each request's logits equal to its single-request forward within
+   2e-5 x (1 + |y|), the first 4 within ``DEPTH_RTOL`` of the plain conv on
+   the CPU; (5) ``serve_trace`` over the curve with the serving sweep's
+   classes, channel and three arrival processes at its 3,600 s horizon,
+   admission on and off: every request completed or shed, nothing shed with
+   admission off, the Poisson trace's fast path equal to the scalar loop.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -190,6 +210,17 @@ NEAR_TIE, MAX_EXCLUDED = 1e-5, 0.25
 # float32; a second MoE layer would add 46.0 GB) and no MTP head (only
 # training reads it); MLA_BF16_STEPS bf16 decode steps.
 MLA_LAYERS, MLA_BF16_STEPS = 4, 16
+
+# Phase 10: deadline-aware serving (paper §V.D) of full-width VGG-16 under
+# HALP.  D = 4 frames at 30 FPS; the admission targets; Table III's channel
+# states (Mbps, ms of sigma; benchmarks/paper_tables.py l.172-175); the
+# latency curve's widths; the live burst, admitted at examples/serve_halp.py's
+# target; benchmarks/serve_sweep.py's --smoke horizon.
+DEADLINE_S = 4.0 / 30.0
+ADMISSION_TARGETS = (0.999, 0.99999)
+TABLE3_STATES = ((40, 1), (40, 5), (60, 5), (60, 9), (60, 14), (100, 14), (100, 18))
+CURVE_MAX_BATCH, BURST_REQUESTS, BURST_TARGET = 8, 32, 0.999
+SWEEP_HORIZON_S = 3_600.0
 
 # Phase 5's layouts of full-width VGG-16 over height shards of one card:
 # (a) capacity-weighted from plan_even(ratios=...), re-quantised to the
@@ -388,6 +419,19 @@ def kernel_family(name: str) -> str:
     return next((fam for key, fam in KERNEL_FAMILIES if key in name), "other")
 
 
+def profile_device(torch, fn) -> tuple[float, list]:
+    """One call of ``fn`` under the profiler: (device busy ms, its device-side
+    rows -- kernels, copies -- longest first).  Operator rows are left out:
+    they repeat their kernels' time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
+                       key=lambda a: -a.self_device_time_total)
+    return sum(a.self_device_time_total for a in by_kernel) / 1e3, by_kernel
+
+
 def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list, dict]:
     """Mean host-clock ms of 5 steady calls of ``forward`` (after one warm
     call), then one call under the profiler: (ms, device busy ms, the top
@@ -399,15 +443,7 @@ def steady_and_profiled(torch, forward, label: str) -> tuple[float, float, list,
         forward()
     torch.cuda.synchronize()
     fwd_ms = (time.perf_counter() - t0) / 5 * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        forward()
-        torch.cuda.synchronize()
-    # device-side rows only (kernels, copies): operator rows repeat their kernels' time
-    by_kernel = sorted((a for a in prof.key_averages()
-                        if a.device_type == torch.autograd.DeviceType.CUDA),
-                       key=lambda a: -a.self_device_time_total)
-    busy_ms = sum(a.self_device_time_total for a in by_kernel) / 1e3
+    busy_ms, by_kernel = profile_device(torch, forward)
     top = [dict(name=a.key, ms=a.self_device_time_total / 1e3, count=a.count)
            for a in by_kernel[:8] if a.self_device_time_total > 0]
     families: dict = {}
@@ -1381,6 +1417,282 @@ def phase_mla(torch) -> tuple[dict, dict]:
     return report, launches
 
 
+def scheme_plans():
+    """Phase 6's scheme plans: ViT-L/16 on secondaries of capacities 5:3:2
+    (the baseline assignment), and VGG-16 with every stage non_penetrative
+    at the same ratios."""
+    from repro_torch.core import (SCHEME_NP, CollabTopology, Platform, plan_from_scheme_layout,
+                                  plan_scheme, scheme_layout, stage_spans, vgg16_geom, vit_l16_geom)
+
+    topo = CollabTopology(host="e0", secondaries=("e1", "e2", "e3"),
+                          platforms={es: Platform(es, c * 1e12, c * 1e12)
+                                     for es, c in (("e0", 1.0), ("e1", 5.0), ("e2", 3.0), ("e3", 2.0))})
+    vit_plan = plan_scheme(vit_l16_geom(), topo)
+    net = vgg16_geom()
+    vgg_np_plan = plan_from_scheme_layout(scheme_layout(
+        net, topo.secondaries, ratios=vit_plan.ratios, assignment=(SCHEME_NP,) * len(stage_spans(net))))
+    return vit_plan, vgg_np_plan
+
+
+def sweep_trace_inputs():
+    """``benchmarks/serve_sweep.py``'s ``--smoke`` settings in the port's
+    types: the three deadline classes, its channel, and its three arrival
+    processes at the 3,600 s horizon."""
+    from repro_torch.core import OffloadChannel
+    from repro_torch.runtime import DeadlineClass, DiurnalProcess, FlashCrowdProcess, PoissonProcess
+
+    classes = (DeadlineClass("premium", 0.15, target=0.999, share=0.2),
+               DeadlineClass("standard", 0.4, target=0.99, share=0.5),
+               DeadlineClass("bulk", 2.0, target=0.9, share=0.3))
+    h = SWEEP_HORIZON_S
+    processes = {
+        "poisson": PoissonProcess(rate_hz=5.8, seed=101),
+        "diurnal": DiurnalProcess(base_rate_hz=4.0, amplitude=0.8, period_s=h, seed=202),
+        "flash_crowd": FlashCrowdProcess(base_rate_hz=3.0, bursts=((0.25 * h, 0.05 * h, 300.0),), seed=303),
+    }
+    return classes, OffloadChannel(rate_bps=100e6, sigma_s=2e-3), processes
+
+
+def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, dict]:
+    """Phase 10: the plan analysers and deadline-aware serving (paper §V.D)
+    over full-width VGG-16 under ``plan_halp(overlap_rows=4)``, with phase
+    4's weights and images (drawn here as ``serve`` draws them when run
+    alone; ``plain`` is phase 4's plain-conv forward of the first MAX_BATCH
+    images on the CPU, computed here when not given).  Returns the report
+    and the launches of K1 and K2 on its path: the probe's K2 launches, the
+    latency curve's and the burst's forwards."""
+    import dataclasses
+
+    from repro_torch.analysis import AnalysisError, check_plan, check_plan_kernels
+    from repro_torch.analysis.kernel_check import plan_kernel_calls
+    from repro_torch.core import (OffloadChannel, Segment, plan_even, plan_halp, rate_fluctuation,
+                                  service_reliability)
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+    from repro_torch.models import vgg
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import (BatchingEngine, ServeConfig, ServeLoopConfig, choose_batch_size,
+                                     make_trace, serve_trace)
+    from repro_torch.spatial import run_plan
+
+    t_start = time.perf_counter()
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = vgg.init(gen, vgg.FULL)
+        res = vgg.FULL.img_res
+        images = torch.randn((N_REQUESTS, res, res, vgg.FULL.in_channels), generator=gen, device="cuda")
+    if plain is None:
+        plain = vgg.apply(tree_map(lambda t: t.cpu(), params), vgg.FULL, images[:MAX_BATCH].cpu())
+    net = vgg.FULL.geom()
+    plan = plan_halp(net, overlap_rows=4)
+    even = plan_even(net, len(WEIGHTED_RATIOS), ratios=WEIGHTED_RATIOS)
+    vit_plan, np_plan = scheme_plans()
+    conv2d_cuda.launches = halo_conv2d_cuda.launches = 0
+
+    # (1) the analysers at full width: every plan the card runs is clean
+    analysis = {}
+    for name, p in (("halp", plan), ("plan_even", even), ("vit head_sequence", vit_plan),
+                    ("vgg non_penetrative", np_plan)):
+        t0 = time.perf_counter()
+        rep = check_plan(p)
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"check_plan {name}: {rep} in {ms:.3f} ms (host clock)")
+        check(rep.ok, f"check_plan refuses the {name} plan: {rep}")
+        analysis[name] = dict(checks=rep.checks, ms=ms)
+    calls = {}
+    for name, p in (("halp", plan), ("plan_even", even)):
+        t0 = time.perf_counter()
+        rep = check_plan_kernels(p)
+        ms = (time.perf_counter() - t0) * 1e3
+        deployed = plan_kernel_calls(p)
+        print(f"check_plan_kernels {name}: {rep} over {len(deployed)} conv geometries in {ms:.3f} ms "
+              "(host clock)")
+        check(rep.ok, f"check_plan_kernels refuses the {name} plan: {rep}")
+        analysis[name].update(kernel_checks=rep.checks, kernel_ms=ms, geometries=len(deployed))
+        calls.update(deployed)
+    # one K2 launch at every geometry the probe accepts, held to the probe's
+    # shape and to the plain version
+    pgen = torch.Generator(device="cuda").manual_seed(10)
+    probed = []
+    for (k, s, p, groups, cin, cout, hs, w), shapes in sorted(calls.items()):
+        if shapes is None:  # not a K2 geometry (check_plan_kernels agreed with the predicate)
+            continue
+        kw = dict(stride=s, padding=p, groups=groups)
+        want = shapes["out"]
+        x, top, bot, wt = (None if shapes[n] is None else torch.randn(shapes[n], generator=pgen, device="cuda")
+                           for n in ("x", "top", "bottom", "weights"))
+        wt *= math.sqrt(2.0 / (k * k * shapes["weights"][2]))
+        before = halo_conv2d_cuda.launches
+        y = halo_conv2d_cuda(x, top, bot, wt, **kw)
+        ref = halo_conv2d_ref(x, top, bot, wt, None, **kw)
+        torch.cuda.synchronize()
+        check(halo_conv2d_cuda.launches == before + 1, f"K2 did not launch at {shapes}")
+        check(tuple(y.shape) == want, f"K2 gave {tuple(y.shape)}, the probe {want}")
+        err = (y - ref).abs().max().item()
+        check(bool(((y - ref).abs() <= TOL["float32"] * (1 + ref.abs())).all()),
+              f"K2 disagrees with its plain version at {shapes} (max err {err})")
+        probed.append(dict(geometry=[k, s, p, groups, cin, cout, hs, w], shape=list(want), max_abs_err=err))
+    probe_launches = halo_conv2d_cuda.launches
+    print(f"  K2 launched once at each of the {len(probed)} of {len(calls)} geometries the probe accepts "
+          f"({probe_launches} launches); "
+          f"each gave the probe's shape, max |err| against the plain version "
+          f"{max(r['max_abs_err'] for r in probed):.3g}")
+    check(probed and probe_launches == len(probed), f"{probe_launches} K2 launches for {len(probed)} geometries")
+    # a corrupt plan (tests/test_analysis.py's row gap) is refused before any kernel
+    slot = next(sl for sl in plan.es_names if plan.parts[0].out[sl])
+    seg, part = plan.parts[0].out[slot], plan.parts[0]
+    bad_part = dataclasses.replace(part, out=dict(part.out, **{slot: Segment(seg.lo + 1, seg.hi)}))
+    bad = dataclasses.replace(plan, parts=(bad_part,) + plan.parts[1:])
+    before = conv2d_cuda.launches
+    try:
+        run_plan(bad, params["features"], vgg.apply_layer, images[:MAX_BATCH], verify=True)
+        refused = None
+    except AnalysisError as exc:
+        refused = exc.report
+    torch.cuda.synchronize()
+    check(refused is not None, "run_plan(verify=True) ran a plan with a row gap")
+    print(f"  row-gap plan (layer 0, slot {slot}: rows {seg.lo + 1}..{seg.hi}): run_plan(verify=True) "
+          f"raised AnalysisError {[(f.check, f.where) for f in refused.findings]}; K1 launches "
+          f"{conv2d_cuda.launches - before}")
+    check(any(f.check == "plan.coverage" for f in refused.findings), f"the row gap gave {refused}")
+    check(conv2d_cuda.launches == before, "K1 launched for a plan that failed verification")
+
+    # (2) the latency curve of the HALP forward (run_plan + head), b = 1..8;
+    # the plan was verified above, once, not per forward
+    def forward(batch):
+        return vgg.head(params, run_plan(plan, params["features"], vgg.apply_layer, batch))
+
+    curve, k1_per_fwd, busy, outs = {}, {}, {}, {}
+    for b in range(1, CURVE_MAX_BATCH + 1):
+        xb = images[:b]
+        for _ in range(3):
+            forward(xb)
+        torch.cuda.synchronize()
+        before = conv2d_cuda.launches
+        t0 = time.perf_counter()
+        for _ in range(5):
+            outs[b] = forward(xb)  # held below, after the burst
+            torch.cuda.synchronize()
+        curve[b] = (time.perf_counter() - t0) / 5
+        k1_per_fwd[b] = (conv2d_cuda.launches - before) / 5
+        if b in (4, 8):
+            busy[b] = profile_device(torch, lambda: forward(xb))[0] or float("nan")  # nan: nothing traced
+    print("latency curve of run_plan + head (host clock, mean of 5 after 3 warm-up, synchronised): "
+          + "; ".join(f"b={b} {curve[b] * 1e3:.3f} ms ({k1_per_fwd[b]:.0f} K1)" for b in curve))
+    print("  device busy in one profiled forward: "
+          + "; ".join(f"b={b} {ms:.3f} ms (idle share {1 - ms / (curve[b] * 1e3):.3f})" for b, ms in busy.items()))
+    check(all(n == k1_per_fwd[1] for n in k1_per_fwd.values()), f"K1 launches per forward vary: {k1_per_fwd}")
+
+    # (3) admission over the measured curve at Table III's channel states
+    admission = []
+    for mbps, sigma_ms in TABLE3_STATES:
+        ch = OffloadChannel(rate_bps=mbps * 1e6, sigma_s=sigma_ms * 1e-3)
+        widths = {t: choose_batch_size(lambda b: curve[b], DEADLINE_S, ch, target=t, max_batch=CURVE_MAX_BATCH)
+                  for t in ADMISSION_TARGETS}
+        r4 = service_reliability(ch, curve[4], DEADLINE_S)
+        admission.append(dict(rate_mbps=mbps, sigma_ms=sigma_ms, mu_ms=ch.mu_s * 1e3,
+                              phi_mbps=rate_fluctuation(ch) / 1e6, widths=widths, reliability_b4=r4))
+        print(f"  admission at {mbps} Mbps, sigma {sigma_ms} ms (mu {ch.mu_s * 1e3:.1f} ms of D "
+              f"{DEADLINE_S * 1e3:.1f} ms): choose_batch_size " + ", ".join(
+                  f"{w} at {t}" for t, w in widths.items()) + f"; reliability at b=4 {r4:.6f}")
+
+    # (4) a live burst through BatchingEngine at the admitted width
+    ch = OffloadChannel(rate_bps=100e6, sigma_s=2e-3)
+    width = choose_batch_size(lambda b: curve[b], DEADLINE_S, ch, target=BURST_TARGET, max_batch=CURVE_MAX_BATCH)
+    check(width >= 1, f"admission sheds everything at 100 Mbps, sigma 2 ms (curve {curve})")
+    eng = BatchingEngine(forward, ServeConfig(max_batch=width))
+    t0 = time.monotonic()
+    for i in range(BURST_REQUESTS):
+        eng.submit(images[i % len(images)], deadline_s=DEADLINE_S)
+    stats = eng.run_until_drained()
+    wall = time.monotonic() - t0
+    launches = {"conv2d": conv2d_cuda.launches, "halo_conv2d": halo_conv2d_cuda.launches}
+    check(stats["completed"] == BURST_REQUESTS, f"the burst completed {stats['completed']} requests")
+    print(f"live burst: {BURST_REQUESTS} requests at max_batch {width} (choose_batch_size at 100 Mbps, sigma 2 ms, "
+          f"target {BURST_TARGET}): p50 {stats['p50_latency_s'] * 1e3:.3f} ms p99 "
+          f"{stats['p99_latency_s'] * 1e3:.3f} ms, deadline met {stats['deadline_met_frac']:.4f} (engine clock, "
+          f"no offload), {BURST_REQUESTS / wall:.3f} req/s (wall {wall:.3f} s)")
+    # each request's logits against the single-request forward of its image
+    # (phase 4's lossless tolerance), and the first MAX_BATCH against the
+    # plain conv on the CPU
+    reqs = sorted(eng.completed, key=lambda r: r.rid)
+    single = torch.cat([forward(images[i:i + 1]) for i in range(len(images))])
+    got = torch.stack([r.result for r in reqs])
+    want = single[torch.arange(BURST_REQUESTS) % len(images)]
+    check(bool(torch.isfinite(got).all()), "non-finite logits in the burst")
+    share = ((got - want).abs() / (2e-5 * (1 + want.abs()))).max().item()
+    depth = (got[:MAX_BATCH].cpu() - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    print(f"  served logits vs the single-request forward: max |diff| {(got - want).abs().max().item():.3g} "
+          f"({share:.3f} of the limit 2e-5 x (1 + |y|)); first {MAX_BATCH} vs the plain conv on the CPU: "
+          f"{depth:.3g} (limit {DEPTH_RTOL} x {scale:.3g})")
+    check(share <= 1, "a served request's logits differ from its single-request forward")
+    check(depth <= DEPTH_RTOL * scale, "the served logits drift from the plain conv at depth")
+    # every width of the latency curve: its logits against the single-request
+    # forwards of the same images, and its first MAX_BATCH against the plain
+    # conv on the CPU
+    curve_share = {b: ((y - single[:b]).abs() / (2e-5 * (1 + single[:b].abs()))).max().item()
+                   for b, y in outs.items()}
+    curve_depth = {b: (y[:MAX_BATCH].cpu() - plain[:min(b, MAX_BATCH)]).abs().max().item()
+                   for b, y in outs.items()}
+    print("  latency curve's logits vs the single-request forwards (share of the limit 2e-5 x (1 + |y|)) "
+          "and vs the plain conv on the CPU (max |diff|, limit "
+          f"{DEPTH_RTOL} x {scale:.3g}): " + "; ".join(
+              f"b={b} {curve_share[b]:.3f}, {curve_depth[b]:.3g}" for b in outs))
+    check(all(torch.isfinite(y).all().item() for y in outs.values()), "non-finite logits in the latency curve")
+    check(all(v <= 1 for v in curve_share.values()),
+          f"a width of the latency curve differs from the single-request forwards: {curve_share}")
+    check(all(v <= DEPTH_RTOL * scale for v in curve_depth.values()),
+          f"a width of the latency curve drifts from the plain conv at depth: {curve_depth}")
+
+    # (5) trace-scale serving in virtual time over the measured curve
+    classes, sweep_ch, processes = sweep_trace_inputs()
+    lat_table = np.array([curve[b] for b in range(1, CURVE_MAX_BATCH + 1)])
+    traces = {}
+    for name, proc in processes.items():
+        trace = make_trace(proc, classes, SWEEP_HORIZON_S, seed=17)
+        rec = dict(n=len(trace), process=type(proc).__name__)
+        for policy, admit in (("shed", True), ("noshed", False)):
+            cfg = ServeLoopConfig(max_batch=CURVE_MAX_BATCH, max_delay_s=0.002, admission=admit,
+                                  channel=sweep_ch, seed=23)
+            t0 = time.perf_counter()
+            served = serve_trace(trace, lat_table, cfg)
+            wall_s = time.perf_counter() - t0
+            st, cs = served.stats(), served.class_stats()
+            check(st["completed"] + st["shed"] == len(trace), f"{name} {policy}: requests lost")
+            check(admit or st["shed"] == 0, f"{name}: shed {st['shed']} with admission off")
+            if name == "poisson":  # the vectorised fast path against the scalar event loop
+                slow = serve_trace(trace, lat_table, dataclasses.replace(cfg, fast_path=False))
+                same = (np.array_equal(served.fin, slow.fin, equal_nan=True)
+                        and np.array_equal(served.shed, slow.shed) and np.array_equal(served.met, slow.met)
+                        and np.array_equal(served.batch_size_counts, slow.batch_size_counts))
+                check(same, f"poisson {policy}: the fast path differs from the scalar loop")
+            rec[policy] = dict(overall=st, classes=cs, serve_wall_s=wall_s)
+            print(f"serve_trace {name} {policy}: n {len(trace)} p50 {st['p50_latency_s'] * 1e3:.3f} ms "
+                  f"p99 {st['p99_latency_s'] * 1e3:.3f} ms met {st['deadline_met_frac']:.4f} shed "
+                  f"{st['shed_rate']:.4f} mean batch {st['mean_batch']:.3f} ({wall_s:.2f} s of host)"
+                  + "".join(f"; {c} p50 {v['p50_latency_s'] * 1e3:.2f} p99 {v['p99_latency_s'] * 1e3:.2f} "
+                            f"met {v['deadline_met_frac']:.4f} shed {v['shed_rate']:.4f}" for c, v in cs.items()))
+        traces[name] = rec
+    fc = traces["flash_crowd"]
+    premium = {p: fc[p]["classes"]["premium"]["deadline_met_frac"] for p in ("shed", "noshed")}
+    print(f"  flash-crowd premium deadline met: shed {premium['shed']:.4f} vs no-shed {premium['noshed']:.4f}; "
+          f"poisson fast path == scalar loop")
+    phase_s = time.perf_counter() - t_start
+    print(f"  phase 10: {phase_s:.1f} s; launches {launches}")
+    report = dict(
+        phase_s=phase_s, analysis=analysis, probed=probed, probe_launches=probe_launches,
+        refused=[(f.check, f.where) for f in refused.findings],
+        curve_ms={b: v * 1e3 for b, v in curve.items()}, k1_per_forward=k1_per_fwd, device_busy_ms=busy,
+        curve_lossless_limit_share=curve_share, curve_plain_depth_max_abs=curve_depth,
+        deadline_s=DEADLINE_S, admission=admission,
+        burst=dict(stats, max_batch=width, target=BURST_TARGET, n=BURST_REQUESTS, wall_s=wall,
+                   requests_per_s=BURST_REQUESTS / wall, lossless_limit_share=share, plain_depth_max_abs=depth),
+        traces=traces, flash_premium_met=premium, launches=launches,
+    )
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -1390,20 +1702,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
-    from repro_torch.core import (
-        SCHEME_HALO,
-        SCHEME_HS,
-        SCHEME_NP,
-        CollabTopology,
-        Platform,
-        plan_even,
-        plan_from_scheme_layout,
-        plan_halp,
-        plan_scheme,
-        scheme_layout,
-        stage_spans,
-        vit_l16_geom,
-    )
+    from repro_torch.core import SCHEME_HALO, SCHEME_HS, plan_even, plan_halp
     from repro_torch.configs import get as get_arch
     from repro_torch.configs.steps import build
     from repro_torch.core.partition import _split_counts
@@ -1467,15 +1766,7 @@ def main() -> int:
           f"plan_even(ratios={WEIGHTED_RATIOS}) gives heights {weighted_heights}, expected {WEIGHTED_HEIGHTS}")
     layouts = {"weighted": spatial_calls(net, WEIGHTED_HEIGHTS, MAX_BATCH, weighted=True),
                "equal": spatial_calls(net, EQUAL_HEIGHTS, MAX_BATCH, weighted=False)}
-    # phase 6's scheme plans: ViT-L/16 on secondaries of capacities 5:3:2
-    # (the baseline assignment), and VGG-16 with every stage non_penetrative
-    topo = CollabTopology(host="e0", secondaries=("e1", "e2", "e3"),
-                          platforms={es: Platform(es, c * 1e12, c * 1e12)
-                                     for es, c in (("e0", 1.0), ("e1", 5.0), ("e2", 3.0), ("e3", 2.0))})
-    vit_plan = plan_scheme(vit_l16_geom(), topo)
-    vgg_np_plan = plan_from_scheme_layout(scheme_layout(
-        net, topo.secondaries, ratios=vit_plan.ratios,
-        assignment=(SCHEME_NP,) * len(stage_spans(net))))
+    vit_plan, vgg_np_plan = scheme_plans()
     vit_convs, vit_attns = scheme_calls(vit_plan, MAX_BATCH)
     np_convs, _ = scheme_calls(vgg_np_plan, MAX_BATCH)
     # path: the main path whose forward makes per_forward such calls
@@ -1546,6 +1837,30 @@ def main() -> int:
                   f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; "
                   f"FFMA {t_ffma:.4f})")
             check(ok, f"kernel disagrees with its plain version: {row}")
+    # K1 at the other widths of phase 10's latency curve (run_plan at batch
+    # 1..CURVE_MAX_BATCH, float32): the split count follows M = b x Ho x Wo,
+    # so every width's calls are held, not only MAX_BATCH's
+    curve_rows = []
+    for bw in range(1, CURVE_MAX_BATCH + 1):
+        if bw == MAX_BATCH:
+            continue
+        for (n, h, w, cin, cout, k, s), c in sorted(conv_shapes(plan, bw).items()):
+            x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+            wt = math.sqrt(2.0 / (k * k * cin)) * torch.randn((k, k, cin, cout), generator=gen, device="cuda")
+            b = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+            kw = dict(stride=s, padding=0, groups=1)
+            config = launch_config(x, wt, **kw)
+            got, want = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
+            diff = (got - want).abs()
+            ok = bool((diff <= TOL["float32"] * (1 + want.abs())).all()) and bool(torch.isfinite(got).all())
+            curve_rows.append(dict(batch=bw, shape=[n, h, w, cin, cout], k=k, stride=s, per_forward=c,
+                                   max_abs_err=diff.max().item(), within_tol=ok, **config))
+            check(ok, f"K1 disagrees with its plain version at batch {bw}: {curve_rows[-1]}")
+    by_width = {bw: [r for r in curve_rows if r["batch"] == bw] for bw in range(1, CURVE_MAX_BATCH + 1)}
+    by_width[MAX_BATCH] = [r for r in rows if r["path"] == "run_plan" and r["dtype"] == "float32"]
+    print("conv float32 run_plan at every width of the latency curve: "
+          + "; ".join(f"b={bw} {len(rs)} shapes, split counts {sorted({r['splits'] for r in rs})}, "
+                      f"max_err {max(r['max_abs_err'] for r in rs):.3g}" for bw, rs in by_width.items()))
 
     # -- 3b. the halo conv against its plain version, on the card -------------
     halo_cases = [dict(c, layout=name) for name, calls in layouts.items() for c in calls
@@ -1941,9 +2256,13 @@ def main() -> int:
     # -- 9. full-width DeepSeek-V3 at 4 layers: MLA, prefill and latent-cache decode
     mla_report, mla_launches = phase_mla(torch)
 
+    # -- 10. the plan analysers and deadline-aware serving of VGG-16 ----------
+    serving_report, serving_launches = phase_serving(torch, params, out["images"], plain)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
-    # launches it: run_plan (phase 4) and the two spatial layouts (phase 5)
+    # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
+    # launches also count phase 10's path
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
     fix_rows = [r for r in main_rows if r["path"] == "weighted-fixup"]
     halo_main = [r for r in halo_rows if r["per_forward"]]
@@ -1971,10 +2290,10 @@ def main() -> int:
         entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
-              + got_vit["conv2d"] + np_launches),
+              + got_vit["conv2d"] + np_launches + serving_launches["conv2d"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
-              sum(v["launches"]["halo_conv2d"] for v in spatial.values())),
+              sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
@@ -2015,7 +2334,7 @@ def main() -> int:
                       lossless_max_abs=lossless_err, plain_depth_max_abs=depth_err,
                       steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, top_device=top,
                       device_ms_by_kernel=fams),
-        "halo_cases": halo_rows, "spatial": spatial,
+        "curve_conv_cases": curve_rows, "halo_cases": halo_rows, "spatial": spatial,
         "spatial_per_forward": by_layout, "attention_cases": attn_rows,
         "vit": dict(segments=[(sg.scheme, sg.start, sg.stop) for sg in vit_plan.segments],
                     ratios=vit_plan.ratios, launches=got_vit, lossless_max_abs=v_err.max().item(),
@@ -2027,7 +2346,8 @@ def main() -> int:
         "vgg_np": dict(launches=np_launches, lossless_max_abs=np_err.max().item(),
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
-        "lm": lm_report, "moe": moe_report, "mla": mla_report, "k3_per_forward": k3_per_path,
+        "lm": lm_report, "moe": moe_report, "mla": mla_report, "serving": serving_report,
+        "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "
@@ -2045,7 +2365,9 @@ def main() -> int:
                 "and moonshot's 6-layer float32 prefill, its 64 decode steps and its bf16 prefill "
                 "(6 + 384 + 6), its 48-layer bf16 prefill and 16 decode steps (48 + 768), and "
                 "DeepSeek-V3's 4-layer float32 prefill and 64 decode steps and bf16 prefill and 16 decode "
-                "steps (4 + 256 + 4 + 64).",
+                "steps (4 + 256 + 4 + 64); phase 10 adds K1's launches in its latency curve (9 forwards "
+                "at each batch width 1..8, two profiled) and its live burst, and one K2 launch per conv "
+                "geometry its probe accepted.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,29 @@
+"""Static plan and kernel verification (no execution), the twin of the JAX
+package's ``repro.analysis``.
+
+The paper's correctness guarantee -- receptive-field-aware partitioning keeps
+distributed inference bit-identical to local inference -- is enforced
+dynamically by the ``run_plan`` losslessness tests.  This package proves the
+same invariants *by analysis*, in milliseconds per plan:
+
+* :mod:`~repro_torch.analysis.plan_check` -- row coverage, receptive-field
+  exactness, halo algebra/reach, message legality, auto-reduce monotonicity,
+  scheme-stage legality, head divisibility (pure integer arithmetic);
+* :mod:`~repro_torch.analysis.kernel_check` -- a shape-only probe of the
+  fused halo-conv kernel's wrapper on ``meta`` tensors (support-predicate
+  agreement and output shapes) for every geometry a plan deploys.
+
+``run_plan(verify=True)`` gates on :func:`check_plan`.
+"""
+from .findings import AnalysisError, Finding, Report
+from .kernel_check import check_kernel_geometry, check_plan_kernels
+from .plan_check import check_plan
+
+__all__ = [
+    "AnalysisError",
+    "Finding",
+    "Report",
+    "check_kernel_geometry",
+    "check_plan",
+    "check_plan_kernels",
+]

@@ -40,6 +40,7 @@ __all__ = [
     "plan_halp",
     "plan_even",
     "plan_halp_n",
+    "plan_halp_topology",
     "plan_layout",
     "split_rows",
     "plan_from_layout",
@@ -358,6 +359,29 @@ def plan_halp_n(
             ratios=ratios,
             auto_reduce=auto_reduce,
         )
+    )
+
+
+def plan_halp_topology(
+    net: ConvNetGeom,
+    topology: "CollabTopology",
+    overlap_rows: int = 4,
+    ratios: Sequence[float] | None = None,
+    auto_reduce: bool = True,
+) -> HALPPlan:
+    """HALP plan for a :class:`~repro_torch.core.topology.CollabTopology`.
+
+    ``ratios`` defaults to the topology's compute-capacity weights (segment
+    sizes proportional to effective FLOP/s)."""
+    if ratios is None:
+        ratios = topology.capacity_ratios()
+    return plan_halp_n(
+        net,
+        secondaries=topology.secondaries,
+        host=topology.host,
+        overlap_rows=overlap_rows,
+        ratios=ratios,
+        auto_reduce=auto_reduce,
     )
 
 

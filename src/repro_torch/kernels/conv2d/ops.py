@@ -80,10 +80,10 @@ GATHER_NAMES = {0: "a4/b4", 1: "a16/b4", 2: "a4/b16", 3: "a16/b16"}
 
 def check_operands(fn: str, x, weights, bias, groups) -> tuple[int, int]:
     """Raise on an input, weights or bias that the conv core does not take
-    (shared by both conv kernels' wrappers; ``fn`` names the caller in the
-    messages); returns (k, Cout)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} takes CPU or CUDA tensors, got {x.device}")
+    (shared by both conv kernels' wrappers and by the halo conv's shape
+    probe; ``fn`` names the caller in the messages); returns (k, Cout).
+    Shapes, types and layout only: each caller refuses the devices it does
+    not take where it dispatches."""
     if x.dim() != 4 or weights.dim() != 4:
         raise ValueError(f"need NHWC x and HWIO weights, got {tuple(x.shape)} and {tuple(weights.shape)}")
     cin = x.shape[3]
@@ -146,6 +146,8 @@ def conv2d_cuda(
     ho, wo = _check_args(x, weights, bias, stride, padding, groups)
     if x.device.type == "cpu":
         return conv2d_ref(x, weights, bias, stride=stride, padding=padding, groups=groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_cuda takes CPU or CUDA tensors, got {x.device}")
     y = torch.empty((x.shape[0], ho, wo, weights.shape[-1]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y

@@ -125,12 +125,39 @@ def halo_conv2d_cuda(
         bot = bot_halo if bot_halo is not None or not hi else x_shard.new_zeros((b, hi, w, c))
         return halo_conv2d_ref(x_shard, top, bot, weights, bias,
                                stride=stride, padding=padding, groups=groups)
+    if x_shard.device.type != "cuda":
+        raise ValueError(f"halo_conv2d_cuda takes CPU or CUDA tensors, got {x_shard.device}")
     if not b * ho * wo * weights.shape[-1]:  # nothing to compute: no launch, no count
         return x_shard.new_empty((b, ho, wo, weights.shape[-1]))
     y = launch(_lib(), x_shard, top_halo, bot_halo, weights, bias, stride, padding, groups,
                lo, hi, ho, wo, torch.cuda.current_stream(x_shard.device).cuda_stream)
     halo_conv2d_cuda.launches += 1
     return y
+
+
+def probe(
+    x_shard: torch.Tensor,
+    top_halo: torch.Tensor | None,
+    bot_halo: torch.Tensor | None,
+    weights: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    stride: int = 1,
+    padding: int = 1,
+    groups: int = 1,
+    lo: int | None = None,
+    hi: int | None = None,
+) -> tuple[int, int, int, int]:
+    """The output shape ``(B, Ho, Wo, Cout)`` that :func:`halo_conv2d_cuda`
+    returns for operands of these shapes, from the shapes alone: the
+    wrapper's own argument check run on ``meta`` tensors, so it raises
+    exactly where the wrapper raises.  Takes ``meta`` tensors only (the
+    wrapper refuses them), and launches nothing."""
+    if x_shard.device.type != "meta":
+        raise ValueError(f"probe takes meta tensors, got {x_shard.device}")
+    _, _, ho, wo = _check_args(x_shard, top_halo, bot_halo, weights, bias,
+                               stride, padding, groups, lo, hi)
+    return x_shard.shape[0], ho, wo, weights.shape[-1]
 
 
 def launch(lib, x, top, bot, weights, bias, stride, padding, groups, lo, hi, ho, wo, stream):

@@ -1,4 +1,37 @@
-"""Serving runtime of the port."""
-from .serve import BatchingEngine, Request, ServeConfig
+"""Serving runtime of the port: the batching engine, admission and
+trace-scale serving, and the traffic models."""
+from .serve import (
+    BatchingEngine,
+    Request,
+    ServeConfig,
+    ServedTrace,
+    ServeLoopConfig,
+    VirtualClock,
+    choose_batch_size,
+    serve_trace,
+)
+from .traffic import (
+    DeadlineClass,
+    DiurnalProcess,
+    FlashCrowdProcess,
+    PoissonProcess,
+    Trace,
+    make_trace,
+)
 
-__all__ = ["BatchingEngine", "Request", "ServeConfig"]
+__all__ = [
+    "BatchingEngine",
+    "DeadlineClass",
+    "DiurnalProcess",
+    "FlashCrowdProcess",
+    "PoissonProcess",
+    "Request",
+    "ServeConfig",
+    "ServeLoopConfig",
+    "ServedTrace",
+    "Trace",
+    "VirtualClock",
+    "choose_batch_size",
+    "make_trace",
+    "serve_trace",
+]

@@ -12,8 +12,9 @@ own scheme: halo segments through the HALP executor, hub segments
 parameters and input each secondary's scheme prescribes.
 
 Runs on one device: this is the semantic model of the collaboration, with the
-slots' work issued one after another on the current stream.  The ``verify=``
-static check of the JAX executor is not ported yet.
+slots' work issued one after another on the current stream.  ``verify=True``
+checks the plan statically (:func:`repro_torch.analysis.check_plan`) before
+any tensor is touched.
 """
 from __future__ import annotations
 
@@ -73,6 +74,7 @@ def run_plan(
     apply_layer,
     x: torch.Tensor,
     time_observer: Callable[[str, float, float], None] | None = None,
+    verify: bool = False,
 ) -> torch.Tensor:
     """Run the full plan; returns the merged final feature map (host side).
 
@@ -87,7 +89,18 @@ def run_plan(
     ``plan`` may also be a :class:`~repro_torch.core.partition.SchemePlan`:
     each segment then executes under its own scheme (halo segments recurse
     through this very function on their sub-plan) and the observer receives
-    samples attributed to physical ES names across all segments."""
+    samples attributed to physical ES names across all segments.
+
+    ``verify=True`` statically verifies the plan
+    (:func:`repro_torch.analysis.check_plan` -- coverage, receptive-field
+    halos, message legality) before touching any tensor, raising
+    :class:`repro_torch.analysis.AnalysisError` instead of producing a
+    silently wrong feature map from a corrupted plan: no kernel is launched
+    for a plan that fails."""
+    if verify:
+        from ..analysis import check_plan  # here: the analysis package imports spatial.halo
+
+        check_plan(plan).raise_if_failed("run_plan")
     if isinstance(plan, SchemePlan):
         return _run_scheme_plan(plan, layer_params, apply_layer, x, time_observer)
     net: ConvNetGeom = plan.net

@@ -464,3 +464,67 @@ def test_mla_apply_on_card_matches_cpu(card):
         torch.testing.assert_close(step.cpu(), want_step, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(cache.cpu(), cpu_cache, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(step[:, 0], got[:, i], rtol=2e-5, atol=2e-5)
+
+
+# geometries of the analysers' probe (k, s, p, groups, c_in, c_out, hs, w):
+# VGG's 3x3 rows, a stride-2 shard, a 1x1, a depthwise 5x5 and a ragged one
+PROBE_GEOMETRIES = [(3, 1, 1, 1, 64, 64, 37, 224), (3, 2, 1, 1, 32, 64, 10, 31), (1, 1, 0, 1, 16, 8, 3, 9),
+                    (5, 1, 2, 24, 24, 24, 7, 20), (3, 1, 1, 1, 3, 64, 1, 224)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", PROBE_GEOMETRIES, ids=lambda g: "k{}s{}p{}g{}c{}-{}hs{}w{}".format(*g))
+def test_halo_conv_probe_agrees_with_a_launch_on_card(card, geom):
+    """The shape probe of ``analysis.kernel_check`` (the wrapper's argument
+    check on ``meta`` tensors) predicts the shape of a real K2 launch at the
+    same geometry, and the launch agrees with the plain version."""
+    from repro_torch.analysis import check_kernel_geometry
+    from repro_torch.analysis.kernel_check import geometry_shapes
+    from repro_torch.kernels.halo_conv.ops import probe
+
+    k, s, p, groups, cin, cout, hs, w = geom
+    assert check_kernel_geometry(k, s, p, groups=groups, c_in=cin, c_out=cout, hs=hs, w=w, batch=2).ok
+    shapes = geometry_shapes(k, s, p, groups=groups, c_in=cin, c_out=cout, hs=hs, w=w, batch=2)
+    rng = np.random.default_rng(sum(geom))
+    ops = {n: None if v is None else torch.from_numpy(rng.standard_normal(v, dtype=np.float32)).to(card)
+           for n, v in shapes.items() if n != "out"}
+    # fan-in scaled, |y| ~ 1, as phase 3b's holds.  With unit weights |y| reaches 117, and
+    # float32 rounding alone (K2's and the plain version's, each within 2 u x sum |x||w| of
+    # float64) puts a few elements near y = 0 past 2e-5 x (1 + |y|): tools/k2_rounding.py
+    ops["weights"] *= (2.0 / (k * k * shapes["weights"][2])) ** 0.5
+    meta = {n: None if v is None else v.to("meta") for n, v in ops.items()}
+    kw = dict(stride=s, padding=p, groups=groups)
+    want_shape = probe(meta["x"], meta["top"], meta["bottom"], meta["weights"], **kw)
+    before = halo_conv2d_cuda.launches
+    y = halo_conv2d_cuda(ops["x"], ops["top"], ops["bottom"], ops["weights"], **kw)
+    assert halo_conv2d_cuda.launches == before + 1
+    assert tuple(y.shape) == want_shape == shapes["out"]
+    ref = halo_conv2d_ref(ops["x"], ops["top"], ops["bottom"], ops["weights"], None, **kw)
+    assert bool(((y - ref).abs() <= TOL[torch.float32] * (1 + ref.abs())).all())
+
+
+@pytest.mark.cuda
+def test_run_plan_verify_launches_nothing_for_a_corrupt_plan_on_card(card):
+    """``run_plan(verify=True)`` refuses the row-gap plan of the analysers'
+    tests before any kernel starts, and passes a valid plan."""
+    from repro_torch.analysis import AnalysisError
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = vgg.init(gen, vgg.SMOKE)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device="cuda")
+    plan = partition.plan_halp(vgg.SMOKE.geom(), overlap_rows=4)
+    slot = next(s for s in plan.es_names if plan.parts[0].out[s])
+    seg = plan.parts[0].out[slot]
+    part = plan.parts[0]
+    bad_part = type(part)(index=0, out=dict(part.out, **{slot: partition.Segment(seg.lo + 1, seg.hi)}),
+                          inp=part.inp)
+    bad = type(plan)(net=plan.net, parts=(bad_part,) + plan.parts[1:], es_names=plan.es_names,
+                     host=plan.host, slot_owner=plan.slot_owner)
+    before = (conv2d_cuda.launches, halo_conv2d_cuda.launches)
+    with pytest.raises(AnalysisError, match="plan.coverage"):
+        run_plan(bad, params["features"], vgg.apply_layer, x, verify=True)
+    torch.cuda.synchronize()
+    assert (conv2d_cuda.launches, halo_conv2d_cuda.launches) == before
+    got = run_plan(plan, params["features"], vgg.apply_layer, x, verify=True)
+    assert conv2d_cuda.launches > before[0]
+    torch.testing.assert_close(got, vgg.features(params, vgg.SMOKE, x), rtol=2e-5, atol=2e-5)

@@ -58,4 +58,8 @@ print(json.dumps({"imported": names, "bad": bad}))
     assert "repro_torch.models.attention" in out["imported"]
     assert "repro_torch.configs.steps" in out["imported"]
     assert "repro_torch.configs.deepseek_v3_671b" in out["imported"]
+    assert "repro_torch.analysis.plan_check" in out["imported"]
+    assert "repro_torch.analysis.kernel_check" in out["imported"]
+    assert "repro_torch.core.reliability" in out["imported"]
+    assert "repro_torch.runtime.traffic" in out["imported"]
     assert out["bad"] == []
