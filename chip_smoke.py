@@ -142,6 +142,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    classes, channel and three arrival processes at its 3,600 s horizon,
    admission on and off: every request completed or shed, nothing shed with
    admission off, the Poisson trace's fast path equal to the scalar loop.
+11. prices the paper's latency engines on the card (``phase_engines``, fed
+   phase 10's curve and phase 4's weights and images): (1) a ``Platform``
+   calibrated to the card's b = 1 forward (``schedule._calibrated``), the
+   DES's per-layer compute time beside K1's (or the pool's) device time at
+   the single-device shape; (2) the single-ES chain ``b x t_pre`` beside the
+   curve, b = 1..8 (a record); (3) Figs. 6-7 and Table II on card-class ESs
+   at 40-100 Gbps (``simulate_halp`` at 1 and 4 tasks, ``simulate_modnn``,
+   ``enhanced_modnn_delay``, ``halp_closed_form``, ``modnn_time``), the
+   closed form an upper bound on the DES within its pinned slack and never
+   looser than eq. 22, ``check_dag`` clean on every DAG built; (4)
+   ``optimize_plan(n_tasks=4, verify=True)`` on Table IV's heterogeneous
+   pair, ``check_template`` clean on its template, K1 held against its plain
+   version (and timed) at every conv shape of the searched plan, the plan
+   through ``run_plan(verify=True)`` at batch 4 -- its K1 launches equal to the
+   plan's, its logits within 2e-5 x (1 + |y|) of phase 4's single-device
+   forward and within ``DEPTH_RTOL`` of the plain conv on the CPU -- timed
+   and profiled beside the DES's compute jobs for the same work; (5)
+   ``serve_latency_table`` for card ESs at 100 Gbps beside the curve and
+   ``serve_trace`` over both (phase 10's traces, admission on; every request
+   completed or shed); (6) ``replay_trace`` of the searched plan over a
+   ``GaussMarkovTrace`` of the fast secondary's link (100 Gbps fading to as
+   low as 10).
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -1693,6 +1715,327 @@ def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, di
     return report, launches
 
 
+# Phase 11: the latency engines priced on the card.  The paper's link rates
+# (benchmarks/paper_tables.py: RATES) and the closed form's pinned slack on
+# the DES for the symmetric pair (tests/test_conformance.py: UPPER_SLACK);
+# Table IV's cluster (benchmarks/hetero_sweep.py: the "slow x0.35 @ 10 Gbps"
+# pair); the channel replay: the fast secondary's link starts at 100 Gbps
+# and wanders down to the slow one's 10, its epochs and seed.
+PAPER_RATES = (40e9, 60e9, 80e9, 100e9)
+CF_SLACK = {1: 1.05, 4: 1.11}
+SLOW_FACTOR, SLOW_GBPS, FAST_GBPS = 0.35, 10.0, 40.0
+REPLAY_BAND, REPLAY_EPOCHS, REPLAY_SEED = (10e9, 100e9), 200, 31
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def table4_topology(card):
+    """``benchmarks/hetero_sweep.py``'s heterogeneous pair on card-class ESs:
+    the host and "fast" at the card's platform, "slow" at 0.35x of it behind
+    10 Gbps, "fast" at 40 Gbps."""
+    from repro_torch.core import CollabTopology, Link
+
+    fast, slow = Link(FAST_GBPS * 1e9), Link(SLOW_GBPS * 1e9)
+    return CollabTopology(
+        host="e0", secondaries=("fast", "slow"),
+        platforms={"e0": card, "fast": card, "slow": card.scaled(SLOW_FACTOR, f"slow x{SLOW_FACTOR:g}")},
+        links={("e0", "fast"): fast, ("fast", "e0"): fast, ("e0", "slow"): slow, ("slow", "e0"): slow},
+    )
+
+
+class FixedPlan:
+    """The replay protocol's static planner: one plan every epoch, the
+    observations ignored (the paper's offline baseline)."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def plan_for_epoch(self):
+        return self.plan
+
+    def observe_transfer(self, src, dst, nbytes, elapsed_s):
+        pass
+
+    def observe_compute(self, es, flops, elapsed_s):
+        pass
+
+
+def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
+                  single=None) -> tuple[dict, dict, list]:
+    """Phase 11: the paper's latency engines and plan search, priced on a
+    platform calibrated to the card (``curve_ms`` is phase 10's latency curve
+    in ms by batch width), and the searched plan run through ``run_plan``
+    (K1) at batch MAX_BATCH with phase 4's weights and images (drawn as
+    ``serve`` draws them when not given; ``plain`` and ``single`` are phase
+    4's plain-conv forward on the CPU and single-device forward on the card).
+    Returns the report, K1's launches on its path and its per-shape holds
+    of K1 (rows as phase 3's)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.analysis import check_dag, check_template
+    from repro_torch.core import (Link, Sim, enhanced_modnn_delay, equal_ratios, evaluate_plan,
+                                  halp_closed_form, modnn_time, optimize_plan, plan_halp_topology,
+                                  replay_trace, serve_latency_table, simulate_halp, simulate_modnn,
+                                  speedup_ratio, standalone_time, vgg16_geom)
+    from repro_torch.core.events import DagTemplate, HalpBatchEvaluator, _layout_quantities, build_halp_dag
+    from repro_torch.core.schedule import _calibrated
+    from repro_torch.core.simulator import GaussMarkovTrace
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.models import vgg
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.layers import max_pool
+    from repro_torch.runtime import ServeLoopConfig, make_trace, serve_trace
+    from repro_torch.spatial import run_plan
+
+    t_start = time.perf_counter()
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = vgg.init(gen, vgg.FULL)
+        res = vgg.FULL.img_res
+        images = torch.randn((N_REQUESTS, res, res, vgg.FULL.in_channels), generator=gen, device="cuda")
+    x4 = images[:MAX_BATCH]
+    if single is None:
+        single = vgg.apply(params, vgg.FULL, x4)
+    if plain is None:
+        plain = vgg.apply(tree_map(lambda t: t.cpu(), params), vgg.FULL, x4.cpu())
+    net = vgg.FULL.geom()
+    sizes = net.sizes()
+    smi = nvidia_smi()
+    dags = {}
+
+    # (1) the card as a Platform: _calibrated fed with the b = 1 forward
+    card = _calibrated(smi.split(",")[0].strip(), PEAK_FLOPS["float32"], curve_ms[1] / 1e3)
+    print(f"card platform ({smi}): {card.name}, peak {card.peak_flops / 1e12:.3f} TFLOP/s (3xTF32), "
+          f"eff {card.eff_flops / 1e12:.4f} TFLOP/s = {vgg16_geom().total_flops() / 1e9:.3f} GFLOP / "
+          f"{curve_ms[1]:.3f} ms (phase 10's b = 1 forward)")
+    # per layer: the DES's compute time at b = 1 beside the device time of
+    # K1 (convs) or the pool at the single-device shape, from profiler
+    # windows; a window may trace nothing (nan), so it is taken up to three
+    # times, then the CUDA-event mean stands in (host-bound where the wrapper
+    # outlasts the kernel) and the row says so
+    def layer_us(fn) -> tuple[float, str]:
+        for _ in range(3):
+            us = device_us(torch, fn)
+            if math.isfinite(us):
+                return us, "profiler"
+        return time_ms(torch, fn) * 1e3, "events"
+
+    lgen = torch.Generator(device="cuda").manual_seed(11)
+    layers = []
+    for i, g in enumerate(net.layers):
+        if g.kind == "conv":
+            x = torch.randn((1, sizes[i] + 2 * g.p, sizes[i] + 2 * g.p, g.c_in), generator=lgen, device="cuda")
+            p = params["features"][i]
+            meas, src = layer_us(lambda x=x, p=p, g=g: conv2d_cuda(x, p["w"], p["b"], stride=g.s, padding=0))
+        else:
+            x = torch.randn((1, sizes[i], sizes[i], g.c_in), generator=lgen, device="cuda")
+            meas, src = layer_us(lambda x=x, g=g: max_pool(x, k=g.k, s=g.s))
+        des = card.compute_time(net.layer_flops(i)) * 1e6
+        layers.append(dict(layer=g.name, kind=g.kind, gflop=net.layer_flops(i) / 1e9, des_us=des,
+                           device_us=meas, source=src, des_over_device=des / meas))
+    print("per layer at b = 1, DES us (layer_flops / eff) vs device us (K1, or the pool; * CUDA events) and "
+          "their ratio: " + "; ".join(
+              f"{r['layer']} {r['des_us']:.1f} / {r['device_us']:.1f}{'*' if r['source'] == 'events' else ''} = "
+              f"{r['des_over_device']:.3f}" for r in layers))
+    conv_dev = sum(r["device_us"] for r in layers if r["kind"] == "conv") / 1e3
+    pool_dev = sum(r["device_us"] for r in layers if r["kind"] == "pool") / 1e3
+    print(f"  K1 device ms summed over the 13 convs {conv_dev:.3f}, pools {pool_dev:.3f}; the DES's features "
+          f"{sum(r['des_us'] for r in layers) / 1e3:.3f} ms, head {card.compute_time(net.head_flops) * 1e3:.3f} ms; "
+          f"the features' FLOPs over that device time: "
+          f"{(net.total_flops() - net.head_flops) / (conv_dev + pool_dev) / 1e9:.4f} TFLOP/s")
+    check(all(math.isfinite(r["device_us"]) and r["device_us"] > 0 for r in layers),
+          f"no device time for a layer: {layers}")
+
+    # (2) the single-ES chain against the measured curve (a record, not a gate)
+    t_pre = standalone_time(net, card)
+    widths = [dict(batch=b, des_ms=b * t_pre * 1e3, measured_ms=curve_ms[b], ratio=b * t_pre * 1e3 / curve_ms[b])
+              for b in range(1, CURVE_MAX_BATCH + 1)]
+    print("single-ES chain b x t_pre vs the measured curve (ms, ratio): "
+          + "; ".join(f"b={w['batch']} {w['des_ms']:.3f} / {w['measured_ms']:.3f} = {w['ratio']:.3f}" for w in widths))
+
+    # (3) the paper's figures on card-class ESs
+    figs = []
+    for rate in PAPER_RATES:
+        link = Link(rate)
+        one = simulate_halp(net, card, link)
+        four = simulate_halp(net, card, link, n_tasks=4)
+        m3 = simulate_modnn(net, card, link, 3)
+        m9 = simulate_modnn(net, card, link, 9)
+        enh = enhanced_modnn_delay(net, card, link)
+        cf = {n: halp_closed_form(net, card, link, n_tasks=n)["total"] for n in (1, 4)}
+        cf22 = {n: halp_closed_form(net, card, link, n_tasks=n, multitask_bound="eq22")["total"] for n in (1, 4)}
+        ev = {1: one["total"], 4: four["total"]}
+        for n in (1, 4):
+            check(cf[n] >= ev[n] * (1 - 1e-9), f"closed form {cf[n]} below the DES {ev[n]} at {rate:g} b/s")
+            check(cf[n] <= ev[n] * CF_SLACK[n], f"closed form {cf[n] / ev[n]:.4f}x the DES past {CF_SLACK[n]}")
+            check(cf[n] <= cf22[n] + 1e-15 and (n > 1 or cf[n] == cf22[n]), f"tightened bound looser than eq. 22")
+        for key, sim in ((f"halp1@{rate:g}", one["sim"]), (f"halp4@{rate:g}", four["sim"]),
+                         (f"modnn3@{rate:g}", m3["sim"]), (f"modnn9@{rate:g}", m9["sim"])):
+            dags[key] = check_dag(sim)
+        row = dict(rate_gbps=rate / 1e9, t_pre_ms=t_pre * 1e3, halp_ms=one["total"] * 1e3,
+                   speedup=t_pre / one["total"], rho=speedup_ratio(one["total"], t_pre),
+                   modnn3_rho=speedup_ratio(m3["total"], t_pre),
+                   modnn3_closed_form_ms=modnn_time(net, card, link, 3) * 1e3,
+                   avg_delay4_ms=four["avg_delay"] * 1e3, speedup4=t_pre / four["avg_delay"],
+                   halp_fps=4.0 / four["total"], modnn9_fps=1.0 / m9["total"], enh_modnn_fps=enh["throughput"],
+                   closed_form_ms={n: cf[n] * 1e3 for n in cf}, cf_over_des={n: cf[n] / ev[n] for n in cf},
+                   eq22_ms=cf22[4] * 1e3)
+        figs.append(row)
+        print(f"  {rate / 1e9:.0f} Gbps: Fig. 6 HALP {row['halp_ms']:.4f} ms, t_pre/T {row['speedup']:.3f}x "
+              f"(rho {row['rho']:.4f}; MoDNN-3 rho {row['modnn3_rho']:.4f}, closed form "
+              f"{row['modnn3_closed_form_ms']:.4f} ms); Fig. 7 4-task avg delay {row['avg_delay4_ms']:.4f} ms "
+              f"({row['speedup4']:.3f}x); Table II fps HALP {row['halp_fps']:.1f}, MoDNN-9 {row['modnn9_fps']:.1f}, "
+              f"enhanced MoDNN {row['enh_modnn_fps']:.1f}; closed form / DES {row['cf_over_des'][1]:.4f} (1 task), "
+              f"{row['cf_over_des'][4]:.4f} (4; eq. 22 {row['eq22_ms']:.4f} ms)")
+
+    # (4) search the Table IV cluster, then run the searched plan through K1
+    topo = table4_topology(card)
+    t0 = time.perf_counter()
+    res = optimize_plan(net, topo, n_tasks=4, verify=True)
+    search_s = time.perf_counter() - t0
+    equal = evaluate_plan(net, topo, equal_ratios(topo), 4, n_tasks=4)
+    print(f"optimize_plan on Table IV's cluster (fast {FAST_GBPS:g} Gbps, slow x{SLOW_FACTOR:g} @ {SLOW_GBPS:g} "
+          f"Gbps), 4 tasks, verify=True: equal split {equal * 1e3:.4f} ms, optimum {res.makespan * 1e3:.4f} ms "
+          f"(gain {1 - res.makespan / equal:.4f}) at ratios {[round(r, 4) for r in res.ratios]}, overlap "
+          f"{res.overlap_rows}, {res.evaluations} evaluations in {search_s:.3f} s of host")
+    check(res.makespan <= equal, "the search returned a plan slower than the equal split")
+    lay = HalpBatchEvaluator(net, topo, n_tasks=4).layout_for(res.ratios, res.overlap_rows)
+    tmpl = DagTemplate.from_layouts([lay] * 4, topo, physical=False)
+    tmpl_rep = check_template(tmpl, _layout_quantities([lay] * 4), topo)
+    print(f"  check_template on its template: {tmpl_rep}")
+    check(tmpl_rep.ok, f"check_template refuses the searched plan's template: {tmpl_rep}")
+    dags["template"] = check_dag(tmpl.sim)
+    plan = plan_halp_topology(net, topo, overlap_rows=res.overlap_rows, ratios=res.ratios)
+    check(plan == res.plan, "the port's planner gives another plan than the search returned")
+    shapes = conv_shapes(plan, MAX_BATCH)
+    want = sum(shapes.values())
+    # K1 against its plain version at every conv shape the searched plan
+    # gives it (phase 3 held phase 4's plan's), timed as phase 3 times
+    holds = []
+    for (n, h, w, cin, cout, k, st), per_forward in sorted(shapes.items()):
+        x = torch.randn((n, h, w, cin), generator=lgen, device="cuda")
+        wt = math.sqrt(2.0 / (k * k * cin)) * torch.randn((k, k, cin, cout), generator=lgen, device="cuda")
+        b = 0.1 * torch.randn((cout,), generator=lgen, device="cuda")
+        kw = dict(stride=st, padding=0, groups=1)
+        got, ref = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
+        diff = (got - ref).abs()
+        ok = bool((diff <= TOL["float32"] * (1 + ref.abs())).all()) and bool(torch.isfinite(got).all())
+        xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+        flops = 2.0 * k * k * cin * cout * n * got.shape[1] * got.shape[2]
+        nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * 4
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
+        holds.append(dict(shape=[n, h, w, cin, cout], k=k, stride=st, dtype="float32", path="engines",
+                          per_forward=per_forward, max_abs_err=diff.max().item(), within_tol=ok,
+                          ms=time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw)),
+                          plain_ms=time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw)),
+                          library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, b, stride=st)),
+                          bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                          ffma_bound_ms=max(bound_ms(flops, nbytes, "float32", ffma=True))))
+        check(ok, f"K1 disagrees with its plain version at the searched plan's shape {holds[-1]}")
+    per_fwd = {key: sum(r[key] * r["per_forward"] for r in holds)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"  K1 at the searched plan's {len(holds)} conv shapes ({want} calls a forward): max |err| "
+          f"{max(r['max_abs_err'] for r in holds):.3g}; per forward (CUDA events) kernel {per_fwd['ms']:.3f} ms, "
+          f"plain {per_fwd['plain_ms']:.3f}, F.conv2d {per_fwd['library_ms']:.3f}, bound {per_fwd['bound_ms']:.3f}")
+
+    def forward(batch):
+        return vgg.head(params, run_plan(plan, params["features"], vgg.apply_layer, batch))
+
+    conv2d_cuda.launches = 0
+    y = vgg.head(params, run_plan(plan, params["features"], vgg.apply_layer, x4, verify=True))
+    torch.cuda.synchronize()
+    first_launches = conv2d_cuda.launches
+    fwd_ms, busy_ms, top, fams = steady_and_profiled(torch, lambda: forward(x4), "searched plan run_plan")
+    torch.cuda.synchronize()
+    launches = {"conv2d": conv2d_cuda.launches}
+    check(first_launches == want, f"the searched plan launched K1 {first_launches} times, the plan implies {want}")
+    check(launches["conv2d"] == 8 * want, f"{launches['conv2d']} K1 launches in 8 forwards of {want}")
+    check(bool(torch.isfinite(y).all()), "non-finite logits from the searched plan")
+    share = ((y - single).abs() / (2e-5 * (1 + single.abs()))).max().item()
+    depth = (y.cpu() - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    print(f"  searched plan through run_plan(verify=True): {first_launches} K1 launches (the plan implies {want}); "
+          f"logits vs phase 4's single-device forward {share:.3f} of the limit 2e-5 x (1 + |y|), vs the plain conv "
+          f"on the CPU {depth:.3g} (limit {DEPTH_RTOL} x {scale:.3g})")
+    check(share <= 1, "the searched plan is not lossless against the single-device forward")
+    check(depth <= DEPTH_RTOL * scale, "the searched plan drifts from the plain conv at depth")
+    # the same work priced: the plan's compute jobs for MAX_BATCH tasks with
+    # every ES at the card's platform, summed (one card runs every slot)
+    one_card = table4_topology(card)
+    one_card = dataclasses.replace(one_card, platforms={es: card for es in one_card.platforms})
+    sim = Sim()
+    build_halp_dag(sim, [plan] * MAX_BATCH, one_card)
+    dags["searched plan on one card"] = check_dag(sim)
+    priced_ms = sum(j.duration for j in sim.jobs if not j.resource.startswith("link:")) * 1e3
+    print(f"  steady {fwd_ms:.3f} ms, device busy {busy_ms:.3f} ms; the DES's compute jobs of the same work on "
+          f"the card platform {priced_ms:.3f} ms (busy / priced {busy_ms / priced_ms:.3f})")
+    for name, rep in dags.items():
+        check(rep.ok, f"check_dag refuses the {name} DAG: {rep}")
+    print(f"  check_dag clean on all {len(dags)} DAGs built "
+          f"({sum(r.checks for r in dags.values())} checks)")
+
+    # (5) serve_latency_table for card ESs at 100 Gbps beside the curve, and
+    # serve_trace over both with phase 10's traces, admission on
+    table = serve_latency_table(net, card, Link(100e9), max_batch=CURVE_MAX_BATCH)[0]
+    curve = np.array([curve_ms[b] / 1e3 for b in range(1, CURVE_MAX_BATCH + 1)])
+    print("serve_latency_table (card ESs, 100 Gbps) vs the measured curve (ms): "
+          + "; ".join(f"b={b} {table[b - 1] * 1e3:.3f} / {curve[b - 1] * 1e3:.3f}"
+                      for b in range(1, CURVE_MAX_BATCH + 1)))
+    classes, sweep_ch, processes = sweep_trace_inputs()
+    cfg = ServeLoopConfig(max_batch=CURVE_MAX_BATCH, max_delay_s=0.002, admission=True, channel=sweep_ch, seed=23)
+    served = {}
+    for name, proc in processes.items():
+        trace = make_trace(proc, classes, SWEEP_HORIZON_S, seed=17)
+        for tname, tab in (("des", table), ("curve", curve)):
+            out_t = serve_trace(trace, tab, cfg)
+            st, cs = out_t.stats(), out_t.class_stats()
+            check(st["completed"] + st["shed"] == len(trace), f"{name} over the {tname} table: requests lost")
+            served[f"{name}/{tname}"] = dict(overall=st, classes=cs)
+            print(f"  serve_trace {name} over the {tname} table: n {len(trace)} p50 {st['p50_latency_s'] * 1e3:.3f} "
+                  f"ms p99 {st['p99_latency_s'] * 1e3:.3f} ms met {st['deadline_met_frac']:.4f} shed "
+                  f"{st['shed_rate']:.4f}" + "".join(
+                      f"; {c} met {v['deadline_met_frac']:.4f} shed {v['shed_rate']:.4f}" for c, v in cs.items()))
+
+    # (6) the searched plan, held static, replayed over a fading fast link
+    lo, hi = REPLAY_BAND
+    rates = GaussMarkovTrace(lo=lo, hi=hi, start=hi, seed=REPLAY_SEED).rates(REPLAY_EPOCHS)
+    recs = replay_trace(net, topo, FixedPlan(plan), link_rates={("e0", "fast"): rates, ("fast", "e0"): rates})
+    spans = np.array([r["makespan"] for r in recs])
+    p50, p99 = np.percentile(spans, 50) * 1e3, np.percentile(spans, 99) * 1e3
+    print(f"replay_trace of the searched plan, {REPLAY_EPOCHS} epochs of GaussMarkovTrace({lo / 1e9:g}-"
+          f"{hi / 1e9:g} Gbps, start {hi / 1e9:g}, seed {REPLAY_SEED}; mean {np.mean(rates) / 1e9:.2f} Gbps) on "
+          f"the e0<->fast link: makespan p50 {p50:.4f} ms p99 {p99:.4f} ms (nominal {res.makespan * 1e3:.4f} ms "
+          f"at {FAST_GBPS:g} Gbps)")
+    check(np.isfinite(spans).all() and len(recs) == REPLAY_EPOCHS, "the replay lost epochs")
+
+    phase_s = time.perf_counter() - t_start
+    print(f"  phase 11: {phase_s:.1f} s; launches {launches}")
+    report = dict(
+        phase_s=phase_s, nvidia_smi=smi, card=dataclasses.asdict(card), layers=layers,
+        k1_conv_device_ms=conv_dev, pool_device_ms=pool_dev, widths=widths, figures=figs,
+        search=dict(ratios=res.ratios, overlap_rows=res.overlap_rows, makespan_ms=res.makespan * 1e3,
+                    equal_ms=equal * 1e3, evaluations=res.evaluations, host_s=search_s,
+                    template_checks=tmpl_rep.checks),
+        k1_holds=holds, k1_per_forward_ms=per_fwd,
+        searched_run=dict(k1_per_forward=want, lossless_limit_share=share, plain_depth_max_abs=depth,
+                          steady_forward_ms=fwd_ms, device_busy_ms=busy_ms, priced_ms=priced_ms,
+                          top_device=top, device_ms_by_kernel=fams),
+        dag_checks={k: r.checks for k, r in dags.items()},
+        serve_latency_table_ms=(table * 1e3).tolist(), served=served,
+        replay=dict(band_bps=REPLAY_BAND, epochs=REPLAY_EPOCHS, seed=REPLAY_SEED, p50_ms=p50, p99_ms=p99),
+        launches=launches,
+    )
+    return report, launches, holds
+
+
 def main() -> int:
     import torch
 
@@ -1731,10 +2074,7 @@ def main() -> int:
 
     # -- 1. the card ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = nvidia_smi()
     print(f"device: {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(smi)
@@ -2259,12 +2599,17 @@ def main() -> int:
     # -- 10. the plan analysers and deadline-aware serving of VGG-16 ----------
     serving_report, serving_launches = phase_serving(torch, params, out["images"], plain)
 
+    # -- 11. the latency engines and plan search, priced on the card ---------
+    engines_report, engines_launches, engines_holds = phase_engines(
+        torch, serving_report["curve_ms"], params, out["images"], plain, single)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
     # launches also count phase 10's path
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
     fix_rows = [r for r in main_rows if r["path"] == "weighted-fixup"]
+    main_rows += engines_holds
     halo_main = [r for r in halo_rows if r["per_forward"]]
 
     def per_fwd(rs, key: str) -> float:
@@ -2290,7 +2635,7 @@ def main() -> int:
         entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
-              + got_vit["conv2d"] + np_launches + serving_launches["conv2d"]),
+              + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
@@ -2301,7 +2646,7 @@ def main() -> int:
     ]
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
-                for path in ("run_plan", "weighted-fixup", "vit", "vgg-np")}
+                for path in ("run_plan", "weighted-fixup", "vit", "vgg-np", "engines")}
     # K3 per forward of each path (the LM's decode: per step), and device ms
     # per forward from the profiler windows (us per call x calls per forward)
     k3_per_path = {}
@@ -2347,13 +2692,14 @@ def main() -> int:
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
         "lm": lm_report, "moe": moe_report, "mla": mla_report, "serving": serving_report,
+        "engines": engines_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
                 "forward of each main path that launches the kernel (batch 4): conv2d over a "
                 "run_plan forward (39 calls), the weighted spatial forward's 52 fix-up convs, "
-                "a ViT-L/16 scheme-plan forward (221 calls) and a VGG-16 non_penetrative "
-                "forward (39 calls); halo_conv2d over one weighted (52 calls) and one equal "
+                "a ViT-L/16 scheme-plan forward (221 calls), a VGG-16 non_penetrative "
+                "forward (39 calls) and a forward of phase 11's searched plan (39 calls); halo_conv2d over one weighted (52 calls) and one equal "
                 "(91 calls) spatial forward; flash_attention over a ViT-L/16 forward (72 "
                 "calls), a Qwen3-4B prefill forward of 4 x 512 tokens (36 calls) and one of its "
                 "decode steps at position 64 (36 calls), and a 6-layer float32 moonshot-v1-16b-a3b "
@@ -2367,7 +2713,8 @@ def main() -> int:
                 "DeepSeek-V3's 4-layer float32 prefill and 64 decode steps and bf16 prefill and 16 decode "
                 "steps (4 + 256 + 4 + 64); phase 10 adds K1's launches in its latency curve (9 forwards "
                 "at each batch width 1..8, two profiled) and its live burst, and one K2 launch per conv "
-                "geometry its probe accepted.",
+                "geometry its probe accepted; phase 11 adds K1's launches in 8 forwards of the searched "
+                "plan (one under run_plan(verify=True), one warm-up, 5 steady calls and one profiled).",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,12 +9,17 @@ same invariants *by analysis*, in milliseconds per plan:
 * :mod:`~repro_torch.analysis.plan_check` -- row coverage, receptive-field
   exactness, halo algebra/reach, message legality, auto-reduce monotonicity,
   scheme-stage legality, head divisibility (pure integer arithmetic);
+* :mod:`~repro_torch.analysis.dag_check` -- acyclicity of dependency +
+  resource-FIFO edges (static deadlock detection), transfer endpoint
+  locality, orphan transfers, template-vs-scalar-builder duration audits;
 * :mod:`~repro_torch.analysis.kernel_check` -- a shape-only probe of the
   fused halo-conv kernel's wrapper on ``meta`` tensors (support-predicate
   agreement and output shapes) for every geometry a plan deploys.
 
-``run_plan(verify=True)`` gates on :func:`check_plan`.
+``optimize_plan(verify=True)`` and ``run_plan(verify=True)`` gate on
+:func:`check_plan`.
 """
+from .dag_check import check_dag, check_template
 from .findings import AnalysisError, Finding, Report
 from .kernel_check import check_kernel_geometry, check_plan_kernels
 from .plan_check import check_plan
@@ -23,7 +28,9 @@ __all__ = [
     "AnalysisError",
     "Finding",
     "Report",
+    "check_dag",
     "check_kernel_geometry",
     "check_plan",
     "check_plan_kernels",
+    "check_template",
 ]

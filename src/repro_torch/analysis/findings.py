@@ -8,7 +8,7 @@ checks performed (so tests can assert an analyzer actually exercised its
 checklist rather than silently skipping it).
 
 Analyzers never raise on bad input -- they report.  Callers that want
-exception semantics (``run_plan(verify=True)``)
+exception semantics (``optimize_plan(verify=True)``, ``run_plan(verify=True)``)
 use :meth:`Report.raise_if_failed`.
 """
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Network geometry for the planner: the port's copy of ``ConvNetGeom``,
-``vgg16_geom`` and ``vit_l16_geom`` from ``repro/core/nets.py`` (analytical layer geometry and FLOP
-accounting, kept apart from the runnable models in ``repro_torch.models``)."""
+``vgg16_geom`` and ``vit_l16_geom`` from ``repro/core/nets.py`` (analytical layer geometry, FLOP
+and byte accounting, kept apart from the runnable models in ``repro_torch.models``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from .rf import LayerGeom, attn, conv, out_size, pool
 
-__all__ = ["ConvNetGeom", "vgg16_geom", "vit_l16_geom"]
+__all__ = ["ConvNetGeom", "vgg16_geom", "vit_l16_geom", "DTYPE_BYTES"]
+
+DTYPE_BYTES = 4  # paper assumes float32 tensors (eq. 10 note)
 
 
 @dataclass(frozen=True)
@@ -42,6 +44,16 @@ class ConvNetGeom:
         o = self.sizes()[i + 1]
         r = o if rows is None else rows
         return g.flops_per_out_row(out_width=o) * r
+
+    def total_flops(self) -> float:
+        return sum(self.layer_flops(i) for i in range(len(self.layers))) + self.head_flops
+
+    def feature_bytes(self, i: int, rows: int | None = None) -> float:
+        """Bytes of the *output* tensor of layer i restricted to ``rows`` rows."""
+        g = self.layers[i]
+        o = self.sizes()[i + 1]
+        r = o if rows is None else rows
+        return DTYPE_BYTES * r * o * g.c_out
 
 
 def vgg16_geom(in_rows: int = 224) -> ConvNetGeom:

@@ -5,8 +5,9 @@ Segment/plan data model, the N-way slot layout with auto-reduction, and the
 materialised :class:`HALPPlan` that :func:`repro_torch.spatial.run_plan`
 executes, the N-way contiguous split :func:`plan_even` whose row shares
 the spatial engine deploys, and the per-stage scheme half (:func:`plan_scheme`
-and the :class:`SchemePlan` it materialises).  The batched-DES layout walk and
-the scheme plans' communication accounting are not ported yet.
+and the :class:`SchemePlan` it materialises), with the layout walk and
+signatures the batched DES keys on and the per-stage communication
+accounting.
 
 The host ES partitions every layer's *output rows* into contiguous **slots**
 along the row axis.  Slots alternate between secondary segments and host-owned
@@ -25,7 +26,7 @@ from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import TYPE_CHECKING, Sequence
 
-from .nets import ConvNetGeom
+from .nets import DTYPE_BYTES, ConvNetGeom
 from .rf import input_range_exact
 
 if TYPE_CHECKING:  # typing only
@@ -60,6 +61,7 @@ __all__ = [
     "SchemePlan",
     "plan_from_scheme_layout",
     "plan_scheme",
+    "comm_bytes_per_stage",
 ]
 
 
@@ -149,6 +151,24 @@ class HALPPlan:
     def secondary_slots(self) -> tuple[str, ...]:
         return tuple(s for s in self.es_names if self.owner_of(s) != self.host)
 
+    @property
+    def zone_slots(self) -> tuple[str, ...]:
+        return tuple(s for s in self.es_names if self.owner_of(s) == self.host)
+
+    def adjacent_zones(self, sec_slot: str) -> tuple[str, ...]:
+        """Host zone slots bordering a secondary slot (above first, in row order)."""
+        idx = self.es_names.index(sec_slot)
+        out = []
+        for j in (idx - 1, idx + 1):
+            if 0 <= j < len(self.es_names) and self.owner_of(self.es_names[j]) == self.host:
+                out.append(self.es_names[j])
+        return tuple(out)
+
+    def adjacent_secondaries(self, zone_slot: str) -> tuple[str, str]:
+        """The (above, below) secondary slots bordering a host zone."""
+        idx = self.es_names.index(zone_slot)
+        return self.es_names[idx - 1], self.es_names[idx + 1]
+
     def active_secondaries(self, layer: int) -> tuple[str, ...]:
         """Secondary slots owning at least one row at ``layer``."""
         return tuple(s for s in self.secondary_slots if self.parts[layer].out[s])
@@ -169,6 +189,34 @@ class HALPPlan:
         got = self.parts[layer].out[dst]
         lo, hi = _message_iv((need.lo, need.hi), (own.lo, own.hi), (got.lo, got.hi))
         return Segment(lo, hi) if lo <= hi else EMPTY
+
+    def message_bytes(self, layer: int, src: str, dst: str) -> float:
+        seg = self.message(layer, src, dst)
+        if not seg:
+            return 0.0
+        g = self.net.layers[layer]
+        width = self.net.sizes()[layer + 1]
+        return DTYPE_BYTES * seg.rows * width * g.c_out
+
+
+# Cross-candidate cache of per-layer walk quantities (see PlanLayout.walk):
+# a layer's priced rows are a pure function of (its slot boundaries, the next
+# layer's input needs), and coordinate-descent candidates share most layers.
+_WALK_LAYER_CACHE: dict[tuple, tuple] = {}
+
+
+def _union_iv_rows(ivs: list[tuple[int, int]]) -> int:
+    """Distinct rows covered by possibly-overlapping intervals (a 1-row middle
+    secondary can owe the *same* row to two adjacent zones; it computes it
+    once)."""
+    rows = 0
+    cur_hi = 0
+    for lo, hi in sorted(iv for iv in ivs if iv[0] <= iv[1]):
+        lo = max(lo, cur_hi + 1)
+        if hi >= lo:
+            rows += hi - lo + 1
+            cur_hi = hi
+    return rows
 
 
 def _split_counts(total: int, ratios: Sequence[float]) -> list[int]:
@@ -446,7 +494,10 @@ class PlanLayout:
     Slot ``p`` of layer ``i`` owns output rows ``bounds[i][p]+1 ..
     bounds[i][p+1]``; even positions are secondary segments, odd positions are
     host zones.  :func:`plan_from_layout` materialises it into a
-    :class:`HALPPlan`."""
+    :class:`HALPPlan`.  ``signature`` fingerprints the *structure* of the
+    job/message DAG the layout induces (which sends exist per secondary per
+    layer) -- two layouts with equal signatures differ only in job
+    durations, and the batched DES (``events.DagTemplate``) keys on it."""
 
     net: ConvNetGeom
     host: str
@@ -462,6 +513,120 @@ class PlanLayout:
         self.slots, self.owners = _slot_names(self.secondaries, self.host)
         self.n_slots = len(self.slots)
         self.n_layers = len(self.bounds)
+        self.sec_pos = tuple(range(0, self.n_slots, 2))
+        self.zone_pos = tuple(range(1, self.n_slots, 2))
+        self._walked: tuple | None = None
+
+    def walk(self) -> tuple:
+        """One fused pass over the layout producing everything the batched
+        DES evaluator needs, cached: ``(signature, init_rows, sec_rows_per_
+        layer, zone_rows_per_layer, final_rows)``.
+
+        The row lists follow the exact job order of the DAG builder's per-task
+        blocks (``events._layout_quantities`` stitches them into the template
+        parameter vector); the logic is the interval twin of
+        ``events.sec_step`` / ``events.zone_step``, inlined for speed -- any
+        divergence from those reference step functions is caught bit-exactly
+        by the template build self-check."""
+        if self._walked is not None:
+            return self._walked
+        bounds, inp = self.bounds, self.inp
+        n_layers, n_slots = self.n_layers, self.n_slots
+        sec_pos, zone_pos = self.sec_pos, self.zone_pos
+        init_rows = tuple(
+            max(0, inp[0][p][1] - inp[0][p][0] + 1) for p in sec_pos
+        )
+        sec_layers: list[tuple] = []
+        zone_layers: list[tuple] = []
+        sig_rows: list[tuple] = []
+        if len(_WALK_LAYER_CACHE) > 8192:  # unbounded candidate streams
+            _WALK_LAYER_CACHE.clear()
+        for i in range(n_layers):
+            b = bounds[i]
+            last = i + 1 >= n_layers
+            ninp = None if last else inp[i + 1]
+            # layer quantities are a pure function of this layer's boundaries
+            # and the next layer's input needs; candidates overlap heavily
+            # (coordinate descent moves a few boundary rows per step), so the
+            # cache short-circuits most layers of most candidates
+            ckey = (b, ninp)
+            cached = _WALK_LAYER_CACHE.get(ckey)
+            if cached is not None:
+                svals, zvals, sig_row = cached
+                sec_layers.append(svals)
+                zone_layers.append(zvals)
+                sig_rows.append(sig_row)
+                continue
+            svals: list[float] = []
+            sig_row: list[tuple] = []
+            for p in sec_pos:
+                own_lo, own_hi = b[p] + 1, b[p + 1]
+                own = own_hi - own_lo + 1
+                if last:
+                    targets = ()
+                    if own > 0 and n_slots > 1:
+                        targets = ((p - 1 if p else p + 1, (own_lo, own_hi)),)
+                    dep = own
+                else:
+                    adjacent = []
+                    extra = []
+                    for z in zone_pos:
+                        # inline _message_iv(ninp[z], own, got)
+                        need = ninp[z]
+                        lo = max(need[0], own_lo)
+                        hi = min(need[1], own_hi)
+                        if lo > hi:
+                            iv = EMPTY_IV
+                        else:
+                            got_lo, got_hi = b[z] + 1, b[z + 1]
+                            p1, p2 = lo < got_lo, hi > got_hi
+                            if p1 and p2:
+                                raise AssertionError(
+                                    "non-contiguous message; segment ordering violated"
+                                )
+                            if p1:
+                                iv = (lo, min(hi, got_lo - 1))
+                            elif p2:
+                                iv = (max(lo, got_hi + 1), hi)
+                            else:
+                                iv = EMPTY_IV
+                        if z == p - 1 or z == p + 1:
+                            adjacent.append((z, iv))
+                        elif iv != EMPTY_IV:
+                            extra.append((z, iv))
+                    targets = tuple(adjacent + extra)
+                    dep = min(own, _union_iv_rows([iv for _, iv in targets]))
+                svals.append(dep)
+                for _z, iv in targets:
+                    svals.append(max(0, iv[1] - iv[0] + 1))
+                svals.append(own - dep)
+                sig_row.append(tuple(z for z, _ in targets))
+            zvals: list[float] = []
+            for z in zone_pos:
+                if last:
+                    above = below = 0
+                else:
+                    zone_iv = (b[z] + 1, b[z + 1])
+                    iva = _message_iv(ninp[z - 1], zone_iv, (b[z - 1] + 1, b[z]))
+                    above = iva[1] - iva[0] + 1 if iva[0] <= iva[1] else 0
+                    ivb = _message_iv(ninp[z + 1], zone_iv, (b[z + 1] + 1, b[z + 2]))
+                    below = ivb[1] - ivb[0] + 1 if ivb[0] <= ivb[1] else 0
+                zrows = b[z + 1] - b[z]
+                zvals += [above, above, zrows - above, below]
+            entry = (tuple(svals), tuple(zvals), tuple(sig_row))
+            _WALK_LAYER_CACHE[ckey] = entry
+            sec_layers.append(entry[0])
+            zone_layers.append(entry[1])
+            sig_rows.append(entry[2])
+        lb = bounds[-1]
+        final_rows = tuple(lb[p + 1] - lb[p] for p in sec_pos) + (1.0,)
+        signature = (self.secondaries, tuple(sig_rows))
+        self._walked = (signature, init_rows, sec_layers, zone_layers, final_rows)
+        return self._walked
+
+    @property
+    def signature(self) -> tuple:
+        return self.walk()[0]
 
 
 def plan_layout(
@@ -846,6 +1011,18 @@ class SchemeLayout:
     halo_layouts: tuple[PlanLayout | None, ...]  # parallel to segments
     hub_fracs: tuple  # parallel to segments; None for halo/host_solo segments
 
+    @property
+    def signature(self) -> tuple:
+        """Structure fingerprint: two layouts with equal signatures induce the
+        same job/message DAG and differ only in durations."""
+        return (
+            self.secondaries,
+            tuple(
+                (seg.scheme, seg.start, seg.stop, lay.signature if lay else None)
+                for seg, lay in zip(self.segments, self.halo_layouts)
+            ),
+        )
+
 
 def scheme_layout(
     net: ConvNetGeom,
@@ -972,3 +1149,59 @@ def plan_scheme(
             auto_reduce=auto_reduce,
         )
     )
+
+
+def _halo_plan_comm_bytes(plan: HALPPlan) -> list[float]:
+    """Per-layer link bytes of a halo plan: initial input scatter (charged to
+    the first layer), boundary messages, and the final merge (charged to the
+    last layer).  Host-zone-to-host-zone moves are host-local (no link)."""
+    net = plan.net
+    sizes = net.sizes()
+    out = [0.0] * len(net.layers)
+    for s in plan.secondary_slots:
+        seg = plan.parts[0].inp[s]
+        out[0] += DTYPE_BYTES * seg.rows * sizes[0] * net.in_channels
+    host = plan.host
+    for i in range(len(net.layers)):
+        for src in plan.es_names:
+            for dst in plan.es_names:
+                if src == dst:
+                    continue
+                if plan.owner_of(src) == host and plan.owner_of(dst) == host:
+                    continue
+                out[i] += plan.message_bytes(i, src, dst)
+    return out
+
+
+def comm_bytes_per_stage(plan: "HALPPlan | SchemePlan") -> list[float]:
+    """Link bytes (host<->secondary, both directions) attributed to each stage
+    of :func:`stage_spans`, for halo-only and mixed-scheme plans alike."""
+    net = plan.net
+    spans = stage_spans(net)
+    stage_of = [0] * len(net.layers)
+    for si, (lo, hi) in enumerate(spans):
+        for i in range(lo, hi + 1):
+            stage_of[i] = si
+    out = [0.0] * len(spans)
+    if isinstance(plan, HALPPlan):
+        for i, b in enumerate(_halo_plan_comm_bytes(plan)):
+            out[stage_of[i]] += b
+        return out
+    sizes = net.sizes()
+    for seg, hp in zip(plan.segments, plan.halo_plans):
+        if seg.scheme == SCHEME_HOST:
+            continue
+        if seg.scheme == SCHEME_HALO:
+            for off, b in enumerate(_halo_plan_comm_bytes(hp)):
+                out[stage_of[seg.start + off]] += b
+            continue
+        fracs, final = hub_segment_fracs(net, seg, plan.ratios)
+        for off, (_relay, up, down, _cmp) in enumerate(fracs):
+            i = seg.start + off
+            g = net.layers[i]
+            in_bytes = DTYPE_BYTES * sizes[i] * sizes[i] * g.c_in
+            out[stage_of[i]] += in_bytes * (sum(up) + sum(down))
+        g = net.layers[seg.stop]
+        out_bytes = DTYPE_BYTES * sizes[seg.stop + 1] * sizes[seg.stop + 1] * g.c_out
+        out[stage_of[seg.stop]] += out_bytes * sum(final)
+    return out

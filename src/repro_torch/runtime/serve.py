@@ -381,9 +381,9 @@ def serve_trace(trace, lat_table: np.ndarray, cfg: ServeLoopConfig = ServeLoopCo
 
     ``lat_table`` is the service-time model: ``lat_table[s, b-1]`` is the
     makespan of a ``b``-task batch during segment ``s`` -- a latency curve
-    the caller measured on the card (or a DES table, as the JAX package's
-    ``serve_latency_table`` gives); a 1-D table means one stationary
-    segment.
+    the caller measured on the card, or a DES table as
+    :func:`~repro_torch.core.simulator.serve_latency_table` gives it; a 1-D
+    table means one stationary segment.
 
     The loop (documented here once, both code paths implement it exactly):
 

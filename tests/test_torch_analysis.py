@@ -32,7 +32,8 @@ from repro.spatial import run_plan as jax_run_plan  # noqa: E402
 from repro_torch import analysis  # noqa: E402
 from repro_torch.analysis import kernel_check  # noqa: E402
 from repro_torch.core import nets, partition  # noqa: E402
-from repro_torch.core.topology import CollabTopology, Link, Platform  # noqa: E402
+from repro_torch.core import AGX_XAVIER  # noqa: E402
+from repro_torch.core.topology import CollabTopology, Link  # noqa: E402
 from repro_torch.kernels.halo_conv import ops as halo_ops  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import vgg  # noqa: E402
@@ -45,13 +46,20 @@ VIT_SMALL = dict(in_rows=64, n_blocks=2, d=64, heads=4, d_ff=128)
 
 
 def port_topology() -> CollabTopology:
-    """The demo topology with one platform of equal ``eff_flops`` in every
-    ES: ``capacity_ratios`` are ratios, so the plans equal the JAX ones built
-    on its three Xavier platforms."""
-    plat = Platform("es", 1e12, 1e12)
+    """``tools/precompute_plans.py: demo_topology``'s twin: three ESs on the
+    port's ``AGX_XAVIER``."""
     return CollabTopology(host="e0", secondaries=("a", "b"),
-                          platforms={"e0": plat, "a": plat, "b": plat},
+                          platforms={"e0": AGX_XAVIER, "a": AGX_XAVIER, "b": AGX_XAVIER},
                           default_link=Link(NOMINAL_BPS))
+
+
+def test_port_topology_is_the_demo_topology():
+    topo, jtopo = port_topology(), demo_topology()
+    assert (topo.host, topo.secondaries, topo.default_link.rate_bps) == (
+        jtopo.host, jtopo.secondaries, jtopo.default_link.rate_bps)
+    assert {es: dataclasses.astuple(p) for es, p in topo.platforms.items()} == {
+        es: dataclasses.astuple(p) for es, p in jtopo.platforms.items()}
+    assert topo.capacity_ratios() == jtopo.capacity_ratios()
 
 
 @pytest.fixture(scope="module")

@@ -62,4 +62,6 @@ print(json.dumps({"imported": names, "bad": bad}))
     assert "repro_torch.analysis.kernel_check" in out["imported"]
     assert "repro_torch.core.reliability" in out["imported"]
     assert "repro_torch.runtime.traffic" in out["imported"]
+    for name in ("core.events", "core.simulator", "core.schedule", "core.optimizer", "analysis.dag_check"):
+        assert f"repro_torch.{name}" in out["imported"]
     assert out["bad"] == []
