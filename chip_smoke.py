@@ -164,6 +164,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    completed or shed); (6) ``replay_trace`` of the searched plan over a
    ``GaussMarkovTrace`` of the fast secondary's link (100 Gbps fading to as
    low as 10).
+12. closes the paper's §V.D time-variant channel on the card
+   (``phase_replan``, fed phase 11's card platform and phase 4's weights and
+   images): (1) a ``ReplanController(n_tasks=4)`` on Table IV's pair feeds a
+   ``BatchingEngine`` (its batch latencies into ``observe_batch_latency``,
+   ``run_plan``'s per-ES times into ``observe_compute``) whose forward runs
+   the controller's current plan through ``run_plan(verify=True)`` (K1);
+   between batches the e0<->fast link collapses (a seeded
+   ``GaussMarkovTrace`` fed through ``observe_transfer``), once with
+   ``adapt_compute=True`` and once link-only: each adopted plan's ratios and
+   overlap, what switched it (link or compute bands), ``stats()``, each ES's
+   compute estimate beside its nominal, ``plan_aware_batch_size`` before and
+   after the collapse; (2) ``replay_trace`` of the controller beside the
+   static plan (``optimize_static``) over phase 11's fading link and a
+   straggling fast ES; (3) a ``PlanStore`` under a temporary directory primed
+   with the loop's operating points, then a restarted controller serving its
+   first plan with no optimizer call, equal to the loop's first and
+   bit-identical through K1; ``check_keying()`` clean on the port's sources;
+   (4) ``place_tasks(n_tasks=4)`` against ``shared_plan_placement`` on the
+   DES over ``benchmarks/multitask_placement.py``'s 1 + 8 pool (per-task
+   placement must win), and a ``PlacementController`` under a link collapse
+   with ``plan_aware_batch_size`` over it.  Every distinct plan served has K1
+   held against its plain version at each new conv shape, one forward
+   lossless (2e-5 x (1 + |y|) of phase 4's single-device forward, within
+   ``DEPTH_RTOL`` of the plain conv on the CPU) and a steady time; every
+   forward's K1 launches equal its plan's.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -1749,21 +1774,44 @@ def table4_topology(card):
     )
 
 
-class FixedPlan:
-    """The replay protocol's static planner: one plan every epoch, the
-    observations ignored (the paper's offline baseline)."""
+def hold_k1(torch, gen, shapes: Counter, path: str, timed: bool = True) -> list[dict]:
+    """K1 against its plain version, float32, at every conv shape of
+    ``shapes`` (``conv_shapes``: shape -> calls a forward), on seeded inputs;
+    fatal where it disagrees.  With ``timed``, each shape is also timed as
+    phase 3 times it (kernel, plain version, ``F.conv2d``) beside its bounds.
+    K1's launch count is left as it was: these launches compare, they are no
+    path's.  Returns one row per shape."""
+    import torch.nn.functional as F
 
-    def __init__(self, plan):
-        self.plan = plan
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
 
-    def plan_for_epoch(self):
-        return self.plan
-
-    def observe_transfer(self, src, dst, nbytes, elapsed_s):
-        pass
-
-    def observe_compute(self, es, flops, elapsed_s):
-        pass
+    launches = conv2d_cuda.launches
+    holds = []
+    for (n, h, w, cin, cout, k, st), per_forward in sorted(shapes.items()):
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+        wt = math.sqrt(2.0 / (k * k * cin)) * torch.randn((k, k, cin, cout), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+        kw = dict(stride=st, padding=0, groups=1)
+        got, ref = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
+        diff = (got - ref).abs()
+        ok = bool((diff <= TOL["float32"] * (1 + ref.abs())).all()) and bool(torch.isfinite(got).all())
+        row = dict(shape=[n, h, w, cin, cout], k=k, stride=st, dtype="float32", path=path,
+                   per_forward=per_forward, max_abs_err=diff.max().item(), within_tol=ok)
+        if timed:
+            xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+            flops = 2.0 * k * k * cin * cout * n * got.shape[1] * got.shape[2]
+            nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * 4
+            ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
+            row.update(ms=time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw)),
+                       plain_ms=time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw)),
+                       library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, b, stride=st)),
+                       bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                       ffma_bound_ms=max(bound_ms(flops, nbytes, "float32", ffma=True)))
+        holds.append(row)
+        check(ok, f"K1 disagrees with its plain version at a {path} shape {row}")
+    torch.cuda.synchronize()
+    conv2d_cuda.launches = launches
+    return holds
 
 
 def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
@@ -1778,17 +1826,15 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
     of K1 (rows as phase 3's)."""
     import dataclasses
 
-    import torch.nn.functional as F
-
     from repro_torch.analysis import check_dag, check_template
-    from repro_torch.core import (Link, Sim, enhanced_modnn_delay, equal_ratios, evaluate_plan,
+    from repro_torch.core import (Link, Sim, StaticPlanner, enhanced_modnn_delay, equal_ratios, evaluate_plan,
                                   halp_closed_form, modnn_time, optimize_plan, plan_halp_topology,
                                   replay_trace, serve_latency_table, simulate_halp, simulate_modnn,
                                   speedup_ratio, standalone_time, vgg16_geom)
     from repro_torch.core.events import DagTemplate, HalpBatchEvaluator, _layout_quantities, build_halp_dag
     from repro_torch.core.schedule import _calibrated
     from repro_torch.core.simulator import GaussMarkovTrace
-    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.models import vgg
     from repro_torch.models.common import tree_map
     from repro_torch.models.layers import max_pool
@@ -1919,27 +1965,7 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
     want = sum(shapes.values())
     # K1 against its plain version at every conv shape the searched plan
     # gives it (phase 3 held phase 4's plan's), timed as phase 3 times
-    holds = []
-    for (n, h, w, cin, cout, k, st), per_forward in sorted(shapes.items()):
-        x = torch.randn((n, h, w, cin), generator=lgen, device="cuda")
-        wt = math.sqrt(2.0 / (k * k * cin)) * torch.randn((k, k, cin, cout), generator=lgen, device="cuda")
-        b = 0.1 * torch.randn((cout,), generator=lgen, device="cuda")
-        kw = dict(stride=st, padding=0, groups=1)
-        got, ref = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
-        diff = (got - ref).abs()
-        ok = bool((diff <= TOL["float32"] * (1 + ref.abs())).all()) and bool(torch.isfinite(got).all())
-        xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
-        flops = 2.0 * k * k * cin * cout * n * got.shape[1] * got.shape[2]
-        nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * 4
-        ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
-        holds.append(dict(shape=[n, h, w, cin, cout], k=k, stride=st, dtype="float32", path="engines",
-                          per_forward=per_forward, max_abs_err=diff.max().item(), within_tol=ok,
-                          ms=time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw)),
-                          plain_ms=time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw)),
-                          library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, b, stride=st)),
-                          bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
-                          ffma_bound_ms=max(bound_ms(flops, nbytes, "float32", ffma=True))))
-        check(ok, f"K1 disagrees with its plain version at the searched plan's shape {holds[-1]}")
+    holds = hold_k1(torch, lgen, shapes, "engines")
     per_fwd = {key: sum(r[key] * r["per_forward"] for r in holds)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     print(f"  K1 at the searched plan's {len(holds)} conv shapes ({want} calls a forward): max |err| "
@@ -2007,7 +2033,7 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
     # (6) the searched plan, held static, replayed over a fading fast link
     lo, hi = REPLAY_BAND
     rates = GaussMarkovTrace(lo=lo, hi=hi, start=hi, seed=REPLAY_SEED).rates(REPLAY_EPOCHS)
-    recs = replay_trace(net, topo, FixedPlan(plan), link_rates={("e0", "fast"): rates, ("fast", "e0"): rates})
+    recs = replay_trace(net, topo, StaticPlanner(plan), link_rates={("e0", "fast"): rates, ("fast", "e0"): rates})
     spans = np.array([r["makespan"] for r in recs])
     p50, p99 = np.percentile(spans, 50) * 1e3, np.percentile(spans, 99) * 1e3
     print(f"replay_trace of the searched plan, {REPLAY_EPOCHS} epochs of GaussMarkovTrace({lo / 1e9:g}-"
@@ -2031,6 +2057,327 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
         dag_checks={k: r.checks for k, r in dags.items()},
         serve_latency_table_ms=(table * 1e3).tolist(), served=served,
         replay=dict(band_bps=REPLAY_BAND, epochs=REPLAY_EPOCHS, seed=REPLAY_SEED, p50_ms=p50, p99_ms=p99),
+        launches=launches,
+    )
+    return report, launches, holds
+
+
+# Phase 12: online re-planning (core/replan.py, planstore.py, placement.py)
+# on phase 11's card platform.  The closed loop serves REPLAN_EPOCHS batches
+# on Table IV's pair while the e0<->fast link collapses: a GaussMarkovTrace
+# from 40 Gbps reverting fast toward 5 (COLLAPSE); the straggler replay slows
+# "fast" to STRAGGLER_FACTOR of its nominal from epoch STRAGGLER_AT of
+# STRAGGLER_EPOCHS; the placement pool is benchmarks/multitask_placement.py's
+# 1 + 8 ESs (ES_SCALES, 40 Gbps at scale >= 0.6, else 10), whose controller
+# sees e1's link collapse to PLACEMENT_COLLAPSE_GBPS.
+REPLAN_EPOCHS = 8
+COLLAPSE = dict(lo=4e9, hi=40e9, mean=5e9, corr=0.5, sigma_frac=0.1, start=40e9, seed=7)
+STRAGGLER_FACTOR, STRAGGLER_AT, STRAGGLER_EPOCHS = 0.3, 20, 60
+ES_SCALES = (1.0, 1.0, 0.6, 0.6, 0.35, 0.35, 0.2, 0.2)
+POOL_FAST_GBPS, POOL_SLOW_GBPS, PLACEMENT_COLLAPSE_GBPS = 40.0, 10.0, 4.0
+
+
+def placement_pool(card):
+    """``benchmarks/multitask_placement.py: build_pool`` on card-class ESs:
+    the host and 8 secondaries at ES_SCALES of the card's platform, the
+    faster half behind 40 Gbps links, the slower behind 10."""
+    from repro_torch.core import CollabTopology, Link
+
+    secs = tuple(f"e{j}" for j in range(1, len(ES_SCALES) + 1))
+    platforms, links = {"e0": card}, {}
+    for s, scale in zip(secs, ES_SCALES):
+        platforms[s] = card.scaled(scale, f"es x{scale:g}")
+        link = Link((POOL_FAST_GBPS if scale >= 0.6 else POOL_SLOW_GBPS) * 1e9)
+        links[("e0", s)] = links[(s, "e0")] = link
+    return CollabTopology(host="e0", secondaries=secs, platforms=platforms, links=links,
+                          default_link=Link(POOL_FAST_GBPS * 1e9))
+
+
+def phase_replan(torch, engines: dict, params=None, images=None, plain=None,
+                 single=None) -> tuple[dict, dict, list]:
+    """Phase 12: online re-planning, the plan store and per-task placement
+    on phase 11's card-calibrated platform (``engines`` is phase 11's
+    report), every plan they serve run through ``run_plan(verify=True)`` (K1)
+    at batch MAX_BATCH with phase 4's weights and images (drawn as ``serve``
+    draws them when not given; ``plain`` and ``single`` as in phase 11).
+    Returns the report, K1's launches on its path and its per-shape holds of
+    K1 (untimed)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis import check_keying
+    from repro_torch.core import (GaussMarkovTrace, OffloadChannel, PlacementController, Platform, PlanStore,
+                                  ReplanConfig, ReplanController, StaticPlanner, optimize_static, place_tasks,
+                                  replay_trace, shared_plan_placement, simulate_placement)
+    from repro_torch.core.reliability import IMAGE_BYTES
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.models import vgg
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import BatchingEngine, ServeConfig, plan_aware_batch_size
+    from repro_torch.spatial import run_plan
+
+    t_start = time.perf_counter()
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = vgg.init(gen, vgg.FULL)
+        res = vgg.FULL.img_res
+        images = torch.randn((N_REQUESTS, res, res, vgg.FULL.in_channels), generator=gen, device="cuda")
+    x4 = images[:MAX_BATCH]
+    if single is None:
+        single = vgg.apply(params, vgg.FULL, x4)
+    if plain is None:
+        plain = vgg.apply(tree_map(lambda t: t.cpu(), params), vgg.FULL, x4.cpu())
+    net = vgg.FULL.geom()
+    card = Platform(**engines["card"])
+    topo = table4_topology(card)
+    smi = nvidia_smi()
+    scale = plain.abs().max().item()
+    hgen = torch.Generator(device="cuda").manual_seed(12)
+    held, holds, served = set(), [], []
+    channels = [OffloadChannel(rate_bps=mbps * 1e6, sigma_s=sigma_ms * 1e-3) for mbps, sigma_ms in TABLE3_STATES]
+    print(f"phase 12 on {smi}: card platform eff {card.eff_flops / 1e12:.4f} TFLOP/s (phase 11's)")
+    conv2d_cuda.launches = 0
+
+    def forward(plan, batch, observer=None):
+        """run_plan(verify=True) + head, its K1 launches held to the plan's."""
+        before = conv2d_cuda.launches
+        y = vgg.head(params, run_plan(plan, params["features"], vgg.apply_layer, batch,
+                                      time_observer=observer, verify=True))
+        torch.cuda.synchronize()
+        want = sum(conv_shapes(plan, batch.shape[0]).values())
+        check(conv2d_cuda.launches - before == want,
+              f"a phase 12 forward launched K1 {conv2d_cuda.launches - before} times, its plan implies {want}")
+        return y
+
+    def lossless(y, what: str) -> tuple[float, float]:
+        check(bool(torch.isfinite(y).all()), f"non-finite logits from {what}")
+        share = ((y - single).abs() / (2e-5 * (1 + single.abs()))).max().item()
+        depth = (y.cpu() - plain).abs().max().item()
+        check(share <= 1, f"{what} is not lossless against the single-device forward ({share:.3f} of the limit)")
+        check(depth <= DEPTH_RTOL * scale, f"{what} drifts from the plain conv at depth ({depth:.3g})")
+        return share, depth
+
+    def serve_plan(plan, knobs, what: str) -> int:
+        """The index of ``plan`` among the distinct plans served; a new one
+        has K1 held at the conv shapes no earlier plan of this phase gave it,
+        one lossless forward and a steady time (host clock, synchronised,
+        mean of 5 after one warm-up)."""
+        for i, rec in enumerate(served):
+            if rec["plan"] == plan:
+                return i
+        shapes = conv_shapes(plan, MAX_BATCH)
+        new = Counter({sh: c for sh, c in shapes.items() if sh not in held})
+        holds.extend(hold_k1(torch, hgen, new, "replan", timed=False))
+        held.update(new)
+        y = forward(plan, x4)
+        share, depth = lossless(y, what)
+        forward(plan, x4)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            forward(plan, x4)
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        served.append(dict(plan=plan, logits=y, what=what, ratios=[round(r, 4) for r in knobs[0]],
+                           overlap_rows=knobs[1], k1_per_forward=sum(shapes.values()), new_shapes=len(new),
+                           lossless_limit_share=share, plain_depth_max_abs=depth, steady_ms=ms))
+        print(f"  plan {len(served) - 1} ({what}): ratios {served[-1]['ratios']}, overlap {knobs[1]}; "
+              f"{served[-1]['k1_per_forward']} K1 a forward, K1 held at {len(new)} new shapes; logits "
+              f"{share:.3f} of the lossless limit, {depth:.3g} from the CPU plain conv; steady {ms:.3f} ms")
+        return len(served) - 1
+
+    def admitted(ctl) -> list[int]:
+        return [plan_aware_batch_size(ctl, DEADLINE_S, ch, target=ADMISSION_TARGETS[0]) for ch in channels]
+
+    # (1) the closed loop: the controller re-plans between batches from the
+    # executor's per-ES times, the engine's batch latencies and a measured
+    # collapse of the e0<->fast link
+    collapse = GaussMarkovTrace(**COLLAPSE).rates(REPLAN_EPOCHS)
+
+    def closed_loop(adapt: bool) -> dict:
+        ctl = ReplanController(net, topo, ReplanConfig(n_tasks=4, adapt_compute=adapt))
+        samples = []
+
+        def observe_compute(es, flops, secs):
+            samples.append(dict(es=es, gflop=flops / 1e9, ms=secs * 1e3, tflops=flops / secs / 1e12))
+            ctl.observe_compute(es, flops, secs)
+
+        eng = BatchingEngine(lambda batch: forward(ctl.plan, batch, observer=eng.observe_es_time),
+                             ServeConfig(max_batch=MAX_BATCH), observer=ctl.observe_batch_latency,
+                             es_observer=observe_compute)
+        label = "joint" if adapt else "link-only"
+        keys, epochs, causes, admit = [], [], Counter(), {}
+        for e in range(REPLAN_EPOCHS):
+            prev = ctl._active
+            plan = ctl.plan_for_epoch()
+            result = ctl._active_result()
+            if ctl._active not in keys:
+                keys.append(ctl._active)
+            cause = [side for side, j in (("link", 0), ("compute", 1)) if ctl._active[j] != prev[j]]
+            causes.update(cause)
+            index = serve_plan(plan, (result.ratios, result.overlap_rows), f"{label}, epoch {e}")
+            n0 = len(samples)
+            for i in range(MAX_BATCH):
+                eng.submit(images[i], deadline_s=DEADLINE_S)
+            eng.run_until_drained()
+            batch = sorted(eng.completed[-MAX_BATCH:], key=lambda r: r.rid)
+            lossless(torch.stack([r.result for r in batch]), f"the {label} loop's batch {e}")
+            if e == 0:
+                admit["before"] = admitted(ctl)
+            rate = collapse[e]
+            if e + 1 < REPLAN_EPOCHS:
+                for pair in (("e0", "fast"), ("fast", "e0")):
+                    ctl.observe_transfer(*pair, IMAGE_BYTES, 8.0 * IMAGE_BYTES / rate)
+            epochs.append(dict(epoch=e, switched_by=cause, plan=index, ratios=served[index]["ratios"],
+                               overlap_rows=result.overlap_rows, predicted_ms=result.makespan * 1e3,
+                               link_fed_gbps=rate / 1e9 if e + 1 < REPLAN_EPOCHS else None,
+                               batch_ms=(batch[0].done - batch[0].arrival) * 1e3,
+                               samples=samples[n0:]))
+            print(f"  {label} epoch {e}: plan {index} ratios {served[index]['ratios']} overlap "
+                  f"{result.overlap_rows}" + (f" (switched by {'+'.join(cause)})" if cause else "")
+                  + "; per-ES samples " + ", ".join(f"{s['es']} {s['tflops']:.3f} TFLOP/s ({s['ms']:.3f} ms)"
+                                                    for s in samples[n0:])
+                  + (f"; then e0<->fast at {rate / 1e9:.2f} Gbps" if e + 1 < REPLAN_EPOCHS else ""))
+        admit["after"] = admitted(ctl)
+        stats = ctl.stats()
+        estimates = {es: dict(estimate_tflops=ctl.compute_estimator.rate(es) / 1e12,
+                              nominal_tflops=ctl._nominal_flops[es] / 1e12,
+                              ratio=ctl.compute_estimator.rate(es) / ctl._nominal_flops[es])
+                     for es in topo.es_names}
+        print(f"  {label} loop: {stats}; switches by link {causes['link']}, by compute {causes['compute']}; "
+              "compute estimates vs nominal eff (TFLOP/s): " + ", ".join(
+                  f"{es} {v['estimate_tflops']:.3f} / {v['nominal_tflops']:.3f} = {v['ratio']:.2f}x"
+                  for es, v in estimates.items()))
+        print(f"  {label} loop: plan_aware_batch_size at D = {DEADLINE_S * 1e3:.1f} ms, target "
+              f"{ADMISSION_TARGETS[0]}, Table III's states {TABLE3_STATES}: before the collapse "
+              f"{admit['before']}, after {admit['after']}")
+        check(stats["epochs"] == REPLAN_EPOCHS, f"{label} loop: {stats['epochs']} epochs")
+        return dict(stats=stats, switches=dict(causes), estimates=estimates, admitted=admit, epochs=epochs,
+                    keys=keys, first=ctl.cache.peek((ctl._fingerprint, keys[0])))
+
+    loops = {"joint": closed_loop(True), "link-only": closed_loop(False)}
+    check(loops["link-only"]["switches"].get("compute", 0) == 0, "the link-only loop switched on compute")
+
+    # (2) the adaptive replay beside the static plan: phase 11's fading fast
+    # link, and a straggling fast ES
+    cfg = ReplanConfig(n_tasks=4)
+    static_plan = optimize_static(net, topo, cfg).plan
+    lo, hi = REPLAY_BAND
+    fading = GaussMarkovTrace(lo=lo, hi=hi, start=hi, seed=REPLAY_SEED).rates(REPLAY_EPOCHS)
+    nom = topo.platform_of("fast").eff_flops
+    straggler = [nom] * STRAGGLER_AT + [STRAGGLER_FACTOR * nom] * (STRAGGLER_EPOCHS - STRAGGLER_AT)
+    replays = {}
+    for name, kw in (("fading link", dict(link_rates={("e0", "fast"): fading, ("fast", "e0"): fading})),
+                     ("straggler", dict(compute_rates={"fast": straggler}))):
+        t0 = time.perf_counter()
+        static = np.array([r["makespan"] for r in replay_trace(net, topo, StaticPlanner(static_plan), **kw)])
+        actl = ReplanController(net, topo, cfg)
+        adaptive = np.array([r["makespan"] for r in replay_trace(net, topo, actl, **kw)])
+        host_s = time.perf_counter() - t0
+        check(np.isfinite(static).all() and np.isfinite(adaptive).all() and len(static) == len(adaptive),
+              f"the {name} replay lost epochs")
+        st = actl.stats()
+        replays[name] = dict(epochs=len(static), static_p50_ms=np.percentile(static, 50) * 1e3,
+                             static_p99_ms=np.percentile(static, 99) * 1e3, static_mean_ms=static.mean() * 1e3,
+                             adaptive_p50_ms=np.percentile(adaptive, 50) * 1e3,
+                             adaptive_p99_ms=np.percentile(adaptive, 99) * 1e3,
+                             adaptive_mean_ms=adaptive.mean() * 1e3, replans=st["replans"],
+                             optimizer_calls=st["optimizer_calls"], hit_rate=st["cache_hit_rate"], host_s=host_s)
+        r = replays[name]
+        print(f"replay_trace, {name} ({len(static)} epochs): static p50 {r['static_p50_ms']:.4f} ms p99 "
+              f"{r['static_p99_ms']:.4f}; adaptive p50 {r['adaptive_p50_ms']:.4f} p99 {r['adaptive_p99_ms']:.4f}; "
+              f"{st['replans']} replans, {st['optimizer_calls']} optimizer calls, hit rate "
+              f"{st['cache_hit_rate']:.3f} ({host_s:.2f} s of host)")
+
+    # (3) the plan store: the joint loop's operating points into a fresh
+    # file, then a restarted controller serves its first plan warm
+    joint = loops["joint"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_plans_"))
+    try:
+        path = tmp / "plans.sqlite"
+        with PlanStore(path) as store:
+            sctl = ReplanController(net, topo, cfg, store=store)
+            miss_ms = []
+            for key in joint["keys"]:
+                t0 = time.perf_counter()
+                sctl.prime(key)
+                miss_ms.append((time.perf_counter() - t0) * 1e3)
+            check(sctl.optimizer_calls == len(joint["keys"]) == len(store),
+                  f"{sctl.optimizer_calls} optimizer calls for {len(joint['keys'])} operating points")
+        with PlanStore(path) as store:
+            warm = ReplanController(net, topo, cfg, store=store)
+            t0 = time.perf_counter()
+            first = warm.current()
+            hit_ms = (time.perf_counter() - t0) * 1e3
+            wstats = warm.stats()
+        check(wstats["optimizer_calls"] == 0 and wstats["store_hits"] == 1, f"the restart was not warm: {wstats}")
+        check(first == joint["first"] and first.plan == joint["first"].plan,
+              "the store served another result than the closed loop's first")
+        y = forward(first.plan, x4)
+        check(torch.equal(y, served[0]["logits"]), "the store's plan gave other logits than the first plan's")
+        keying = check_keying()
+        check(keying.ok, f"check_keying refuses the port's sources: {keying}")
+    finally:
+        shutil.rmtree(tmp)
+    store_rec = dict(points=len(joint["keys"]), miss_ms=miss_ms, hit_ms=hit_ms, warm_stats=wstats,
+                     keying_checks=keying.checks)
+    print(f"plan store: {len(joint['keys'])} operating points of the joint loop primed (misses, host ms "
+          f"{[round(v, 3) for v in miss_ms]}); a restarted controller served its first plan as a store hit in "
+          f"{hit_ms:.3f} ms, optimizer calls 0, the result == the loop's first, its forward bit-identical; "
+          f"check_keying on the port's sources: {keying}")
+
+    # (4) per-task placement over the 1 + 8 pool against the shared plan
+    pool = placement_pool(card)
+    sh = simulate_placement(net, shared_plan_placement(net, pool, 4))
+    t0 = time.perf_counter()
+    placed = place_tasks(net, pool, 4)
+    place_s = time.perf_counter() - t0
+    print(f"placement on the 1 + 8 pool (x{'/'.join(f'{s:g}' for s in ES_SCALES)}; {POOL_FAST_GBPS:g} / "
+          f"{POOL_SLOW_GBPS:g} Gbps), 4 tasks, DES: shared plan avg delay {sh['avg_delay'] * 1e3:.4f} ms, makespan "
+          f"{sh['total'] * 1e3:.4f}; place_tasks avg delay {placed.avg_delay * 1e3:.4f} ms, makespan "
+          f"{placed.makespan * 1e3:.4f} (gain {1 - placed.avg_delay / sh['avg_delay']:.4f}), groups "
+          f"{placed.placement.assignments}, {placed.evaluations} evaluations in {place_s:.3f} s of host")
+    check(placed.avg_delay < sh["avg_delay"] and placed.makespan < sh["total"],
+          "place_tasks does not beat the shared plan on the DES")
+    task_plans = [serve_plan(p, k, f"place_tasks task {t}")
+                  for t, (p, k) in enumerate(zip(placed.placement.plans, placed.knobs))]
+    pctl = PlacementController(net, pool, cfg, placement_options=dict(optimize_final=False, swap_rounds=1))
+    pctl.placement_for_epoch()
+    results = {"before": pctl._active_result()}
+    admit = {"before": admitted(pctl)}
+    rate = PLACEMENT_COLLAPSE_GBPS * 1e9
+    for _ in range(cfg.hysteresis + 2):
+        for pair in (("e0", "e1"), ("e1", "e0")):
+            pctl.observe_transfer(*pair, IMAGE_BYTES, 8.0 * IMAGE_BYTES / rate)
+        pctl.placement_for_epoch()
+    results["after"] = pctl._active_result()
+    admit["after"] = admitted(pctl)
+    controller_plans = {when: [serve_plan(p, k, f"PlacementController {when} the collapse, task {t}")
+                               for t, (p, k) in enumerate(zip(r.placement.plans, r.knobs))]
+                        for when, r in results.items()}
+    pstats = pctl.stats()
+    print(f"  PlacementController, e1's link collapsing to {PLACEMENT_COLLAPSE_GBPS:g} Gbps: {pstats}; groups "
+          f"{results['before'].placement.assignments} -> {results['after'].placement.assignments}; predicted "
+          f"b = 4 {results['before'].makespan * 1e3:.4f} -> {results['after'].makespan * 1e3:.4f} ms; "
+          f"plan_aware_batch_size over it {admit['before']} -> {admit['after']}")
+    check(pstats["replans"] >= 1, "the placement controller never re-placed under the collapse")
+
+    launches = {"conv2d": conv2d_cuda.launches}
+    phase_s = time.perf_counter() - t_start
+    print(f"  phase 12: {phase_s:.1f} s; {len(served)} distinct plans served, K1 held at {len(holds)} shapes "
+          f"(max |err| {max(r['max_abs_err'] for r in holds):.3g}); launches {launches}")
+    for rec in served:
+        del rec["plan"], rec["logits"]
+    for loop in loops.values():
+        del loop["keys"], loop["first"]
+    report = dict(
+        phase_s=phase_s, nvidia_smi=smi, loops=loops, replays=replays, store=store_rec,
+        placement=dict(shared_avg_delay_ms=sh["avg_delay"] * 1e3, shared_makespan_ms=sh["total"] * 1e3,
+                       avg_delay_ms=placed.avg_delay * 1e3, makespan_ms=placed.makespan * 1e3,
+                       assignments=placed.placement.assignments, knobs=placed.knobs,
+                       evaluations=placed.evaluations, host_s=place_s, plans=task_plans,
+                       controller=dict(stats=pstats, admitted=admit, plans=controller_plans,
+                                       assignments={w: r.placement.assignments for w, r in results.items()},
+                                       predicted_ms={w: r.makespan * 1e3 for w, r in results.items()})),
+        served=served, k1_holds=len(holds), k1_max_abs_err=max(r["max_abs_err"] for r in holds),
         launches=launches,
     )
     return report, launches, holds
@@ -2603,6 +2950,10 @@ def main() -> int:
     engines_report, engines_launches, engines_holds = phase_engines(
         torch, serving_report["curve_ms"], params, out["images"], plain, single)
 
+    # -- 12. online re-planning, the plan store and per-task placement -------
+    replan_report, replan_launches, replan_holds = phase_replan(
+        torch, engines_report, params, out["images"], plain, single)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -2635,7 +2986,8 @@ def main() -> int:
         entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
-              + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]),
+              + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
+              + replan_launches["conv2d"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
@@ -2644,6 +2996,8 @@ def main() -> int:
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values())),
     ]
+    # phase 12's holds are untimed: they add to K1's error, not to its times
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in replan_holds))
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
                 for path in ("run_plan", "weighted-fixup", "vit", "vgg-np", "engines")}
@@ -2692,7 +3046,7 @@ def main() -> int:
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
         "lm": lm_report, "moe": moe_report, "mla": mla_report, "serving": serving_report,
-        "engines": engines_report,
+        "engines": engines_report, "replan": replan_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -2714,7 +3068,11 @@ def main() -> int:
                 "steps (4 + 256 + 4 + 64); phase 10 adds K1's launches in its latency curve (9 forwards "
                 "at each batch width 1..8, two profiled) and its live burst, and one K2 launch per conv "
                 "geometry its probe accepted; phase 11 adds K1's launches in 8 forwards of the searched "
-                "plan (one under run_plan(verify=True), one warm-up, 5 steady calls and one profiled).",
+                "plan (one under run_plan(verify=True), one warm-up, 5 steady calls and one profiled); "
+                "phase 12 adds K1's launches in the forwards of every plan its controllers serve (per "
+                "distinct plan one lossless, one warm-up and 5 steady forwards; one served batch per "
+                "closed-loop epoch; the warm restart's forward).  conv2d's max_abs_err also covers "
+                "phase 12's untimed holds at every shape its plans give K1.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

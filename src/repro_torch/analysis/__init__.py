@@ -14,13 +14,18 @@ same invariants *by analysis*, in milliseconds per plan:
   locality, orphan transfers, template-vs-scalar-builder duration audits;
 * :mod:`~repro_torch.analysis.kernel_check` -- a shape-only probe of the
   fused halo-conv kernel's wrapper on ``meta`` tensors (support-predicate
-  agreement and output shapes) for every geometry a plan deploys.
+  agreement and output shapes) for every geometry a plan deploys;
+* :mod:`~repro_torch.analysis.keying_lint` -- AST enforcement of the
+  config-fingerprint partition (every ``ReplanConfig`` field keys the plan
+  store or carries a justified exclusion) and ``PlanStore.get``'s row vetoes.
 
-``optimize_plan(verify=True)`` and ``run_plan(verify=True)`` gate on
-:func:`check_plan`.
+``PlanStore.get`` runs :func:`check_plan` on deserialized rows before
+serving them; ``optimize_plan(verify=True)`` and ``run_plan(verify=True)``
+gate on it.
 """
 from .dag_check import check_dag, check_template
 from .findings import AnalysisError, Finding, Report
+from .keying_lint import check_keying
 from .kernel_check import check_kernel_geometry, check_plan_kernels
 from .plan_check import check_plan
 
@@ -29,6 +34,7 @@ __all__ = [
     "Finding",
     "Report",
     "check_dag",
+    "check_keying",
     "check_kernel_geometry",
     "check_plan",
     "check_plan_kernels",

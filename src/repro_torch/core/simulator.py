@@ -428,10 +428,11 @@ def replay_trace(
 
     ``planner`` implements the replan protocol (``plan_for_epoch()`` +
     ``observe_transfer(src, dst, nbytes, elapsed_s)`` + -- when compute is
-    traced -- ``observe_compute(es, flops, elapsed_s)``): a static planner
-    that serves one plan and ignores observations is the paper's offline
-    baseline; the JAX package's ``core/replan.py`` controllers are the
-    adaptive policies.  Returns one record per epoch with the true rates (``rates``
+    traced -- ``observe_compute(es, flops, elapsed_s)``):
+    :class:`~repro_torch.core.replan.StaticPlanner` for the paper's offline
+    baseline, :class:`~repro_torch.core.replan.ReplanController` for the
+    adaptive policies (link-only via ``ReplanConfig(adapt_compute=False)``,
+    joint by default).  Returns one record per epoch with the true rates (``rates``
     for links, ``compute_rates`` per ES), the simulated makespan, the plan
     served, and -- for planners exposing ``stats()`` -- a snapshot of the
     planner's counters *after* serving the epoch (so cache hit rates over

@@ -8,6 +8,7 @@ from .serve import (
     ServeLoopConfig,
     VirtualClock,
     choose_batch_size,
+    plan_aware_batch_size,
     serve_trace,
 )
 from .traffic import (
@@ -33,5 +34,6 @@ __all__ = [
     "VirtualClock",
     "choose_batch_size",
     "make_trace",
+    "plan_aware_batch_size",
     "serve_trace",
 ]

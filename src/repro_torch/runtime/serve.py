@@ -13,6 +13,15 @@ measured per-batch latency curve and an offload-time distribution,
 :func:`choose_batch_size` picks the largest batch whose P(deadline met)
 clears the target, and returns ``0`` -- shed -- when none does.
 
+The engine closes the measurement loop of the online re-planner
+(``repro_torch.core.replan``) on both axes: every executed batch's (size,
+latency) goes to an optional ``observer`` -- typically
+``ReplanController.observe_batch_latency`` -- and per-ES chunk timings
+reported through ``observe_es_time`` feed ``ReplanController.observe_compute``.
+:func:`plan_aware_batch_size` re-runs the admission policy against the
+*current* plan's (or per-task placement's) predicted makespan, so the admitted
+batch tracks channel and compute drift alike.
+
 :func:`serve_trace` scales the same policy to production traffic: an
 event-driven loop in *virtual time* (a :class:`VirtualClock` is the only
 clock; nothing sleeps) over a :class:`~repro_torch.runtime.traffic.Trace`
@@ -48,6 +57,7 @@ __all__ = [
     "ServedTrace",
     "serve_trace",
     "choose_batch_size",
+    "plan_aware_batch_size",
 ]
 
 
@@ -250,6 +260,32 @@ def choose_batch_size(
         if rel >= target:
             best = b
     return best
+
+
+def plan_aware_batch_size(
+    controller,
+    deadline_s: float,
+    channel: OffloadChannel,
+    target: float = 0.99999,
+    max_batch: int = 64,
+) -> int:
+    """``choose_batch_size`` against the *current* plan's predicted makespan.
+
+    ``controller`` is a :class:`~repro_torch.core.replan.ReplanController` or a
+    :class:`~repro_torch.core.placement.PlacementController`: its
+    ``predicted_latency(b)`` prices a b-task batch on whatever the controller
+    is serving right now -- the closed form on the shared plan, or the
+    shared-pool DES over the per-task placement (calibrated by measured batch
+    latencies either way) -- so after a re-plan or re-placement the admitted
+    batch size follows without re-measuring a latency curve.
+
+    Like :func:`choose_batch_size`, returns ``0`` when even a single-task
+    batch cannot clear ``target`` under the current plan's predicted
+    makespan: the caller sheds until the controller re-plans onto a faster
+    operating point (or the channel recovers)."""
+    return choose_batch_size(
+        controller.predicted_latency, deadline_s, channel, target=target, max_batch=max_batch
+    )
 
 
 # ---------------------------------------------------------------------------

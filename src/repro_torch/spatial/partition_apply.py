@@ -82,9 +82,10 @@ def run_plan(
     primitive (``repro_torch.models.vgg.apply_layer`` or compatible).
 
     ``time_observer(es, flops, elapsed_s)``: when set, every slot's segments
-    run synchronously (``torch.cuda.synchronize`` on a CUDA tensor) and, once
-    per call, the observer receives that slot's total FLOP count and measured
-    wall-clock.
+    run synchronously (``torch.cuda.synchronize`` on a CUDA tensor, once
+    before the first slot too, so its sample does not absorb work still
+    queued ahead of the call) and, once per call, the observer receives that
+    slot's total FLOP count and measured wall-clock.
 
     ``plan`` may also be a :class:`~repro_torch.core.partition.SchemePlan`:
     each segment then executes under its own scheme (halo segments recurse
@@ -101,6 +102,8 @@ def run_plan(
         from ..analysis import check_plan  # here: the analysis package imports spatial.halo
 
         check_plan(plan).raise_if_failed("run_plan")
+    if time_observer and x.is_cuda:
+        torch.cuda.synchronize(x.device)
     if isinstance(plan, SchemePlan):
         return _run_scheme_plan(plan, layer_params, apply_layer, x, time_observer)
     net: ConvNetGeom = plan.net

@@ -39,6 +39,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import vgg  # noqa: E402
 from repro_torch.models.common import params_from_jax  # noqa: E402
 from repro_torch.spatial import run_plan  # noqa: E402
+from test_analysis import GOOD_STORE_SRC, _replan_src  # noqa: E402
 from test_torch_partition import assert_same_plan  # noqa: E402
 from tools.precompute_plans import NOMINAL_BPS, demo_net, demo_topology  # noqa: E402
 
@@ -386,3 +387,72 @@ def test_run_plan_verify_passes_a_valid_plan(plans, conv_spy):
     got = run_plan(plan, params["features"], vgg.apply_layer, x, verify=True)
     want = run_plan(plan, params["features"], vgg.apply_layer, x)
     assert torch.equal(got, want) and len(conv_spy) > 0
+
+
+# ---------------------------------------------------------------------------
+# keying lint: the port's own sources, and tests/test_analysis.py's synthetic
+# corruptions (l.413-489) through both packages' lints
+# ---------------------------------------------------------------------------
+
+BAD_STORE_SRC = """
+class PlanStore:
+    def get(self, key):
+        return pickle.loads(row[2])
+"""
+
+
+KEYING_CASES = {
+    "unkeyed": (_replan_src(["alpha", "new_knob"], ["alpha"], {}), GOOD_STORE_SRC, "keying.unkeyed"),
+    "stale_exclusion": (_replan_src(["alpha"], ["alpha"], {"gone": "this field was removed long ago"}),
+                        GOOD_STORE_SRC, "keying.stale-exclusion"),
+    "no_justification": (_replan_src(["alpha", "beta"], ["alpha"], {"beta": "perf"}), GOOD_STORE_SRC,
+                         "keying.no-justification"),
+    "contradiction": (_replan_src(["alpha"], ["alpha"], {"alpha": "excluded for a very well argued reason"}),
+                      GOOD_STORE_SRC, "keying.contradiction"),
+    "store_veto": (_replan_src(["alpha"], ["alpha"], {}), BAD_STORE_SRC, "keying.store-veto"),
+    "unknown_field": (_replan_src(["alpha"], ["alpha", "ghost"], {}), GOOD_STORE_SRC, "keying.unknown-field"),
+    "no_exclusion_list": ("class ReplanConfig:\n    a: int = 0\n\nclass ReplanController:\n"
+                          "    def __init__(self, config):\n        self._fingerprint = (config.a,)\n",
+                          GOOD_STORE_SRC, "keying.exclusion-list"),
+    "unparseable": ("def (:", GOOD_STORE_SRC, "keying.parse"),
+    "no_get": (_replan_src(["alpha"], ["alpha"], {}), "class PlanStore:\n    pass\n", "keying.parse"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KEYING_CASES))
+def test_keying_corruption_findings_equal_jax(name):
+    replan_src, store_src, check = KEYING_CASES[name]
+    rep = analysis.check_keying(replan_src, store_src)
+    assert _report(rep) == _report(janalysis.check_keying(replan_src, store_src))
+    assert check in [f.check for f in rep.findings]
+
+
+def test_check_keying_clean_on_the_ports_sources():
+    """``check_keying()`` lints the port's own ``core/replan.py`` and
+    ``core/planstore.py`` (never the JAX package's) and finds them clean,
+    with JAX's check count on its own sources."""
+    from repro_torch.core import planstore, replan
+
+    rep = analysis.check_keying()
+    assert rep.ok, str(rep)
+    own = analysis.check_keying(Path(replan.__file__).read_text(), Path(planstore.__file__).read_text())
+    assert _report(rep) == _report(own)
+    assert rep.checks == janalysis.check_keying().checks
+
+
+@pytest.mark.parametrize("cut", ["            config.tol,\n", "            config.bucket_frac,\n"])
+def test_keying_catches_an_unkeyed_knob_in_either_packages_source(cut):
+    """A knob dropped from the real fingerprint tuple: both lints, each on
+    its own package's source, report the same finding."""
+    from repro.core import planstore as jplanstore
+    from repro.core import replan as jreplan
+    from repro_torch.core import planstore, replan
+
+    reps = []
+    for lint, rmod, smod in ((analysis.check_keying, replan, planstore),
+                             (janalysis.check_keying, jreplan, jplanstore)):
+        src = Path(rmod.__file__).read_text()
+        assert src.count(cut) == 1
+        reps.append(_report(lint(src.replace(cut, ""), Path(smod.__file__).read_text())))
+    assert reps[0] == reps[1]
+    assert [f[0] for f in reps[0][0]] == ["keying.unkeyed"]

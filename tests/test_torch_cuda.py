@@ -8,6 +8,8 @@ Tolerances: 2e-5 for float32 (the kernel and the plain version sum the same
 products in another order; TF32 is off for the plain version's matmuls) and
 2e-2 for bfloat16 (both round one float32 sum), as tests/test_kernels.py.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -528,3 +530,31 @@ def test_run_plan_verify_launches_nothing_for_a_corrupt_plan_on_card(card):
     got = run_plan(plan, params["features"], vgg.apply_layer, x, verify=True)
     assert conv2d_cuda.launches > before[0]
     torch.testing.assert_close(got, vgg.features(params, vgg.SMOKE, x), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_run_plan_first_slot_sample_excludes_queued_work_on_card(card):
+    """``run_plan(time_observer=...)`` synchronises before its first slot:
+    a large matmul queued just before the call does not land in the first
+    ES's sample."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = vgg.init(gen, vgg.SMOKE)
+    x = torch.randn((1, 64, 64, 3), generator=gen, device="cuda")
+    plan = partition.plan_halp(vgg.SMOKE.geom(), overlap_rows=4)
+    first = next(es for es in plan.es_names if plan.parts[0].out[es])
+    a = torch.randn((8192, 8192), generator=gen, device="cuda")
+    run_plan(plan, params["features"], vgg.apply_layer, x)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        a @ a
+    torch.cuda.synchronize()
+    queued_s = time.perf_counter() - t0
+    samples = {}
+    for _ in range(4):
+        a @ a
+    out = run_plan(plan, params["features"], vgg.apply_layer, x,
+                   time_observer=lambda es, fl, dt: samples.setdefault(es, dt))
+    want = run_plan(plan, params["features"], vgg.apply_layer, x)
+    assert torch.equal(out, want)
+    assert samples[first] < queued_s / 2, (samples, queued_s)

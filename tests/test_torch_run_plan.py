@@ -80,6 +80,27 @@ def test_run_plan_time_observer_matches_jax(setup):
     assert all(dt > 0 for _, _, dt in seen)
 
 
+@pytest.mark.parametrize("plan", ["halp_skewed", "n3_skewed"])
+def test_time_observer_leaves_the_output_and_samples_as_before(setup, plan, monkeypatch):
+    """With an observer, the output is bit-equal to the run without one and
+    the samples carry JAX's attribution, one per slot; the synchronisation
+    before the first slot is for CUDA tensors only (never reached here)."""
+    jp, p, x, _ = setup
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: calls.append(a))
+    tplan, jplan = PLANS[plan](partition, vgg.SMOKE.geom()), PLANS[plan](jpart, JCFG.geom())
+    seen, jseen = [], []
+    plain = run_plan(tplan, p["features"], vgg.apply_layer, torch.from_numpy(x))
+    timed = run_plan(tplan, p["features"], vgg.apply_layer, torch.from_numpy(x),
+                     time_observer=lambda es, fl, dt: seen.append((es, fl, dt)))
+    jax_run_plan(jplan, jp["features"], jvgg.apply_layer, jnp.asarray(x),
+                 time_observer=lambda es, fl, dt: jseen.append((es, fl, dt)))
+    torch.testing.assert_close(timed, plain, rtol=0, atol=0)
+    assert [(es, fl) for es, fl, _ in seen] == [(es, fl) for es, fl, _ in jseen]
+    assert len({es for es, _, _ in seen}) == len(seen) and all(dt > 0 for _, _, dt in seen)
+    assert calls == []
+
+
 def test_run_plan_reads_only_the_plans_rows(setup):
     """Reconstruction is strict: a plan whose messages are cut short fails
     loudly instead of producing a wrong feature map."""
