@@ -189,6 +189,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    lossless (2e-5 x (1 + |y|) of phase 4's single-device forward, within
    ``DEPTH_RTOL`` of the plain conv on the CPU) and a steady time; every
    forward's K1 launches equal its plan's.
+13. serves the vision family at full width (``phase_vision``): ViT-L/16,
+   Swin-B, ConvNeXt-B (224) and EfficientNet-B7 (600), seeded random
+   weights, each (1) through ``launch.serve.serve`` (16 requests at
+   ``max_batch=4``; p50, p99, req/s); (2) one float32 and one bfloat16
+   forward at batch 4 whose K1 launches (depthwise apart) and K3 launches
+   must be ``VISION_LAUNCHES`` (1 / 1 / 40 / 163, 0 / 0 / 36 / 55
+   depthwise; ViT 24 K3), with no SDPA operator in the float32 profile;
+   (3) ``configs.steps.build``'s ``serve_b1`` (bfloat16 at 224) held to the
+   float32 forward of the same bf16-rounded weights within ``BF16_RTOL`` of
+   its largest |logit|, or 1.25x the plain versions' own bfloat16 gap where
+   that is larger (phase 7's rule), and ``serve_b128`` counted, then timed
+   (ms, images/s); (4) every K1 / K3 call of the float32 forward held to
+   its plain version on the same activations (``held_on_path``), and image 0
+   held to the plain versions' float32 forward on the CPU within
+   ``DEPTH_RTOL`` (the plain versions on the card printed beside) --
+   ConvNeXt also with every gamma 1 (layer_scale 1.0), since 1e-6 would
+   hide a wrong depthwise conv; EfficientNet-B7 with its batch norms'
+   statistics taken from the batch (``calibrated_bn``: at JAX's init
+   statistics its activations grow to ~1e6 and two correct float32
+   forwards part, which is printed as a record); (5) K1 (dense and
+   depthwise) and K3 held against their plain versions at every call
+   signature those forwards made, the batch-4 float32 ones timed beside
+   ``F.conv2d`` / SDPA (never on the path), device us from profiler
+   windows and the bound; (6) steady float32 and bfloat16 forwards at batch
+   4 timed and profiled (device ms by family: K1, K1 depthwise, K3, GEMM,
+   other) and the peak device memory.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -196,12 +222,14 @@ The last two lines of standard output are ``{"kernels": [...]}`` and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -315,6 +343,18 @@ def device_us(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return total / count * max(1, round(count / reps)) if total > 0 else float("nan")
 
 
+def device_or_event_us(torch, fn, reps: int = 20) -> tuple[float, str]:
+    """``device_us`` of ``fn``; a profiler window may trace nothing (nan), so
+    it is taken up to three times, then the CUDA-event mean stands in
+    (host-bound where the wrapper outlasts the kernel): (us, "profiler" or
+    "events")."""
+    for _ in range(3):
+        us = device_us(torch, fn, reps=reps)
+        if math.isfinite(us):
+            return us, "profiler"
+    return time_ms(torch, fn, reps=reps) * 1e3, "events"
+
+
 def host_us(torch, fn, reps: int = 50) -> float:
     """Host time of ``fn`` in us per call: the enqueue of ``reps`` calls on
     the host clock, the device not waited for."""
@@ -411,9 +451,38 @@ def spatial_calls(net, heights, batch: int, weighted: bool) -> list[dict]:
     return calls
 
 
-def dict_leaves(tree) -> list:
-    """The leaves of a nested dict, in order."""
-    return [x for v in tree.values() for x in (dict_leaves(v) if isinstance(v, dict) else [v])]
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list tree, in order (a tuple is a leaf:
+    a bundle's (shape, dtype) specs)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def calibrated_bn(torch, mod, params, cfg, x):
+    """A copy of EfficientNet's ``params`` whose batch norms' running
+    statistics are those of ``x``'s forward: each batch norm's input's
+    per-channel mean and variance, taken in float32 in turn."""
+    from repro_torch.models import efficientnet
+    from repro_torch.models.common import tree_map
+
+    out = tree_map(lambda t: t.clone(), params)
+    real = efficientnet.batchnorm_inference
+
+    def calibrate(h, p, eps=1e-5):
+        p["mean"].copy_(h.float().mean(dim=(0, 1, 2)))
+        p["var"].copy_(h.float().var(dim=(0, 1, 2), unbiased=False))
+        return real(h, p, eps)
+
+    efficientnet.batchnorm_inference = calibrate
+    try:
+        mod.apply(out, cfg, x)
+    finally:
+        efficientnet.batchnorm_inference = real
+    torch.cuda.synchronize()
+    return out
 
 
 # K3's instantiations in ptxas's log: flash_fwd<T, DQK, DV, VEC, WQ, WK> mangled
@@ -453,7 +522,7 @@ def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tup
 # matrix products (the LM's dense layers and the experts' batched products;
 # nvjet is its bf16 family on Hopper), and the MoE routing's sorts, searches,
 # scatters and gathers (the embedding's row gather falls there too).
-KERNEL_FAMILIES = (("conv2d_igemm<float, (anonymous namespace)::DenseRows", "K1"),
+KERNEL_FAMILIES = (("dwconv2d", "K1 depthwise"), ("conv2d_igemm<float, (anonymous namespace)::DenseRows", "K1"),
                    ("conv2d_igemm<float, (anonymous namespace)::HaloRows", "K2"),
                    ("splitk_reduce", "K1/K2 split-K reduction"), ("flash_fwd", "K3"),
                    ("conv2d_igemm", "K1/K2 (bf16)"), ("gemm", "GEMM (cuBLAS)"), ("gemv", "GEMM (cuBLAS)"),
@@ -938,8 +1007,8 @@ def phase_moe(torch) -> tuple[dict, int]:
     params = lm.init(gen, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = dict_leaves(params)
-    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill.state),
+    leaves = tree_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == tree_leaves(prefill.state),
           "the weights do not match the bundle's shapes")
     n_params = sum(x.numel() for x in leaves)
     del leaves
@@ -1074,8 +1143,8 @@ def phase_moe(torch) -> tuple[dict, int]:
     params = lm.init(gen, full, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init48_s = time.perf_counter() - t0
-    leaves = dict_leaves(params)
-    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill48.state),
+    leaves = tree_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == tree_leaves(prefill48.state),
           "the 48-layer weights do not match the bundle's shapes")
     n48 = sum(x.numel() for x in leaves)
     del leaves
@@ -1264,8 +1333,8 @@ def phase_mla(torch) -> tuple[dict, dict]:
     params = lm.init(gen, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = dict_leaves(params)
-    check([(tuple(x.shape), x.dtype) for x in leaves] == dict_leaves(prefill.state),
+    leaves = tree_leaves(params)
+    check([(tuple(x.shape), x.dtype) for x in leaves] == tree_leaves(prefill.state),
           "the weights do not match the bundle's shapes")
     n_params = sum(x.numel() for x in leaves)
     check(round(n_params / 1e9, 2) == 15.11, f"{n_params} parameters, expected 15.11 B")
@@ -1776,41 +1845,18 @@ def table4_topology(card):
 
 def hold_k1(torch, gen, shapes: Counter, path: str, timed: bool = True) -> list[dict]:
     """K1 against its plain version, float32, at every conv shape of
-    ``shapes`` (``conv_shapes``: shape -> calls a forward), on seeded inputs;
-    fatal where it disagrees.  With ``timed``, each shape is also timed as
-    phase 3 times it (kernel, plain version, ``F.conv2d``) beside its bounds.
-    K1's launch count is left as it was: these launches compare, they are no
-    path's.  Returns one row per shape."""
+    ``shapes`` (``conv_shapes``: shape -> calls a forward, each run VALID
+    with a bias), on seeded inputs; fatal where it disagrees.  With
+    ``timed``, each shape is also timed as phase 3 times it (kernel, plain
+    version, ``F.conv2d``) beside its bounds.  K1's launch count is left as
+    it was: these launches compare, they are no path's.  Returns one row per
+    shape."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
-
-    launches = conv2d_cuda.launches
-    holds = []
-    for (n, h, w, cin, cout, k, st), per_forward in sorted(shapes.items()):
-        x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
-        wt = math.sqrt(2.0 / (k * k * cin)) * torch.randn((k, k, cin, cout), generator=gen, device="cuda")
-        b = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
-        kw = dict(stride=st, padding=0, groups=1)
-        got, ref = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
-        diff = (got - ref).abs()
-        ok = bool((diff <= TOL["float32"] * (1 + ref.abs())).all()) and bool(torch.isfinite(got).all())
-        row = dict(shape=[n, h, w, cin, cout], k=k, stride=st, dtype="float32", path=path,
-                   per_forward=per_forward, max_abs_err=diff.max().item(), within_tol=ok)
-        if timed:
-            xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
-            flops = 2.0 * k * k * cin * cout * n * got.shape[1] * got.shape[2]
-            nbytes = (x.numel() + wt.numel() + b.numel() + got.numel()) * 4
-            ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
-            row.update(ms=time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw)),
-                       plain_ms=time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw)),
-                       library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, b, stride=st)),
-                       bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
-                       ffma_bound_ms=max(bound_ms(flops, nbytes, "float32", ffma=True)))
-        holds.append(row)
-        check(ok, f"K1 disagrees with its plain version at a {path} shape {row}")
+    holds = [dict(hold_conv(torch, F, gen, ((n, h, w, cin), (k, k, cin, cout), st, 0, 1, True, "float32"), timed),
+                  path=path, per_forward=per_forward)
+             for (n, h, w, cin, cout, k, st), per_forward in sorted(shapes.items())]
     torch.cuda.synchronize()
-    conv2d_cuda.launches = launches
     return holds
 
 
@@ -1863,27 +1909,18 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
           f"eff {card.eff_flops / 1e12:.4f} TFLOP/s = {vgg16_geom().total_flops() / 1e9:.3f} GFLOP / "
           f"{curve_ms[1]:.3f} ms (phase 10's b = 1 forward)")
     # per layer: the DES's compute time at b = 1 beside the device time of
-    # K1 (convs) or the pool at the single-device shape, from profiler
-    # windows; a window may trace nothing (nan), so it is taken up to three
-    # times, then the CUDA-event mean stands in (host-bound where the wrapper
-    # outlasts the kernel) and the row says so
-    def layer_us(fn) -> tuple[float, str]:
-        for _ in range(3):
-            us = device_us(torch, fn)
-            if math.isfinite(us):
-                return us, "profiler"
-        return time_ms(torch, fn) * 1e3, "events"
-
+    # K1 (convs) or the pool at the single-device shape (device_or_event_us)
     lgen = torch.Generator(device="cuda").manual_seed(11)
     layers = []
     for i, g in enumerate(net.layers):
         if g.kind == "conv":
             x = torch.randn((1, sizes[i] + 2 * g.p, sizes[i] + 2 * g.p, g.c_in), generator=lgen, device="cuda")
             p = params["features"][i]
-            meas, src = layer_us(lambda x=x, p=p, g=g: conv2d_cuda(x, p["w"], p["b"], stride=g.s, padding=0))
+            meas, src = device_or_event_us(
+                torch, lambda x=x, p=p, g=g: conv2d_cuda(x, p["w"], p["b"], stride=g.s, padding=0))
         else:
             x = torch.randn((1, sizes[i], sizes[i], g.c_in), generator=lgen, device="cuda")
-            meas, src = layer_us(lambda x=x, g=g: max_pool(x, k=g.k, s=g.s))
+            meas, src = device_or_event_us(torch, lambda x=x, g=g: max_pool(x, k=g.k, s=g.s))
         des = card.compute_time(net.layer_flops(i)) * 1e6
         layers.append(dict(layer=g.name, kind=g.kind, gflop=net.layer_flops(i) / 1e9, des_us=des,
                            device_us=meas, source=src, des_over_device=des / meas))
@@ -2383,6 +2420,441 @@ def phase_replan(torch, engines: dict, params=None, images=None, plain=None,
     return report, launches, holds
 
 
+# Phase 13: the vision family served at full width.  K1 launches a forward
+# (all, of which depthwise) and K3's, whatever the batch and resolution.
+VISION_ARCHS = ("vit-l16", "swin-b", "convnext-b", "efficientnet-b7")
+VISION_LAUNCHES = {"vit-l16": (1, 0, 24), "swin-b": (1, 0, 0), "convnext-b": (40, 36, 0),
+                   "efficientnet-b7": (163, 55, 0)}
+
+
+@contextlib.contextmanager
+def vision_kernels(conv, attn):
+    """The vision models' K1 and K3 calls (``models.layers.conv2d_cuda``,
+    ``models.vit.flash_attention``) through ``conv`` and ``attn``, which
+    take the wrappers' arguments; then the wrappers restored."""
+    from repro_torch.models import layers, vit
+
+    real = layers.conv2d_cuda, vit.flash_attention
+    layers.conv2d_cuda, vit.flash_attention = conv, attn
+    try:
+        yield
+    finally:
+        layers.conv2d_cuda, vit.flash_attention = real
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Records the arguments of every K1 and K3 call the vision models make
+    while entered, by call signature (``hold_conv``'s); the wrappers run as
+    they are, so their launch counts move as without it."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+
+    rec = types.SimpleNamespace(convs=Counter(), attns=Counter(), sdpa=None)
+
+    def conv(x, w, b=None, *, stride=1, padding=1, groups=1):
+        rec.convs[(tuple(x.shape), tuple(w.shape), stride, padding, groups, b is not None,
+                   str(x.dtype).removeprefix("torch."))] += 1
+        return conv2d_cuda(x, w, b, stride=stride, padding=padding, groups=groups)
+
+    def attn(q, k, v, *, causal=True):
+        rec.attns[(tuple(q.shape), causal, str(q.dtype).removeprefix("torch."))] += 1
+        return flash_attention(q, k, v, causal=causal)
+
+    with vision_kernels(conv, attn):
+        yield rec
+
+
+@contextlib.contextmanager
+def held_on_path(torch):
+    """While entered, every K1 and K3 call the vision models make is also
+    run through its plain version on the same inputs, and the kernel's
+    output held against it at TOL (fatal beyond it): the kernels on the
+    path's own activations.  Yields the rows; the launch counts are
+    restored on exit."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+
+    rows = []
+    counts = conv2d_cuda.launches, conv2d_cuda.depthwise_launches, flash_attention.launches
+
+    def held(kind, got, want, what):
+        diff = (got.float() - want.float()).abs()
+        dname = str(got.dtype).removeprefix("torch.")
+        ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all())
+        rows.append(dict(kernel=kind, what=what, dtype=dname, max_abs_err=diff.max().item(),
+                         max_abs_out=want.float().abs().max().item(), within_tol=ok))
+        check(ok, f"{kind} disagrees with its plain version on the path's activations: {rows[-1]}")
+        return got
+
+    def conv(x, w, b=None, *, stride=1, padding=1, groups=1):
+        kw = dict(stride=stride, padding=padding, groups=groups)
+        return held("K1", conv2d_cuda(x, w, b, **kw), conv2d_ref(x, w, b, **kw),
+                    f"{list(x.shape)} -> {w.shape[-1]} k{w.shape[0]} s{stride} p{padding} g{groups}")
+
+    def attn(q, k, v, *, causal=True):
+        return held("K3", flash_attention(q, k, v, causal=causal), attention_ref(q, k, v, causal=causal),
+                    f"{list(q.shape)}")
+
+    try:
+        with vision_kernels(conv, attn):
+            yield rows
+    finally:
+        torch.cuda.synchronize()
+        conv2d_cuda.launches, conv2d_cuda.depthwise_launches, flash_attention.launches = counts
+
+
+def hold_conv(torch, F, gen, sig: tuple, timed: bool, device_times: bool = False) -> dict:
+    """K1 against its plain version at one call signature (input and weight
+    shapes, stride, padding, groups, bias, dtype: ``recording_calls``), on
+    seeded inputs; fatal beyond TOL.  With ``timed``, the CUDA-event means
+    of the kernel, the plain version and ``F.conv2d`` (with ``groups=C`` for
+    depthwise; never on the path) and the bound; with ``device_times`` also
+    the kernel's and ``F.conv2d``'s device us per call from profiler
+    windows.  The launch counts are left as they were."""
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+    from repro_torch.kernels.conv2d.ops import launch_config
+
+    counts = conv2d_cuda.launches, conv2d_cuda.depthwise_launches
+    (n, h, w, cin), (k, _, w_cin, cout), st, pad, groups, has_bias, dname = sig
+    dt = getattr(torch, dname)
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dt)
+    wt = (math.sqrt(2.0 / (k * k * w_cin)) * torch.randn((k, k, w_cin, cout), generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn((cout,), generator=gen, device="cuda")).to(dt) if has_bias else None
+    kw = dict(stride=st, padding=pad, groups=groups)
+    got, want = conv2d_cuda(x, wt, b, **kw), conv2d_ref(x, wt, b, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got.float()).all())
+    row = dict(shape=[n, h, w, cin, cout], k=k, stride=st, pad=pad, groups=groups, bias=has_bias, dtype=dname,
+               max_abs_err=diff.max().item(), within_tol=ok, **launch_config(x, wt, **kw))
+    check(ok, f"K1 disagrees with its plain version at {row}")
+    if timed:
+        xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)  # NCHW / OIHW views
+
+        def lib():
+            return F.conv2d(xn, wn, b, stride=st, padding=pad, groups=groups)
+
+        flops = 2.0 * k * k * w_cin * cout * n * got.shape[1] * got.shape[2]
+        nbytes = (x.numel() + wt.numel() + (b.numel() if has_bias else 0) + got.numel()) * x.element_size()
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+        row.update(ms=time_ms(torch, lambda: conv2d_cuda(x, wt, b, **kw)),
+                   plain_ms=time_ms(torch, lambda: conv2d_ref(x, wt, b, **kw), reps=5),
+                   library_ms=time_ms(torch, lib),
+                   bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   ffma_bound_ms=max(bound_ms(flops, nbytes, dname, ffma=True)))
+        if device_times:
+            row["device_us"], row["device_source"] = device_or_event_us(
+                torch, lambda: conv2d_cuda(x, wt, b, **kw), reps=10)
+            row["library_device_us"], row["library_device_source"] = device_or_event_us(torch, lib, reps=10)
+    torch.cuda.synchronize()
+    conv2d_cuda.launches, conv2d_cuda.depthwise_launches = counts
+    return row
+
+
+def hold_vit_attention(torch, F, gen, b: int, h: int, t: int, d: int, dname: str, timed: bool) -> dict:
+    """K3 against its plain version at ViT's layout: q, k and v the three
+    slices of one [B, T, 3, H, D] projection seen as [B, H, T, D], not
+    causal; fatal beyond TOL.  With ``timed``, the CUDA-event means of the
+    kernel, the plain version and SDPA (never on the path), their device us
+    per call from profiler windows, and the bound.  The count is left as it
+    was."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention
+    from repro_torch.kernels.attention.ops import launch_config
+
+    count = flash_attention.launches
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(getattr(torch, dname))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got, want = flash_attention(q, k, v, causal=False), attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got.float()).all())
+    row = dict(b=b, h=h, t=t, s=t, d=d, dtype=dname, max_abs_err=diff.max().item(), within_tol=ok,
+               **launch_config(q, k, v, causal=False))
+    check(ok, f"K3 disagrees with its plain version at ViT's shape {row}")
+    if timed:
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        flops = 2.0 * b * h * t * t * (d + d)
+        nbytes = 4 * b * h * t * d * qkv.element_size()  # q, k, v in; o out
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+        kern = lambda: flash_attention(q, k, v, causal=False)  # noqa: E731
+        row.update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, lambda: attention_ref(q, k, v, causal=False)),
+                   library_ms=time_ms(torch, lib), library_backend=sdpa_backend(torch, lib),
+                   bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   ffma_bound_ms=max(bound_ms(flops, nbytes, dname, ffma=True)))
+        row["device_us"], row["device_source"] = device_or_event_us(torch, kern)
+        row["library_device_us"], row["library_device_source"] = device_or_event_us(torch, lib)
+    torch.cuda.synchronize()
+    flash_attention.launches = count
+    return row
+
+
+def phase_vision(torch) -> tuple[dict, dict, list, list]:
+    """Phase 13: ViT-L/16, Swin-B, ConvNeXt-B and EfficientNet-B7 at full
+    width, each (1) served through ``launch.serve.serve`` (N_REQUESTS at
+    MAX_BATCH, its FULL config: EfficientNet at 600), (2) one forward at
+    batch MAX_BATCH, float32 and bfloat16, counted against
+    ``VISION_LAUNCHES`` and recorded (``recording_calls``), no SDPA operator
+    in its profile, (3) ``configs.steps.build``'s ``serve_b1`` (bfloat16,
+    224) held to the float32 forward of the same bf16-rounded weights and
+    ``serve_b128`` run once counted and once timed, (4) every kernel call of
+    the float32 forward held on its own activations (``held_on_path``) and
+    image 0 held to the plain versions' float32 forward on the CPU --
+    ConvNeXt also with every gamma 1 (``layer_scale = 1.0``), EfficientNet
+    with batch-norm statistics from the batch (``calibrated_bn``) --, (5) K1
+    and K3 held against their plain versions at every call signature those
+    forwards made (the batch-4 float32 ones timed), (6) steady f32 / bf16
+    forwards timed and profiled.  Returns the report, the launches of its
+    counted runs, and its K1 and K3 rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import tree_map
+
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    launches = {"conv2d": 0, "conv2d_depthwise": 0, "flash_attention": 0}
+    conv_rows, attn_rows, report = [], [], {}
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.depthwise_launches = flash_attention.launches = 0
+
+    def read() -> tuple[int, int, int]:
+        got = (conv2d_cuda.launches, conv2d_cuda.depthwise_launches, flash_attention.launches)
+        for key, n in zip(launches, got):
+            launches[key] += n
+        return got
+
+    def counted(label, fn, want, profile=False):
+        """One call of ``fn`` with the counts set to 0 before and read after,
+        its kernel calls recorded; fatal unless the counts are ``want``."""
+        zero()
+        with recording_calls() as rec:
+            if profile:
+                with torch.profiler.profile(activities=acts) as prof:
+                    y = fn()
+                    torch.cuda.synchronize()
+                rec.sdpa = sdpa_ops(prof)
+            else:
+                y = fn()
+                torch.cuda.synchronize()
+        got = read()
+        print(f"  {label}: K1 launches {got[0]} (depthwise {got[1]}), K3 {got[2]}; expected {want}")
+        check(got == want, f"{label} launched {got}, expected {want}")
+        check(bool(torch.isfinite(y.float()).all()), f"{label}: non-finite logits")
+        return y, rec
+
+    for name in VISION_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        arch = get_arch(name)
+        cfg, mod, want = arch.cfg, arch.module, VISION_LAUNCHES[name]
+
+        # (1) served through the launcher
+        zero()
+        out = serve(name, n_requests=N_REQUESTS, max_batch=MAX_BATCH, device="cuda", seed=0)
+        served = read()
+        stats, reqs = out["stats"], out["requests"]
+        n_batches = len({r.done for r in reqs})
+        params, x4 = out["params"], out["images"][:MAX_BATCH]
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"{name} ({cfg.img_res}x{cfg.img_res}, {n_params / 1e6:.1f} M parameters) served "
+              f"{stats['completed']} requests in {n_batches} batches of {MAX_BATCH}: p50 "
+              f"{stats['p50_latency_s'] * 1e3:.3f} ms p99 {stats['p99_latency_s'] * 1e3:.3f} ms "
+              f"{out['requests_per_s']:.3f} req/s; launches {served}")
+        check(stats["completed"] == N_REQUESTS and n_batches >= -(-N_REQUESTS // MAX_BATCH), "serving fell short")
+        check(served == tuple(n_batches * c for c in want), f"serving launched {served}, {n_batches} x {want}")
+        logits = out["logits"]
+        check(tuple(logits.shape) == (N_REQUESTS, cfg.num_classes) and bool(torch.isfinite(logits).all()),
+              f"bad served logits {tuple(logits.shape)}")
+
+        # (2) one forward at batch MAX_BATCH, counted and recorded, f32 then bf16
+        y32, rec32 = counted("float32 forward", lambda: mod.apply(params, cfg, x4), want, profile=True)
+        print(f"  SDPA operators in its profile: {rec32.sdpa or 'none'}")
+        check(not rec32.sdpa, f"{name}'s forward ran {rec32.sdpa}")
+        lossless = (y32 - logits[:MAX_BATCH]).abs().max().item()
+        check(torch.allclose(y32, logits[:MAX_BATCH], rtol=2e-5, atol=2e-5),
+              f"the forward disagrees with the served logits ({lossless})")
+        extra, y_hold = {}, y32
+        if name == "efficientnet-b7":
+            # With JAX's init statistics (mean 0, var 1) no batch norm
+            # normalises, the activations grow to ~1e6 and two correct float32
+            # forwards part: a record.  The holds below run on the same weights
+            # with each batch norm's statistics taken from this batch, as a
+            # trained model's running statistics normalise its activations.
+            c0 = mod.apply(tree_map(lambda t: t.cpu(), params), cfg, x4[:1].cpu())
+            with plain_kernels():
+                p0 = mod.apply(params, cfg, x4[:1])
+            extra["init_stats"] = dict(max_abs_logit=c0.abs().max().item(),
+                                       kernels_vs_cpu=(y32[:1].cpu() - c0).abs().max().item(),
+                                       plain_on_card_vs_cpu=(p0.cpu() - c0).abs().max().item())
+            print(f"  at JAX's init statistics (record): max |logit| {extra['init_stats']['max_abs_logit']:.4g}; "
+                  f"image 0 vs the CPU: kernels {extra['init_stats']['kernels_vs_cpu']:.4g}, the plain "
+                  f"versions on the card {extra['init_stats']['plain_on_card_vs_cpu']:.4g}")
+            del c0, p0
+            params = calibrated_bn(torch, mod, params, cfg, x4)
+            y_hold, _ = counted("float32 forward, batch-norm statistics of this batch",
+                                lambda: mod.apply(params, cfg, x4), want)
+        bparams = tree_map(lambda t: t.to(torch.bfloat16), params)
+        xb = x4.to(torch.bfloat16)
+        y16, rec16 = counted("bfloat16 forward", lambda: mod.apply(bparams, cfg, xb), want)
+
+        # (3) the step builder's serve cells, bfloat16 (build's default), at 224
+        b1, b128 = build(arch, "serve_b1"), build(arch, "serve_b128")
+        check(b1.inputs["images"][1] == torch.bfloat16 and b128.inputs["images"][1] == torch.bfloat16,
+              "build's serve cells are not bfloat16")
+        check([(tuple(t.shape), t.dtype) for t in tree_leaves(bparams)] == tree_leaves(b1.state),
+              "the weights do not match the bundle's shapes")
+        img1 = torch.randn(b1.inputs["images"][0], generator=gen, device="cuda").to(torch.bfloat16)
+        s1, rec1 = counted("serve_b1 (bfloat16, 224)", lambda: b1.fn(bparams, img1), want)
+        rparams = tree_map(lambda t: t.float(), bparams)
+        r1 = b1.fn(rparams, img1.float())
+        with plain_kernels():
+            p1 = b1.fn(bparams, img1)
+        del rparams
+        b_err = (s1.float() - r1).abs().max().item()
+        b_plain = (p1.float() - r1).abs().max().item()
+        b_vs_plain = (s1.float() - p1.float()).abs().max().item()
+        b_scale = r1.abs().max().item()
+        # BF16_RTOL, or as phase 7 1.25x the plain versions' own bfloat16 gap
+        # where bfloat16 arithmetic itself misses it (EfficientNet-B7: 0.05
+        # of its largest |logit| in the plain versions too)
+        b_limit = max(BF16_RTOL * b_scale, 1.25 * b_plain)
+        print(f"  serve_b1 vs the float32 forward of its bf16-rounded weights: max |diff| {b_err:.4g} (max "
+              f"|logit| {b_scale:.4g}; the plain versions in bf16: {b_plain:.4g}; limit {b_limit:.4g} = the "
+              f"larger of {BF16_RTOL} x max |logit| and 1.25 x the plain gap); kernels vs the plain versions, "
+              f"both bf16: {b_vs_plain:.4g}")
+        check(b_err <= b_limit, f"{name}'s bfloat16 forward drifts from the float32 one")
+        img128 = torch.randn(b128.inputs["images"][0], generator=gen, device="cuda").to(torch.bfloat16)
+        _, rec128 = counted("serve_b128 (bfloat16, 224)", lambda: b128.fn(bparams, img128), want)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            b128.fn(bparams, img128)
+        torch.cuda.synchronize()
+        b128_ms = (time.perf_counter() - t1) / 3 * 1e3
+        print(f"  serve_b128 steady forward (host clock, 3 runs): {b128_ms:.3f} ms, "
+              f"{128 / b128_ms * 1e3:.1f} images/s")
+
+        # (4) every kernel call of the float32 forward against its plain
+        # version on the same activations; then image 0 against the plain
+        # versions' float32 forward on the CPU (the plain versions on the
+        # card beside it: the gap a change of summation order alone makes)
+        with held_on_path(torch) as path_rows:
+            mod.apply(params, cfg, x4)
+        worst = max(path_rows, key=lambda r: r["max_abs_err"] / (1 + r["max_abs_out"]))
+        print(f"  on the path's own activations: {len(path_rows)} kernel calls each within TOL of its plain "
+              f"version (largest share of the limit: {worst['kernel']} {worst['what']}, max_err "
+              f"{worst['max_abs_err']:.3g} at max |out| {worst['max_abs_out']:.3g})")
+        t1 = time.perf_counter()
+        cparams = tree_map(lambda t: t.cpu(), params)
+        c_logits = mod.apply(cparams, cfg, x4[:1].cpu())
+        cpu_s = time.perf_counter() - t1
+        with plain_kernels():
+            pc_logits = mod.apply(params, cfg, x4[:1])
+        c_err = (y_hold[:1].cpu() - c_logits).abs().max().item()
+        c_plain = (pc_logits.cpu() - c_logits).abs().max().item()
+        c_scale = c_logits.abs().max().item()
+        c_limit = DEPTH_RTOL * c_scale
+        print(f"  vs the plain versions on the CPU (image 0, {cpu_s:.1f} s with the host copy): max |diff| "
+              f"{c_err:.4g} (max |logit| {c_scale:.4g}, limit {DEPTH_RTOL} x that; the plain versions on the "
+              f"card: {c_plain:.4g})")
+        check(c_err <= c_limit, f"{name} drifts from the plain versions on the CPU")
+        if name == "convnext-b":  # every branch at full weight: a wrong depthwise conv would show
+            def unit_gamma(tree):
+                return {**tree, "stages": [{**st, "blocks": {**st["blocks"], "gamma": torch.ones_like(
+                    st["blocks"]["gamma"])}} for st in tree["stages"]]}
+
+            lparams = unit_gamma(params)
+            yl, _ = counted("float32 forward at layer_scale 1.0", lambda: mod.apply(lparams, cfg, x4), want)
+            cl = mod.apply(unit_gamma(cparams), cfg, x4[:1].cpu())
+            l_err, l_scale = (yl[:1].cpu() - cl).abs().max().item(), cl.abs().max().item()
+            gap = (yl - y32).abs().max().item()
+            print(f"  layer_scale 1.0 vs the CPU: max |diff| {l_err:.4g} (max |logit| {l_scale:.4g}, limit "
+                  f"{DEPTH_RTOL} x that); its logits move {gap:.4g} from layer_scale 1e-6's")
+            check(l_err <= DEPTH_RTOL * l_scale, "ConvNeXt at layer_scale 1.0 drifts from the CPU")
+            extra.update(layer_scale_1_cpu_max_abs=l_err, layer_scale_1_max_abs_logit=l_scale,
+                         layer_scale_1_vs_1e6=gap)
+            del lparams
+        del cparams
+
+        # (5) K1 and K3 at every call signature of those forwards; batch 4 timed
+        held = 0
+        for path, rec, timed in (("b4-float32", rec32, True), ("b4-bfloat16", rec16, False),
+                                 ("serve_b1", rec1, False), ("serve_b128", rec128, False)):
+            for sig, per_forward in sorted(rec.convs.items(), key=str):
+                conv_rows.append(dict(hold_conv(torch, F, gen, sig, timed, device_times=True), arch=name,
+                                      path=path, per_forward=per_forward))
+                held += 1
+            for (shape, _, dname), per_forward in rec.attns.items():
+                bq, hq, tq, dq = shape
+                attn_rows.append(dict(hold_vit_attention(torch, F, gen, bq, hq, tq, dq, dname, timed),
+                                      arch=name, path=path, per_forward=per_forward))
+        for r in (r for r in conv_rows if r["arch"] == name and r["path"] == "b4-float32"):
+            print(f"  conv {r['shape']} k{r['k']} s{r['stride']} p{r['pad']} g{r['groups']}"
+                  f"{' bias' if r['bias'] else ''} x{r['per_forward']}/fwd S={r['splits']} {r['gather']}: "
+                  f"max_err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms ({r['device_us']:.2f} us, "
+                  f"{r['device_source']}) plain {r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} "
+                  f"({r['library_device_us']:.2f} us, {r['library_device_source']}) bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})")
+        for r in (r for r in attn_rows if r["arch"] == name and "ms" in r):
+            print(f"  attn B{r['b']} H{r['h']} T{r['t']} D{r['d']} x{r['per_forward']}/fwd [{r['block']}]: "
+                  f"max_err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms ({r['device_us']:.2f} us, "
+                  f"{r['device_source']}) plain {r['plain_ms']:.4f} SDPA {r['library_ms']:.4f} "
+                  f"({r['library_device_us']:.2f} us, {r['library_device_source']}; {r['library_backend']}) bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        mine = [r for r in conv_rows + attn_rows if r["arch"] == name]
+        print(f"  held {held} K1 signatures (max_err float32 "
+              f"{max([r['max_abs_err'] for r in mine if r['dtype'] == 'float32'], default=0):.3g}, bfloat16 "
+              f"{max([r['max_abs_err'] for r in mine if r['dtype'] == 'bfloat16'], default=0):.3g}) and "
+              f"{len(mine) - held} K3")
+
+        # (6) where the time goes
+        f_ms, f_busy, f_top, f_fams = steady_and_profiled(torch, lambda: mod.apply(params, cfg, x4),
+                                                          f"{name} float32")
+        h_ms, h_busy, h_top, h_fams = steady_and_profiled(torch, lambda: mod.apply(bparams, cfg, xb),
+                                                          f"{name} bfloat16")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        arch_s = time.perf_counter() - t0
+        print(f"  {name}: {arch_s:.1f} s, peak device memory allocated {peak_gb:.2f} GB")
+        report[name] = dict(
+            img_res=cfg.img_res, n_params=n_params, launches_per_forward=want, served_launches=served,
+            serve=dict(stats, requests_per_s=out["requests_per_s"], wall_s=out["wall_s"], batches=n_batches),
+            served_vs_forward_max_abs=lossless, cpu_max_abs=c_err, cpu_max_abs_logit=c_scale, cpu_s=cpu_s,
+            cpu_plain_on_card_max_abs=c_plain, cpu_limit=c_limit, path_holds=len(path_rows),
+            path_worst=worst,
+            bf16_b1_max_abs=b_err, bf16_b1_plain_max_abs=b_plain, bf16_b1_max_abs_logit=b_scale,
+            bf16_b1_limit=b_limit, bf16_b1_vs_plain_bf16=b_vs_plain,
+            sdpa_ops=rec32.sdpa, serve_b128_ms=b128_ms, serve_b128_images_per_s=128 / b128_ms * 1e3,
+            float32=dict(steady_ms=f_ms, device_busy_ms=f_busy, top_device=f_top, device_ms_by_kernel=f_fams),
+            bfloat16=dict(steady_ms=h_ms, device_busy_ms=h_busy, top_device=h_top, device_ms_by_kernel=h_fams),
+            peak_device_gb=peak_gb, phase_s=arch_s, **extra)
+        del out, params, bparams, logits, x4, xb, y32, y_hold, y16, s1, r1, p1, img1, img128
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 13: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    return report, launches, conv_rows, attn_rows
+
+
+def plain_kernels():
+    """The vision models' convs and attention through K1's and K3's plain
+    versions on the same device, then the kernels restored."""
+    from repro_torch.kernels.attention import attention_ref
+    from repro_torch.kernels.conv2d import conv2d_ref
+
+    return vision_kernels(conv2d_ref, attention_ref)
+
+
 def main() -> int:
     import torch
 
@@ -2595,7 +3067,7 @@ def main() -> int:
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
     conv2d_cuda.launches = 0
-    out = serve(vgg.FULL, n_requests=N_REQUESTS, max_batch=MAX_BATCH, device="cuda", seed=0)
+    out = serve("vgg16", n_requests=N_REQUESTS, max_batch=MAX_BATCH, device="cuda", seed=0)
     launches = conv2d_cuda.launches
     n_batches = -(-N_REQUESTS // MAX_BATCH)
     per_forward = sum(path_shapes.values())
@@ -2808,8 +3280,8 @@ def main() -> int:
     lparams = lm.init(lgen, qcfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = dict_leaves(lparams)
-    check([(tuple(t.shape), t.dtype) for t in leaves] == dict_leaves(prefill.state),
+    leaves = tree_leaves(lparams)
+    check([(tuple(t.shape), t.dtype) for t in leaves] == tree_leaves(prefill.state),
           "the weights do not match the bundle's shapes")
     n_params = sum(t.numel() for t in leaves)
     tokens = torch.randint(0, qcfg.vocab, (LM_BATCH, LM_LEN), generator=lgen, device="cuda", dtype=torch.int32)
@@ -2954,6 +3426,9 @@ def main() -> int:
     replan_report, replan_launches, replan_holds = phase_replan(
         torch, engines_report, params, out["images"], plain, single)
 
+    # -- 13. the vision family served at full width ----------------------------
+    vision_report, vision_launches, vision_conv_rows, vision_attn_rows = phase_vision(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -2961,6 +3436,8 @@ def main() -> int:
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
     fix_rows = [r for r in main_rows if r["path"] == "weighted-fixup"]
     main_rows += engines_holds
+    vision_main = [r for r in vision_conv_rows if r["path"] == "b4-float32"]
+    main_rows += vision_main
     halo_main = [r for r in halo_rows if r["per_forward"]]
 
     def per_fwd(rs, key: str) -> float:
@@ -2982,20 +3459,45 @@ def main() -> int:
         }
 
     attn_main = [r for r in attn_rows if r["per_forward"]]
+    attn_main += [r for r in vision_attn_rows if r["path"] == "b4-float32"]
     kernels = [
         entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
-              + replan_launches["conv2d"]),
+              + replan_launches["conv2d"] + vision_launches["conv2d"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
-              + sum(mla_launches.values())),
+              + sum(mla_launches.values()) + vision_launches["flash_attention"]),
     ]
+    # K1's depthwise branch on its own: ConvNeXt-B's and EfficientNet-B7's
+    # float32 forwards at batch 4 (every vision hold, bf16 too, in its error)
+    dw_main = [r for r in vision_main if r["groups"] > 1]
+    kernels[0]["depthwise"] = dict(
+        launches=vision_launches["conv2d_depthwise"],
+        max_abs_err=max(r["max_abs_err"] for r in vision_conv_rows if r["groups"] > 1 and r["dtype"] == "float32"),
+        bf16_max_abs_err=max(r["max_abs_err"] for r in vision_conv_rows
+                             if r["groups"] > 1 and r["dtype"] == "bfloat16"),
+        **{key: per_fwd(dw_main, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        device_ms=per_fwd(dw_main, "device_us") / 1e3, library_device_ms=per_fwd(dw_main, "library_device_us") / 1e3,
+        bound_by="operations" if per_fwd(dw_main, "ops_ms") >= per_fwd(dw_main, "bytes_ms") else "bytes")
+    vision_per_forward = {}
+    for name in VISION_ARCHS:
+        rs = [r for r in vision_main if r["arch"] == name]
+        vision_per_forward[name] = {
+            part: {key: per_fwd([r for r in rs if (r["groups"] > 1) == (part == "K1 depthwise")], key)
+                   for key in ("ms", "device_us", "plain_ms", "library_ms", "library_device_us", "bound_ms")}
+            for part in ("K1 dense", "K1 depthwise")}
+        vrs = [r for r in attn_main if r.get("arch") == name]
+        if vrs:
+            vision_per_forward[name]["K3"] = {key: per_fwd(vrs, key) for key in (
+                "ms", "device_us", "plain_ms", "library_ms", "library_device_us", "bound_ms")}
+        print(f"per float32 forward of {name} at batch {MAX_BATCH} (device_us: us): "
+              f"{json.dumps(vision_per_forward[name])}")
     # phase 12's holds are untimed: they add to K1's error, not to its times
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in replan_holds))
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
@@ -3046,7 +3548,9 @@ def main() -> int:
                        plain_depth_max_abs=np_depth, steady_forward_ms=np_ms,
                        device_busy_ms=np_busy, top_device=np_top, device_ms_by_kernel=np_fams),
         "lm": lm_report, "moe": moe_report, "mla": mla_report, "serving": serving_report,
-        "engines": engines_report, "replan": replan_report,
+        "engines": engines_report, "replan": replan_report, "vision": vision_report,
+        "vision_conv_cases": vision_conv_rows, "vision_attention_cases": vision_attn_rows,
+        "vision_per_forward": vision_per_forward,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -3072,11 +3576,18 @@ def main() -> int:
                 "phase 12 adds K1's launches in the forwards of every plan its controllers serve (per "
                 "distinct plan one lossless, one warm-up and 5 steady forwards; one served batch per "
                 "closed-loop epoch; the warm restart's forward).  conv2d's max_abs_err also covers "
-                "phase 12's untimed holds at every shape its plans give K1.",
+                "phase 12's untimed holds at every shape its plans give K1.  Phase 13 adds to conv2d's "
+                "sums one float32 forward at batch 4 of ViT-L/16 (1 call), Swin-B (1), ConvNeXt-B (40: 36 "
+                "depthwise) and EfficientNet-B7 at 600 (163: 55 depthwise), and to flash_attention's one "
+                "of ViT-L/16 (24 calls, T = 197); its launches count the 4 served batches of each, its "
+                "counted float32 and bfloat16 forwards at batch 4, serve_b1, serve_b128 and ConvNeXt at "
+                "layer_scale 1.0; conv2d's depthwise entry sums the depthwise calls alone.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    check(all(math.isfinite(v) for e in kernels for v in tree_leaves(e) if isinstance(v, float)),
+          f"a non-finite number in the kernels line: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Config registry (twin of ``repro/configs``): one module per architecture
 the port runs.  ``get(name)`` / ``list_archs()`` trigger registration lazily.
 """
-from .base import Arch, Cell, REGISTRY, get, list_archs, lm_cells  # noqa: F401
+from .base import Arch, Cell, REGISTRY, get, list_archs, lm_cells, vision_cells  # noqa: F401
 
 _LOADED = False
 
@@ -10,6 +10,16 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import codeqwen15_7b, deepseek_v3_671b, moonshot_v1_16b_a3b, qwen3_4b  # noqa: F401
+    from . import (  # noqa: F401
+        codeqwen15_7b,
+        convnext_b,
+        deepseek_v3_671b,
+        efficientnet_b7,
+        moonshot_v1_16b_a3b,
+        qwen3_4b,
+        swin_b,
+        vgg16,
+        vit_l16,
+    )
 
     _LOADED = True

@@ -9,7 +9,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["Cell", "Arch", "REGISTRY", "register", "get", "list_archs", "lm_cells"]
+__all__ = ["Cell", "Arch", "REGISTRY", "register", "get", "list_archs", "lm_cells", "vision_cells"]
 
 
 @dataclass(frozen=True)
@@ -76,4 +76,14 @@ def lm_cells(*, full_attention: bool) -> dict[str, Cell]:
                 else None
             ),
         ),
+    }
+
+
+# The assigned vision shape set (shared by the vision archs).
+def vision_cells() -> dict[str, Cell]:
+    return {
+        "cls_224": Cell("cls_224", "train", {"img_res": 224, "batch": 256}),
+        "cls_384": Cell("cls_384", "train", {"img_res": 384, "batch": 64}),
+        "serve_b1": Cell("serve_b1", "serve", {"img_res": 224, "batch": 1}),
+        "serve_b128": Cell("serve_b128", "serve", {"img_res": 224, "batch": 128}),
     }

@@ -1,14 +1,15 @@
-"""Step builders (twin of the LM serving half of ``repro/configs/steps.py``):
+"""Step builders (twin of the serving half of ``repro/configs/steps.py``):
 (arch, cell) -> step function + the shapes and types of its inputs.
 
 JAX's builder returns abstract pytrees (``jax.eval_shape``) for its dry-run;
 the port has no dry-run, so its bundle holds ``(shape, dtype)`` pairs, taken
-from an init on the ``meta`` device.  Only the LM ``prefill`` and ``decode``
-kinds are ported; training and the vision and diffusion families raise
-(``ROADMAP.md`` queues them).
+from an init on the ``meta`` device.  The LM ``prefill`` and ``decode`` kinds
+and the vision ``serve`` kind are ported; training and the diffusion family
+raise (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -61,9 +62,29 @@ def _lm_decode(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
                       kind="decode")
 
 
+def _adapt_vision_cfg(arch: Arch, cfg, img_res: int):
+    cfg = dataclasses.replace(cfg, img_res=img_res)
+    if arch.family == "vision" and hasattr(cfg, "window") and img_res == 384:
+        # Swin finetunes at 384 with window 12 (arXiv:2103.14030 §4.1)
+        cfg = dataclasses.replace(cfg, window=12)
+    return cfg
+
+
+def _vision_serve(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
+    cfg = _adapt_vision_cfg(arch, cfg, cell.meta["img_res"])
+
+    def step(params, images):
+        return arch.module.apply(params, cfg, images)
+
+    b, r = cell.meta["batch"], cell.meta["img_res"]
+    return StepBundle(fn=step, state=abstract_params(arch, cfg, dtype),
+                      inputs={"images": ((b, r, r, 3), dtype)}, kind="serve")
+
+
 _BUILDERS = {
     ("lm", "prefill"): _lm_prefill,
     ("lm", "decode"): _lm_decode,
+    ("vision", "serve"): _vision_serve,
 }
 
 

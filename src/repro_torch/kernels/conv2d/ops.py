@@ -154,6 +154,8 @@ def conv2d_cuda(
     launch(_lib(), x, weights, bias, y, stride, padding, groups,
            torch.cuda.current_stream(x.device).cuda_stream)
     conv2d_cuda.launches += 1
+    if groups > 1:
+        conv2d_cuda.depthwise_launches += 1
     return y
 
 
@@ -191,5 +193,7 @@ def launch_config(x: torch.Tensor, weights: torch.Tensor, *, stride: int = 1, pa
     return dict(splits=splits, gather="depthwise" if groups > 1 else GATHER_NAMES[gather])
 
 
-# Kernel launches so far in this process (CPU calls do not count).
+# Kernel launches so far in this process (CPU calls do not count), and of
+# those the depthwise branch's.
 conv2d_cuda.launches = 0
+conv2d_cuda.depthwise_launches = 0

@@ -53,7 +53,8 @@
 //    have Cin = 3; VGG-NP's filter slices have Cout 13, 19, 26, ... 154).
 //  * Products.  mma.sync on the tensor cores: float32 as 3xTF32 (x = hi + lo,
 //    both TF32, and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi accumulated in f32,
-//    about 2^-21 relative per product: float32 accuracy); bf16 as m16n8k16
+//    about 2^-21 relative per product: float32 accuracy; a fresh partial
+//    per 8-deep K slice, see mma_stage); bf16 as m16n8k16
 //    with exact products.  Stage rows are padded (A by 16 bytes, B by 8
 //    elements) so the fragment reads hit 32 distinct banks.
 //  * Split-K.  When the tiles leave the card's two blocks per SM mostly idle
@@ -164,20 +165,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 }
 
 // One stage's products for a warp's 32 x 32 tile, float32 as 3xTF32.  The
-// tensor cores add to the accumulator truncating (sm90_ops.cuh), so a
-// stage's products go to a fresh partial sum, 12 instructions deep, which
-// is then added to the running sum with a rounded f32 add: the truncation
-// errors of partials of either sign cancel instead of compounding over K.
+// tensor cores add to the accumulator truncating toward zero (sm90_ops.cuh),
+// so each 8-deep K slice goes to a fresh partial sum -- the small terms
+// (a_lo*b_hi, a_hi*b_lo, ~2^-11 of the big one) first, then a_hi*b_hi -- and
+// is added to the running sum with a rounded f32 add.  So no big term is
+// truncated into a partial that already holds other big terms: a partial
+// per 32-deep stage biased every output toward zero by ~1.8e-7 of
+// sum |x w|, which EfficientNet-B7's batch norms amplified past DEPTH_RTOL
+// (ROADMAP.md §3); a partial per slice cuts the bias ~5x.
 __device__ __forceinline__ void mma_stage(const float* As, const float* Bs, float acc[2][4][4],
                                           int wm, int wn, int g, int t) {
   constexpr int AS = Tile<float>::AS, BS = Tile<float>::BS;
-  float part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 8) {
     uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
@@ -195,11 +193,16 @@ __device__ __forceinline__ void mma_stage(const float* As, const float* Bs, floa
       split_tf32(b[0], bh[ni][0], bl[ni][0]);
       split_tf32(b[4 * BS], bh[ni][1], bl[ni][1]);
     }
-    // three passes of eight independent products, small terms first
+    // per 8-deep K slice a fresh partial: the small terms, then the big one
+    float part[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) sm90::mma_tf32(part[mi][ni], al[mi], bh[ni]);
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+        sm90::mma_tf32(part[mi][ni], al[mi], bh[ni]);
+      }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -208,13 +211,13 @@ __device__ __forceinline__ void mma_stage(const float* As, const float* Bs, floa
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) sm90::mma_tf32(part[mi][ni], ah[mi], bh[ni]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
   }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
 }
 
 // The same for bf16: m16n8k16, exact products, straight into the running
@@ -416,7 +419,8 @@ splitk_reduce(const float* __restrict__ ws, const T* __restrict__ bias, T* __res
 
 // Depthwise branch (w [k,k,1,C], cin == cout): one thread per output element,
 // neighbouring threads on neighbouring channels (coalesced NHWC reads),
-// grid-stride over the output; f32 FMAs.  On no path of the port.
+// grid-stride over the output; f32 FMAs.  ConvNeXt's 7x7 and EfficientNet's
+// 3x3 / 5x5 depthwise convs (models/convnext.py, models/efficientnet.py).
 template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
 dwconv2d(Src src, const T* __restrict__ wt, const T* __restrict__ bias,

@@ -52,10 +52,17 @@ def dense_params(gen: torch.Generator, d_in: int, d_out: int, bias: bool = True,
     return p
 
 
-def conv_params(gen: torch.Generator, k: int, c_in: int, c_out: int) -> Params:
-    """He-normal float32 HWIO conv kernel and zero bias."""
-    return {"w": _normal(gen, (k, k, c_in, c_out), math.sqrt(2.0 / max(1, k * k * c_in))),
-            "b": torch.zeros((c_out,), device=gen.device)}
+def conv_params(gen: torch.Generator, k: int, c_in: int, c_out: int, bias: bool = True, groups: int = 1,
+                dtype=torch.float32, device=None) -> Params:
+    """He-normal HWIO conv kernel ``[k, k, c_in / groups, c_out]`` of fan-in
+    ``k * k * c_in / groups`` (``groups == c_in == c_out``: depthwise, ``[k, k,
+    1, C]``) and, unless ``bias=False``, a zero bias."""
+    device = device or gen.device
+    fan_in = k * k * (c_in // groups)
+    p = {"w": _normal(gen, (k, k, c_in // groups, c_out), math.sqrt(2.0 / max(1, fan_in)), device).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype, device=device)
+    return p
 
 
 def norm_params(dim: int, bias: bool = True, dtype=torch.float32, device="cpu") -> Params:
@@ -88,6 +95,11 @@ def stack_layers(init_one, gen: torch.Generator, n: int, device=None) -> Params:
         slot = tree_map(lambda a: a[i], stacked)
         _copy_into(slot, init_one(gen, device, slot))
     return stacked
+
+
+def layer(stack: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree (:func:`stack_layers`), as views."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
 
 
 def _copy_into(slot: Params, layer: Params) -> None:

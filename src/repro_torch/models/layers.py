@@ -1,11 +1,17 @@
-"""Core layers on NHWC tensors and [B, T, D] sequences (twin of the VGG, ViT
-and dense-LM subset of ``repro/models/layers.py``).
+"""Core layers on NHWC tensors and [B, T, D] sequences (twin of the VGG,
+vision-zoo and dense-LM subset of ``repro/models/layers.py``).
 
-The conv goes to the hand-written kernel's wrapper (which takes its plain
-version for CPU tensors); pooling, the activations, the norms and the dense
-layers stay plain PyTorch, as the JAX package left them to XLA.
+The conv, dense or depthwise, goes to the hand-written kernel's wrapper
+(which takes its plain version for CPU tensors); pooling, the activations,
+the norms and the dense layers stay plain PyTorch, as the JAX package left
+them to XLA.  Where bfloat16 parity needs it, an elementwise function rounds
+in the order XLA's expansion of the JAX function rounds (each step in x's
+type; a Python constant first rounded to x's type, as JAX's weak types are).
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -29,6 +35,11 @@ def conv2d(x: torch.Tensor, p: Params, stride: int = 1, padding: int | str = "SA
     return conv2d_cuda(x, p["w"], p.get("b"), stride=stride, padding=padding, groups=groups)
 
 
+def depthwise_conv2d(x: torch.Tensor, p: Params, stride: int = 1, padding: int | str = "SAME") -> torch.Tensor:
+    """Depthwise conv (weights [k, k, 1, C]): K1's depthwise branch."""
+    return conv2d(x, p, stride=stride, padding=padding, groups=x.shape[-1])
+
+
 def max_pool(x: torch.Tensor, k: int = 2, s: int = 2, padding: str = "VALID") -> torch.Tensor:
     """NHWC max pool over k x k windows at stride s, VALID (``lax.reduce_window``
     with a ``-inf`` init: every window lies inside the input)."""
@@ -39,8 +50,9 @@ def max_pool(x: torch.Tensor, k: int = 2, s: int = 2, padding: str = "VALID") ->
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NHWC -> NC mean over the spatial axes."""
-    return x.mean(dim=(1, 2))
+    """NHWC -> NC mean over the spatial axes, as ``jnp.mean`` takes it:
+    summed in float32, divided, rounded to x's type."""
+    return (x.float().sum(dim=(1, 2)) / (x.shape[1] * x.shape[2])).to(x.dtype)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +66,53 @@ def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
+def scalar_like(v: float, x: torch.Tensor) -> float:
+    """A Python constant as JAX's weak type combines it with ``x``: rounded
+    to x's type first.  A Python float, so no tensor (and, on the card, no
+    copy to the device) is made."""
+    return _rounded(v, x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """``rsqrt`` correctly rounded to v's type: taken in float32 (PyTorch's
+    bfloat16 ``rsqrt`` on the CPU is off by a step where XLA's is not)."""
+    return torch.rsqrt(v.float()).to(v.dtype)
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm over the last axis in JAX's order: the mean and the
+    variance (about the unrounded mean) in float32, each rounded to x's type;
+    then ``(x - mu) * rsqrt(var + eps) * scale (+ b)``, each step in x's type."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    mu = mean.to(x.dtype)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True).to(x.dtype)
+    y = (x - mu) * _rsqrt(var + scalar_like(eps, x)) * p["scale"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def batchnorm_inference(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode batch norm with folded running statistics:
+    ``(x - mean) * rsqrt(var + eps) * scale + b``, each step in x's type."""
+    return (x - p["mean"]) * _rsqrt(p["var"] + scalar_like(eps, x)) * p["scale"] + p["b"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation, as XLA expands ``jax.nn.gelu(approximate=True)``:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``, each step
+    rounded to x's type (``F.gelu`` rounds once)."""
+    cube = x * x * x
+    inner = scalar_like(math.sqrt(2 / math.pi), x) * (x + scalar_like(0.044715, x) * cube)
+    return x * (scalar_like(0.5, x) * (scalar_like(1.0, x) + torch.tanh(inner)))
+
+
 def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last axis: the mean square in float32, then
     ``(x * rsqrt(var + eps).to(x.dtype)) * scale`` -- two products in x's
@@ -62,8 +121,14 @@ def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * p["scale"]
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each step rounded to x's type: the expansion XLA
+    gives ``jax.nn.sigmoid``."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each step
     rounded to x's type: the expansion XLA gives ``jax.nn.silu``, so bfloat16
     rounds where JAX's does (``F.silu`` rounds once)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)

@@ -25,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from .attention import GQAConfig, MLAConfig, gqa_apply, gqa_init, mla_apply, mla_init
-from .common import Params, dense_params, norm_params, stack_layers, trunc_normal
+from .common import Params, dense_params, layer, norm_params, stack_layers, trunc_normal
 from .layers import dense, rmsnorm, silu
 from .moe import MoEConfig, moe_apply, moe_init
 
@@ -160,18 +160,13 @@ def _block_apply(p: Params, cfg: LMConfig, moe_layer: bool, x, positions, cache=
     return x + y, None
 
 
-def _layer(p_stack: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree, as views."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in p_stack.items()}
-
-
 def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
     # JAX scans the stack under remat (recompute in the backward pass) and
     # pins the residual's sharding; an eager forward on one card needs
     # neither, so the loop just walks the layers, summing the MoE layers'
     # load-balance losses in JAX's order.
     for i in range(n):
-        x, lb_l = _block_apply(_layer(p_stack, i), cfg, moe_layer, x, positions)
+        x, lb_l = _block_apply(layer(p_stack, i), cfg, moe_layer, x, positions)
         if lb_l is not None:
             lb = lb + lb_l
     return x, lb
@@ -225,7 +220,7 @@ def _decode_stack(p_stack, cache_stack, n, cfg, moe_layer, x, positions, index):
     for i in range(n):
         # views of layer i's cache, written in place
         kv = cache_stack[i] if cfg.attn == "mla" else (cache_stack["k"][i], cache_stack["v"][i])
-        x, _ = _block_apply(_layer(p_stack, i), cfg, moe_layer, x, positions, kv, index)
+        x, _ = _block_apply(layer(p_stack, i), cfg, moe_layer, x, positions, kv, index)
     return x
 
 

@@ -328,3 +328,20 @@ def test_emulated_launcher_pick_at_mla_widths(lib):
     assert pick(4, 128, 1) == 2
     assert pick(1, 2, 40) == 1      # 2 / 3 / 6 blocks, one wave each: 32x4 has the most warps
     assert pick(4, 128, 512, torch.bfloat16) == 2
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_emulated_vit_l16_attention(lib, dt):
+    """ViT-L/16's attention (``models/vit.py: vit_block_apply``): 16 heads
+    over T = S = 197 tokens (196 patches and the cls token), D = 64, not
+    causal, q, k and v the three slices of one [B, T, 3, H, D] projection
+    (a row stride of 3 H D).  The last query and key tiles hold 5 rows, and
+    the rows of a K/V tile start at odd token offsets."""
+    b, h, t, d = 1, 16, 197, 64
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3, h, d), dtype=np.float32)).to(dt)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, D] views
+    got = _emulated(lib, q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

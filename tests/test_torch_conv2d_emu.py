@@ -115,3 +115,39 @@ def test_emulated_core_path_matches_plain(lib, name):
     want = conv2d_ref(x, w, b, stride=s, padding=pad)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The vision models' new K1 geometries, reduced in size: (N, H, W, Cin, Cout,
+# k, stride, pad, groups, dtype, bias).  ConvNeXt's 7x7 depthwise at stride 1
+# (with a bias), EfficientNet's 5x5 and 3x3 depthwise at stride 2 (without);
+# the patch convs k = s = 4 from 3 channels (Swin's and ConvNeXt's stems) and
+# ConvNeXt's k = s = 2 downsamples.
+VISION_CASES = [
+    (2, 14, 13, 24, 24, 7, 1, 3, 24, dt, bias)
+    for dt in (torch.float32, torch.bfloat16) for bias in (True, False)
+] + [
+    (2, 15, 12, 20, 20, 5, 2, 2, 20, dt, bias)
+    for dt in (torch.float32, torch.bfloat16) for bias in (True, False)
+] + [
+    (2, 13, 16, 12, 12, 3, 2, 1, 12, dt, bias)
+    for dt in (torch.float32, torch.bfloat16) for bias in (True, False)
+] + [
+    (2, 32, 28, 3, 32, 4, 4, 0, 1, torch.float32, True),
+    (2, 32, 28, 3, 32, 4, 4, 0, 1, torch.bfloat16, True),
+    (2, 14, 14, 32, 64, 2, 2, 0, 1, torch.float32, True),
+    (2, 14, 14, 32, 64, 2, 2, 0, 1, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("case", VISION_CASES, ids=lambda c: "x".join(map(str, c[:9])) + f"-{str(c[9])[6:]}"
+                         + ("-bias" if c[10] else ""))
+def test_emulated_vision_shapes_match_plain(lib, case):
+    n, h, wd, cin, cout, k, s, pad, g, dt, has_bias = case
+    rng = np.random.default_rng(sum(case[:9]))
+    x = torch.from_numpy(rng.standard_normal((n, h, wd, cin), dtype=np.float32)).to(dt)
+    w = torch.from_numpy(0.1 * rng.standard_normal((k, k, 1 if g > 1 else cin, cout), dtype=np.float32)).to(dt)
+    b = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32)).to(dt) if has_bias else None
+    got = _emulated(lib, x, w, b, s, pad, g)
+    want = conv2d_ref(x, w, b, stride=s, padding=pad, groups=g)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

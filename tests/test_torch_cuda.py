@@ -71,7 +71,7 @@ def test_conv2d_kernel_matches_plain_on_card(card, dtype):
 def test_served_smoke_logits_on_card_match_cpu(card):
     """The smoke configuration served on the card through the kernel equals
     the same parameters and images served on the CPU through the plain conv."""
-    out = serve(vgg.SMOKE, n_requests=4, max_batch=2, device="cuda", seed=1)
+    out = serve("vgg16", n_requests=4, max_batch=2, device="cuda", seed=1, smoke=True)
     params = tree_map(lambda t: t.cpu(), out["params"])
     want = vgg.apply(params, vgg.SMOKE, out["images"].cpu())
     torch.testing.assert_close(out["logits"].cpu(), want, rtol=2e-5, atol=2e-5)
@@ -558,3 +558,84 @@ def test_run_plan_first_slot_sample_excludes_queued_work_on_card(card):
     want = run_plan(plan, params["features"], vgg.apply_layer, x)
     assert torch.equal(out, want)
     assert samples[first] < queued_s / 2, (samples, queued_s)
+
+
+# The vision models' K1 geometries at their full widths (batch 2): ConvNeXt's
+# 7x7 depthwise with a bias, EfficientNet-B7's 3x3 / 5x5 depthwise at stride 1
+# and 2 without one (up to 3840 channels), the k = s = 4 stems from 3
+# channels and ConvNeXt's k = s = 2 downsamples: (N, H, W, Cin, Cout, k,
+# stride, pad, groups, bias)
+VISION_CONV_CASES = [
+    (2, 56, 56, 128, 128, 7, 1, 3, 128, True),
+    (2, 7, 7, 1024, 1024, 7, 1, 3, 1024, True),
+    (2, 300, 300, 192, 192, 3, 2, 1, 192, False),
+    (2, 38, 38, 1344, 1344, 5, 2, 2, 1344, False),
+    (2, 19, 19, 3840, 3840, 3, 1, 1, 3840, False),
+    (2, 224, 224, 3, 128, 4, 4, 0, 1, True),
+    (2, 56, 56, 128, 256, 2, 2, 0, 1, True),
+    (2, 14, 14, 512, 1024, 2, 2, 0, 1, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", VISION_CONV_CASES, ids=lambda c: "x".join(map(str, c[:9])))
+def test_conv2d_vision_shapes_match_plain_on_card(card, dtype, case):
+    n, h, w, cin, cout, k, s, pad, g, has_bias = case
+    rng = np.random.default_rng(sum(case[:9]))
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin), dtype=np.float32)).to(card, dtype)
+    wts = torch.from_numpy((2.0 / (k * k * (1 if g > 1 else cin))) ** 0.5 * rng.standard_normal(
+        (k, k, 1 if g > 1 else cin, cout), dtype=np.float32)).to(card, dtype)
+    b = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32)).to(card, dtype) if has_bias else None
+    before = conv2d_cuda.launches, conv2d_cuda.depthwise_launches
+    got = conv2d_cuda(x, wts, b, stride=s, padding=pad, groups=g)
+    assert (conv2d_cuda.launches, conv2d_cuda.depthwise_launches) == (before[0] + 1, before[1] + (g > 1))
+    want = conv2d_ref(x, wts, b, stride=s, padding=pad, groups=g)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_flash_attention_vit_l16_shape_matches_plain_on_card(card, dtype):
+    """ViT-L/16's attention: 16 heads over T = S = 197 tokens, D = 64, the
+    slices of one [B, T, 3, H, D] projection, not causal."""
+    rng = np.random.default_rng(12)
+    qkv = torch.from_numpy(rng.standard_normal((4, 197, 3, 16, 64), dtype=np.float32)).to(card, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["vit-l16", "swin-b", "convnext-b", "efficientnet-b7"])
+def test_served_vision_smoke_logits_on_card_match_cpu(card, arch):
+    """Each vision arch's smoke configuration served on the card (K1, and K3
+    for ViT) equals its forward on the CPU through the plain versions."""
+    from repro_torch.configs import get
+
+    out = serve(arch, n_requests=4, max_batch=2, device="cuda", seed=1, smoke=True)
+    a = get(arch)
+    params = tree_map(lambda t: t.cpu(), out["params"])
+    want = a.module.apply(params, a.smoke_cfg, out["images"].cpu())
+    got = out["logits"].cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_conv2d_float32_sum_is_not_biased_toward_zero_on_card(card):
+    """The tensor cores add to their accumulator truncating toward zero, so
+    K1's 3xTF32 core sums each 8-deep K slice into a fresh partial.  On
+    positive-mean inputs (K = 3 x 3 x 512) the signed error toward |y|, over
+    sum |y|, stays below 1e-7: one partial per 32-deep stage gave 1.9e-7,
+    the fresh partials 3.9e-8 (NVIDIA H100 80GB HBM3, 700 W)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand((4, 28, 28, 512), generator=g, device="cuda")
+    w = 0.05 * torch.randn((3, 3, 512, 256), generator=g, device="cuda") + 0.01
+    got, want = conv2d_cuda(x, w, None, stride=1, padding=1), conv2d_ref(x, w, None, stride=1, padding=1)
+    d = (got - want).double()
+    bias = ((d * want.sign()).sum() / want.abs().sum()).item()
+    assert abs(bias) < 1e-7, bias
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])

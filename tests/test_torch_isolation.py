@@ -63,7 +63,9 @@ print(json.dumps({"imported": names, "bad": bad}))
     assert "repro_torch.core.reliability" in out["imported"]
     assert "repro_torch.runtime.traffic" in out["imported"]
     for name in ("core.events", "core.simulator", "core.schedule", "core.optimizer", "analysis.dag_check",
-                 "core.replan", "core.planstore", "core.placement", "analysis.keying_lint"):
+                 "core.replan", "core.planstore", "core.placement", "analysis.keying_lint",
+                 "models.vit", "models.swin", "models.convnext", "models.efficientnet", "configs.vit_l16",
+                 "configs.swin_b", "configs.convnext_b", "configs.efficientnet_b7", "configs.vgg16"):
         assert f"repro_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -113,3 +115,27 @@ def test_a_jax_written_plan_store_row_loads_nothing_of_jax(tmp_path):
     assert out["keys"] == keys and len(keys) == 1
     with J.PlanStore(path) as store:
         assert store.keys() == keys and store.get((ctl._fingerprint, ctl._active)) is not None
+
+
+SERVE_VISION = """
+import json, sys
+from repro_torch.launch.serve import serve, serve_archs
+done = {}
+for name in serve_archs():
+    out = serve(name, n_requests=2, max_batch=2, device="cpu", smoke=True)
+    done[name] = list(out["logits"].shape)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"served": done, "bad": bad}))
+"""
+
+
+def test_serving_every_vision_arch_loads_nothing_of_jax():
+    """The launcher's ``serve`` on every arch it takes (the smoke configs, on
+    the CPU) in a port-only process: no ``jax`` and no ``repro`` module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", SERVE_VISION], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(out["served"]) == ["convnext-b", "efficientnet-b7", "swin-b", "vgg16", "vit-l16"]
+    assert out["served"]["vit-l16"] == [2, 10] and out["bad"] == []

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs import get as jget
+from repro.configs import list_archs as jlist_archs
 from repro.configs import steps as jsteps
 from repro.configs.base import lm_cells as jlm_cells
 from repro.models import attention as jattn
@@ -313,9 +314,12 @@ def test_configs_match_jax(name):
 
 
 def test_registry_holds_the_ported_archs_only():
-    assert list_archs() == sorted(ARCHS)
+    """The LMs and, since the vision family was ported, every JAX arch but
+    the queued diffusion pair."""
+    assert set(ARCHS) <= set(list_archs())
+    assert list_archs() == sorted(set(jlist_archs()) - {"unet-sd15", "dit-xl2"})
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get("vit-l16")
+        get("unet-sd15")
 
 
 def _check_bundles(name, cell, smoke):

@@ -88,7 +88,7 @@ def test_engine_rejects_empty_batches_and_forwards_es_times():
 
 
 def test_serve_smoke_matches_jax_run_plan_and_head():
-    out = serve(vgg.SMOKE, n_requests=5, max_batch=2, device="cpu", seed=3)
+    out = serve("vgg16", n_requests=5, max_batch=2, device="cpu", seed=3, smoke=True)
     assert out["stats"]["completed"] == 5
     logits = out["logits"]
     assert tuple(logits.shape) == (5, vgg.SMOKE.num_classes)
@@ -107,7 +107,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve(vgg.SMOKE, n_requests=1)
+        serve("vgg16", n_requests=1, smoke=True)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

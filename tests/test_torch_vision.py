@@ -1,0 +1,389 @@
+"""The port's vision family (``repro_torch.models.vit``, ``swin``,
+``convnext``, ``efficientnet``, the layers they need, their configs, the
+``serve`` step builder and the launcher's ``--arch``) against the JAX
+package, on the CPU.
+
+The same parameters (JAX's init with its one-dimensional leaves perturbed by
+seeded numpy noise, so the bias, norm-scale and batch-norm statistic paths
+are covered; converted by ``params_from_jax``) and the same seeded numpy
+images go through the JAX function and its twin.  On the CPU the port's
+convs run K1's plain version and ViT's attention K3's.  Tolerances:
+per function ``tests/test_kernels.py: _tol`` (2e-5 x (1 + |y|) in float32,
+2e-2 x (1 + |y|) in bfloat16); whole forwards within ``DEPTH_RTOL`` = 1e-4
+of the largest |logit| in float32 and, bfloat16 against JAX's bfloat16
+forward, within 2e-2 of it.  Tables, masks, configs and bundles are held
+with ``==``.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as jget
+from repro.configs import list_archs as jlist_archs
+from repro.configs import steps as jsteps
+from repro.configs.base import vision_cells as jvision_cells
+from repro.models import convnext as jconvnext
+from repro.models import efficientnet as jeff
+from repro.models import layers as jlayers
+from repro.models import swin as jswin
+from repro.models import vit as jvit
+from repro_torch.configs import get, list_archs, vision_cells
+from repro_torch.configs.steps import build
+from repro_torch.launch.serve import serve
+from repro_torch.models import convnext, efficientnet, layers, swin, vit
+from repro_torch.models.common import params_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+VISION = ("vit-l16", "swin-b", "convnext-b", "efficientnet-b7")
+DEPTH_RTOL, BF16_RTOL = 1e-4, 2e-2
+JMOD = {vit: jvit, swin: jswin, convnext: jconvnext, efficientnet: jeff}
+# one full-width, shallow case per model, in the JAX package's configs
+WIDE = {
+    "vit-l16": jvit.ViTConfig(name="vit-wide", img_res=32, patch=16, n_layers=1, d_model=1024, n_heads=16,
+                              d_ff=4096),
+    # 14 x 14 tokens over 7 x 7 windows: an unshifted, then a shifted block (shift 3)
+    "swin-b": jswin.SwinConfig(name="swin-wide", img_res=56, patch=4, window=7, depths=(2,), dims=(128,),
+                               n_heads=(4,)),
+    "convnext-b": jconvnext.ConvNeXtConfig(name="convnext-wide", img_res=64, depths=(1, 1), dims=(128, 256),
+                                           layer_scale=1.0),
+    # B7's widths, one block a stage
+    "efficientnet-b7": jeff.EfficientNetConfig(name="efficientnet-wide", img_res=64, width_mult=2.0,
+                                               depth_mult=0.2),
+}
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def _close(got, want, dtype="float32"):
+    got, want = np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float32), \
+        np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **_tol(dtype))
+
+
+def _perturbed(tree, seed):
+    """JAX's tree with each one-dimensional leaf replaced by seeded numpy
+    values of its role: biases and means 0.1 N(0, 1), scales 1 + 0.1 N(0, 1),
+    variances 1 + 0.2 |N(0, 1)|; ConvNeXt's gamma keeps its layer scale."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        name = str(path[-1].key) if hasattr(path[-1], "key") else ""
+        shape = a.shape
+        if name in ("b", "mean"):
+            return jnp.asarray(0.1 * rng.standard_normal(shape, dtype=np.float32), a.dtype)
+        if name == "scale":
+            return jnp.asarray(1 + 0.1 * rng.standard_normal(shape, dtype=np.float32), a.dtype)
+        if name == "var":
+            return jnp.asarray(1 + 0.2 * np.abs(rng.standard_normal(shape, dtype=np.float32)), a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _bf16(tree):
+    return jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), tree)
+
+
+def _images(cfg, b=2, seed=1):
+    return np.random.default_rng(seed).standard_normal((b, cfg.img_res, cfg.img_res, cfg.in_channels),
+                                                       dtype=np.float32)
+
+
+def _port_cfg(module, jcfg):
+    """The port's config class with a JAX config's fields."""
+    cls = {vit: vit.ViTConfig, swin: swin.SwinConfig, convnext: convnext.ConvNeXtConfig,
+           efficientnet: efficientnet.EfficientNetConfig}[module]
+    return cls(**dataclasses.asdict(jcfg))
+
+
+def _case(name, which):
+    a = get(name)
+    jcfg = WIDE[name] if which == "wide" else jget(name).smoke_cfg
+    return a.module, jcfg, _port_cfg(a.module, jcfg)
+
+
+# -- layers ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_gelu_and_batchnorm_match_jax(dtype):
+    rng = np.random.default_rng(5)
+    x = 3 * rng.standard_normal((6, 256), dtype=np.float32) + 0.5
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    p = {"scale": 1 + 0.1 * rng.standard_normal(256, dtype=np.float32),
+         "b": 0.1 * rng.standard_normal(256, dtype=np.float32)}
+    bn = dict(p, mean=0.1 * rng.standard_normal(256, dtype=np.float32),
+              var=1 + 0.2 * np.abs(rng.standard_normal(256, dtype=np.float32)))
+    jx, tx = jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+
+    def both(tree):
+        return ({k: jnp.asarray(v).astype(jdt) for k, v in tree.items()},
+                {k: torch.from_numpy(v).to(tdt) for k, v in tree.items()})
+
+    (jp, tp), (jbn, tbn) = both(p), both(bn)
+    for got, want in ((layers.layernorm(tx, tp), jlayers.layernorm(jx, jp)),
+                      (layers.layernorm(tx, {"scale": tp["scale"]}), jlayers.layernorm(jx, {"scale": jp["scale"]})),
+                      (layers.gelu(tx), jlayers.gelu(jx)),
+                      (layers.batchnorm_inference(tx, tbn), jlayers.batchnorm_inference(jx, jbn))):
+        assert got.dtype == tdt
+        _close(got, want, dtype)
+
+
+# -- Swin's tables, windows and attention -----------------------------------
+
+
+@pytest.mark.parametrize("window", [4, 7, 12])
+def test_swin_rel_index_equals_jax(window):
+    assert np.array_equal(swin._rel_index(window).numpy(), np.asarray(jswin._rel_index(window)))
+
+
+@pytest.mark.parametrize("h,window,shift", [(16, 4, 2), (8, 4, 2), (14, 7, 3), (56, 7, 3), (24, 12, 6)])
+def test_swin_shift_mask_and_windows_equal_jax(h, window, shift):
+    assert np.array_equal(swin._shift_mask(h, h, window, shift).numpy(),
+                          np.asarray(jswin._shift_mask(h, h, window, shift)))
+    x = np.random.default_rng(h).standard_normal((2, h, h, 3), dtype=np.float32)
+    win = swin._to_windows(torch.from_numpy(x), window)
+    assert np.array_equal(win.numpy(), np.asarray(jswin._to_windows(jnp.asarray(x), window)))
+    back = swin._from_windows(win, window, h, h)
+    assert np.array_equal(back.numpy(), np.asarray(jswin._from_windows(jnp.asarray(win.numpy()), window, h, h)))
+    assert np.array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_swin_window_attention_matches_jax(shift, dtype):
+    dim, heads, window, h = 128, 4, 7, 14
+    jp = _perturbed(jswin._block_init(jax.random.PRNGKey(2), dim, heads, window, 4, jnp.float32), 2)
+    x = np.random.default_rng(3).standard_normal((2, h, h, dim), dtype=np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp, jx = jax.tree_util.tree_map(lambda a: a.astype(jdt), jp), jnp.asarray(x).astype(jdt)
+    xw = jswin._to_windows(jx, window)
+    mask = jswin._shift_mask(h, h, window, shift) if shift else None
+    want = jswin._window_attention(jp, xw, heads, window, mask)
+    got = swin._window_attention(params_from_jax(jp), torch.from_numpy(np.array(xw.astype(jnp.float32))).to(tdt),
+                                 heads, window, swin._shift_mask(h, h, window, shift) if shift else None)
+    assert got.dtype == tdt
+    _close(got, want, dtype)
+    # the whole block, shifted or not
+    want = jswin._swin_block(jp, jx, heads, window, shift)
+    got = swin._swin_block(params_from_jax(jp), torch.from_numpy(x).to(tdt), heads, window, shift)
+    _close(got, want, dtype)
+
+
+# -- ConvNeXt's and EfficientNet's blocks ----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convnext_block_matches_jax(dtype):
+    """layer_scale 1.0, so a wrong depthwise conv would show."""
+    jp = _perturbed(jconvnext._block_init(jax.random.PRNGKey(4), 128, jnp.float32, 1.0), 4)
+    x = np.random.default_rng(5).standard_normal((2, 9, 11, 128), dtype=np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jdt), jp)
+    want = jconvnext._block_apply(jp, jnp.asarray(x).astype(jdt))
+    got = convnext._block_apply(params_from_jax(jp), torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt
+    _close(got, want, dtype)
+
+
+# (c_in, c_out, expand, k, stride): B7's kinds of block -- no expansion,
+# 3x3 / 5x5 depthwise at stride 1 and 2, with and without the residual
+MBCONV = [(64, 32, 1, 3, 1), (32, 32, 6, 3, 1), (32, 48, 6, 3, 2), (48, 80, 6, 5, 2), (80, 80, 6, 5, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", MBCONV, ids=lambda b: "x".join(map(str, b)))
+def test_efficientnet_mbconv_matches_jax(block, dtype):
+    c_in, c_out, e, k, s = block
+    jp = _perturbed(jeff._mbconv_init(jax.random.PRNGKey(6), c_in, c_out, e, k, 0.25, jnp.float32), 6)
+    x = np.random.default_rng(7).standard_normal((2, 12, 10, c_in), dtype=np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jdt), jp)
+    want = jeff._mbconv_apply(jp, jnp.asarray(x).astype(jdt), s, k, False)
+    got = efficientnet._mbconv_apply(params_from_jax(jp), torch.from_numpy(x).to(tdt), s, k, False)
+    assert got.dtype == tdt
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("name", ["efficientnet-b7", "smoke"])
+def test_efficientnet_meta_and_rounding_equal_jax(name):
+    jcfg = jget("efficientnet-b7").cfg if name != "smoke" else jget("efficientnet-b7").smoke_cfg
+    cfg = _port_cfg(efficientnet, jcfg)
+    assert efficientnet.block_meta(cfg) == jeff.block_meta(jcfg)
+    assert cfg.stages() == jcfg.stages()
+    for c in (16, 24, 32, 40, 80, 112, 192, 320, 1280, 3, 7):
+        assert cfg.round_ch(c) == jcfg.round_ch(c)
+    for r in range(1, 6):
+        assert cfg.round_reps(r) == jcfg.round_reps(r)
+    assert efficientnet.B0_STAGES == jeff.B0_STAGES
+
+
+def test_efficientnet_train_mode_raises():
+    cfg = get("efficientnet-b7").smoke_cfg
+    p = efficientnet.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        efficientnet.apply(p, cfg, torch.zeros((1, 64, 64, 3)), train=True)
+
+
+# -- whole models ------------------------------------------------------------
+
+
+def _forward_pair(name, which, dtype, seed=0):
+    module, jcfg, cfg = _case(name, which)
+    jmod = JMOD[module]
+    jp = _perturbed(jmod.init(jax.random.PRNGKey(seed), jcfg), seed)
+    x = _images(jcfg)
+    if dtype == "bfloat16":
+        jp = _bf16(jp)
+    jx = jnp.asarray(x).astype(jp["head" if "head" in jp else "fc"]["w"].dtype)
+    want = jax.jit(lambda p, x: jmod.apply(p, jcfg, x))(jp, jx)  # as the JAX launcher runs it
+    got = module.apply(params_from_jax(jp), cfg, torch.from_numpy(x).to(getattr(torch, dtype)))
+    return got, want
+
+
+@pytest.mark.parametrize("which", ["smoke", "wide"])
+@pytest.mark.parametrize("name", VISION)
+def test_forward_matches_jax(name, which):
+    got, want = _forward_pair(name, which, "float32")
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = np.abs(got.numpy() - want).max()
+    assert err <= DEPTH_RTOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("which", ["smoke", "wide"])
+@pytest.mark.parametrize("name", VISION)
+def test_bfloat16_forward_matches_jax(name, which):
+    got, want = _forward_pair(name, which, "bfloat16")
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_RTOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", VISION)
+def test_convnext_layer_scale_and_swin_stages(name):
+    """Each SMOKE forward takes the branches the FULL one does: Swin's last
+    stage shifts (h = 8 > window 4) where FULL's (h = 7 = window) does not;
+    ConvNeXt's smoke depth-6 stage is JAX's scanned branch, run as a loop."""
+    module, jcfg, cfg = _case(name, "smoke")
+    if module is swin:
+        hs = [cfg.img_res // cfg.patch // 2 ** i for i in range(len(cfg.depths))]
+        assert [h > cfg.window for h in hs] == [True, True]
+        full = get(name).cfg
+        hs = [full.img_res // full.patch // 2 ** i for i in range(len(full.depths))]
+        assert [h > full.window for h in hs] == [True, True, True, False] and min(full.window, hs[-1]) == 7
+    if module is convnext:
+        assert max(cfg.depths) >= 6 and cfg.layer_scale == get(name).cfg.layer_scale == 1e-6
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("name", VISION)
+def test_init_layout_matches_jax(name, smoke):
+    """The port's init gives JAX's tree: the same keys, list lengths, shapes
+    and types (FULL on the meta device)."""
+    module = get(name).module
+    jcfg = jget(name).smoke_cfg if smoke else jget(name).cfg
+    cfg = _port_cfg(module, jcfg)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jshapes = jax.eval_shape(lambda k: JMOD[module].init(k, jcfg, dtype=jdt), jax.random.PRNGKey(0))
+        got = module.init(torch.Generator().manual_seed(0), cfg, tdt, device=None if smoke else "meta")
+        assert jax.tree_util.tree_structure(jshapes) == jax.tree_util.tree_structure(got)
+        for a, g in zip(jax.tree_util.tree_leaves(jshapes), jax.tree_util.tree_leaves(got)):
+            assert tuple(g.shape) == a.shape and g.dtype == tdt
+
+
+# -- configs, registry, steps ------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", VISION + ("vgg16",))
+def test_configs_match_jax(name):
+    ja, a = jget(name), get(name)
+    for attr in ("name", "family", "notes"):
+        assert getattr(a, attr) == getattr(ja, attr)
+    for which in ("cfg", "smoke_cfg"):
+        assert dataclasses.asdict(getattr(a, which)) == dataclasses.asdict(getattr(ja, which))
+    assert {k: dataclasses.asdict(c) for k, c in a.cells.items()} == \
+        {k: dataclasses.asdict(c) for k, c in ja.cells.items()}
+    assert a.module.__name__.rsplit(".", 1)[-1] == ja.module.__name__.rsplit(".", 1)[-1]
+
+
+def test_vision_cells_and_registry_match_jax():
+    assert {k: dataclasses.asdict(c) for k, c in vision_cells().items()} == \
+        {k: dataclasses.asdict(c) for k, c in jvision_cells().items()}
+    assert list_archs() == sorted(set(jlist_archs()) - {"unet-sd15", "dit-xl2"})
+    for queued in ("unet-sd15", "dit-xl2"):
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            get(queued)
+
+
+_JDT = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16}
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("cell", ["serve_b1", "serve_b128"])
+@pytest.mark.parametrize("name", VISION)
+def test_build_bundles_match_jax(name, cell, smoke):
+    """Kind, input and parameter shapes and types against JAX's bundle; the
+    smoke step runs and agrees with JAX's step on the same inputs."""
+    ja, a = jget(name), get(name)
+    jb, b = jsteps.build(ja, cell, smoke=smoke), build(a, cell, smoke=smoke)
+    assert b.kind == jb.kind == "serve"
+
+    def same(spec, s):
+        assert spec == (tuple(s.shape), _JDT[jnp.dtype(s.dtype)])
+
+    jax.tree_util.tree_map(same, b.inputs, jb.inputs, is_leaf=lambda x: isinstance(x, tuple))
+    jax.tree_util.tree_map(same, b.state, jb.state, is_leaf=lambda x: isinstance(x, tuple))
+    if not smoke or cell != "serve_b1":
+        return
+    jp = _perturbed(JMOD[a.module].init(jax.random.PRNGKey(0), ja.smoke_cfg), 0)
+    (shape, dt) = b.inputs["images"]
+    x = np.random.default_rng(2).standard_normal(shape, dtype=np.float32)
+    _close(b.fn(params_from_jax(jp), torch.from_numpy(x)), jax.jit(jb.fn)(jp, jnp.asarray(x)))
+
+
+def test_vision_train_and_unported_kinds_raise():
+    for name in VISION:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build(get(name), "cls_224", smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build(get("vgg16"), "halp_224")
+
+
+# -- the launcher -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", VISION)
+def test_serve_smoke_matches_jax_apply(name):
+    """``serve(arch, smoke=True)`` on the CPU: its logits against JAX's jitted
+    model function (the JAX launcher's) on the served parameters and images."""
+    out = serve(name, n_requests=5, max_batch=2, device="cpu", seed=3, smoke=True)
+    assert out["stats"]["completed"] == 5 and out["plan"] is None
+    ja = jget(name)
+    jp = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), out["params"])
+    want = np.asarray(jax.jit(lambda p, x: ja.module.apply(p, ja.smoke_cfg, x))(jp, jnp.asarray(out["images"].numpy())))
+    got = out["logits"].numpy()
+    assert got.shape == (5, ja.smoke_cfg.num_classes)
+    assert np.abs(got - want).max() <= DEPTH_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", VISION + ("vgg16",))
+def test_launcher_serves_every_arch_on_the_cpu(name):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", name, "--smoke",
+                           "--device", "cpu", "--requests", "4", "--max-batch", "2"],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"serving {name} (" in proc.stdout and "requests=4 " in proc.stdout
