@@ -215,6 +215,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    windows and the bound; (6) steady float32 and bfloat16 forwards at batch
    4 timed and profiled (device ms by family: K1, K1 depthwise, K3, GEMM,
    other) and the peak device memory.
+14. generates with the diffusion family at full width (``phase_diffusion``):
+   UNet-SD1.5 and DiT-XL/2, seeded random weights (DiT's adaLN-zero
+   weights drawn, else every block is the identity), each (1) one float32
+   forward at batch 4 at ``gen_fast``'s 512 (latent 64) whose K1 and K3
+   launches must be ``DIFFUSION_LAUNCHES`` (66 / 32; 1 / 28), with no SDPA
+   operator in its profile and every K1 / K3 call held to its plain version
+   on the path's own activations, then the same in bfloat16, counted; (2)
+   image 0 of a float32 forward at 256 held to the plain versions' forward
+   on the CPU within ``DEPTH_RTOL`` (the plain versions on the card
+   beside); (3) ``configs.steps.build``'s ``gen_fast`` whole (bfloat16,
+   batch 16, 4 DDIM steps): counted, timed (s a call, latents/s) and held to
+   the float32 sampler of the same bf16-rounded weights by phase 7's rule;
+   (4) ``gen_1024`` (bfloat16, batch 4, latent 128) with its 50 steps cut to
+   ``GEN_1024_STEPS``: counted, timed, every kernel call held on its own
+   activations (K3's plain version one (batch, head) slice at a time past
+   ``PLAIN_LOGITS_BYTES``: T = 16384 at D = 40); (5) K1 and K3 held at every
+   call signature of those runs, the batch-4 float32 ones timed beside
+   ``F.conv2d`` / SDPA with device us and the bound; (6) steady float32 and
+   bfloat16 forwards at batch 4 timed and profiled (device ms by family),
+   peak device memory.  Phase 2 prints the registers and spills of K3's
+   second library (``attention_diffusion.cu``: D = 40, 72, 80, 160).
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -2428,25 +2449,32 @@ VISION_LAUNCHES = {"vit-l16": (1, 0, 24), "swin-b": (1, 0, 0), "convnext-b": (40
 
 
 @contextlib.contextmanager
-def vision_kernels(conv, attn):
-    """The vision models' K1 and K3 calls (``models.layers.conv2d_cuda``,
-    ``models.vit.flash_attention``) through ``conv`` and ``attn``, which
-    take the wrappers' arguments; then the wrappers restored."""
-    from repro_torch.models import layers, vit
+def model_kernels(conv, attn):
+    """The vision and diffusion models' K1 and K3 calls
+    (``models.layers.conv2d_cuda``; ``flash_attention`` as ``models.vit``,
+    ``unet`` and ``dit`` call it) through ``conv`` and ``attn``, which take
+    the wrappers' arguments; then the wrappers restored."""
+    from repro_torch.models import dit, layers, unet, vit
 
-    real = layers.conv2d_cuda, vit.flash_attention
-    layers.conv2d_cuda, vit.flash_attention = conv, attn
+    attn_mods = (vit, unet, dit)
+    real = layers.conv2d_cuda, [m.flash_attention for m in attn_mods]
+    layers.conv2d_cuda = conv
+    for m in attn_mods:
+        m.flash_attention = attn
     try:
         yield
     finally:
-        layers.conv2d_cuda, vit.flash_attention = real
+        layers.conv2d_cuda = real[0]
+        for m, f in zip(attn_mods, real[1]):
+            m.flash_attention = f
 
 
 @contextlib.contextmanager
 def recording_calls():
-    """Records the arguments of every K1 and K3 call the vision models make
-    while entered, by call signature (``hold_conv``'s); the wrappers run as
-    they are, so their launch counts move as without it."""
+    """Records the arguments of every K1 and K3 call the vision and
+    diffusion models make while entered, by call signature (``hold_conv``'s;
+    K3's: q's shape, the key count, dtype); the wrappers run as they are, so
+    their launch counts move as without it."""
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda
 
@@ -2458,46 +2486,76 @@ def recording_calls():
         return conv2d_cuda(x, w, b, stride=stride, padding=padding, groups=groups)
 
     def attn(q, k, v, *, causal=True):
-        rec.attns[(tuple(q.shape), causal, str(q.dtype).removeprefix("torch."))] += 1
+        rec.attns[(tuple(q.shape), k.shape[2], str(q.dtype).removeprefix("torch."))] += 1
         return flash_attention(q, k, v, causal=causal)
 
-    with vision_kernels(conv, attn):
+    with model_kernels(conv, attn):
         yield rec
 
 
+def attention_plain(q, k, v, causal: bool = False):
+    """K3's plain version on [B, H, T, D] operands: in one call, or past
+    PLAIN_LOGITS_BYTES of float32 logits (gen_1024's U-Net: 4 x 8 x 16384^2
+    x 4 B = 34 GB) one (batch, head) slice at a time."""
+    from repro_torch.kernels.attention import attention_ref
+
+    b, h, t, _ = q.shape
+    if b * h * t * k.shape[2] * 4 <= PLAIN_LOGITS_BYTES:
+        return attention_ref(q, k, v, causal=causal)
+    out = q.new_empty((b, h, t, v.shape[3]))
+    for i in range(b):
+        for j in range(h):
+            out[i, j] = attention_ref(q[i:i + 1, j:j + 1], k[i:i + 1, j:j + 1], v[i:i + 1, j:j + 1],
+                                      causal=causal)[0, 0]
+    return out
+
+
 @contextlib.contextmanager
-def held_on_path(torch):
-    """While entered, every K1 and K3 call the vision models make is also
-    run through its plain version on the same inputs, and the kernel's
-    output held against it at TOL (fatal beyond it): the kernels on the
-    path's own activations.  Yields the rows; the launch counts are
+def held_on_path(torch, sum_rtol: float = 0.0):
+    """While entered, every K1 and K3 call the vision and diffusion models
+    make is also run through its plain version on the same inputs
+    (``attention_plain``), and the kernel's output held against it at TOL
+    (fatal beyond it): the kernels on the path's own activations.  With
+    ``sum_rtol`` a K1 output may also miss by ``sum_rtol`` x sum |x| |w|
+    (+ |b|) at its element -- the scale of a float32 sum's rounding, which
+    TOL x (1 + |y|) does not follow where large inputs cancel (the U-Net's
+    residual stream; ``SUM_RTOL``).  Yields the rows; the launch counts are
     restored on exit."""
-    from repro_torch.kernels.attention import attention_ref, flash_attention
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
 
     rows = []
     counts = conv2d_cuda.launches, conv2d_cuda.depthwise_launches, flash_attention.launches
 
-    def held(kind, got, want, what):
+    def held(kind, got, want, what, slack=None):
         diff = (got.float() - want.float()).abs()
         dname = str(got.dtype).removeprefix("torch.")
-        ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all())
+        limit = TOL[dname] * (1 + want.float().abs())
+        within_tol = bool((diff <= limit).all())
+        if slack is not None:
+            limit = limit + slack
+        ok = bool((diff <= limit).all())
         rows.append(dict(kernel=kind, what=what, dtype=dname, max_abs_err=diff.max().item(),
-                         max_abs_out=want.float().abs().max().item(), within_tol=ok))
+                         max_abs_out=want.float().abs().max().item(), within_tol=within_tol, held=ok,
+                         limit_share=(diff / limit).max().item()))
         check(ok, f"{kind} disagrees with its plain version on the path's activations: {rows[-1]}")
         return got
 
     def conv(x, w, b=None, *, stride=1, padding=1, groups=1):
         kw = dict(stride=stride, padding=padding, groups=groups)
+        slack = None
+        if sum_rtol:
+            babs = None if b is None else b.abs()
+            slack = sum_rtol * conv2d_ref(x.abs(), w.abs(), babs, **kw).float()
         return held("K1", conv2d_cuda(x, w, b, **kw), conv2d_ref(x, w, b, **kw),
-                    f"{list(x.shape)} -> {w.shape[-1]} k{w.shape[0]} s{stride} p{padding} g{groups}")
+                    f"{list(x.shape)} -> {w.shape[-1]} k{w.shape[0]} s{stride} p{padding} g{groups}", slack)
 
     def attn(q, k, v, *, causal=True):
-        return held("K3", flash_attention(q, k, v, causal=causal), attention_ref(q, k, v, causal=causal),
-                    f"{list(q.shape)}")
+        return held("K3", flash_attention(q, k, v, causal=causal), attention_plain(q, k, v, causal=causal),
+                    f"{list(q.shape)} S={k.shape[2]}")
 
     try:
-        with vision_kernels(conv, attn):
+        with model_kernels(conv, attn):
             yield rows
     finally:
         torch.cuda.synchronize()
@@ -2846,13 +2904,347 @@ def phase_vision(torch) -> tuple[dict, dict, list, list]:
     return report, launches, conv_rows, attn_rows
 
 
+# Phase 14: diffusion generation at full width.  K1 and K3 launches a
+# forward, whatever the batch and resolution: UNet-SD1.5 66 convs (conv_in,
+# 21 down with 3 downsamples, 4 mid, 39 up with 3 upsamples, conv_out) and
+# 16 transformer blocks of a self and a cross attention; DiT-XL/2 its patch
+# embedding and 28 blocks.
+DIFFUSION_ARCHS = ("unet-sd15", "dit-xl2")
+DIFFUSION_LAUNCHES = {"unet-sd15": (66, 32), "dit-xl2": (1, 28)}
+# gen_1024's 50 DDIM steps cut to GEN_1024_STEPS: every step runs the same
+# shapes, so two show each K3 call at T = 16384 (U-Net) / 4096 (DiT)
+GEN_1024_STEPS = 2
+# image 0 of a float32 forward at this resolution is held to the plain
+# versions' forward on the CPU (latent 32: the U-Net's level-0 attention at
+# T = 1024 keeps the CPU forward to seconds)
+DIFFUSION_CPU_RES = 256
+# float32 logits past this many bytes: the plain attention runs one (batch,
+# head) slice at a time (attention_plain)
+PLAIN_LOGITS_BYTES = 4e9
+# K1 on the U-Net's path: its residual stream grows to |x| ~ 80 at random
+# weights, and where such inputs cancel (|y| << sum |x w|, K up to 23,040)
+# two float32 sums in other orders part by more than TOL x (1 + |y|); each
+# such output may also miss by SUM_RTOL x sum |x| |w| -- 16 units of float32
+# roundoff of the sum's terms (held_on_path's sum_rtol)
+SUM_RTOL = 2.0 ** -20
+
+
+def hold_diffusion_attention(torch, F, gen, sig: tuple, timed: bool) -> dict:
+    """K3 against its plain version at one U-Net call signature (q's shape
+    [B, H, T, D], the S keys, dtype: ``recording_calls``' ``attns``): q
+    from a [B, T, H*D] projection and k, v from [B, S, H*D] ones, each seen
+    as [B, H, n, D] (``unet._mha``'s views), not causal; fatal beyond TOL.
+    With ``timed``, the CUDA-event means of the kernel, the plain version and
+    SDPA (never on the path), their device us per call from profiler
+    windows, and the bound.  The count is left as it was."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.attention.ops import launch_config
+
+    count = flash_attention.launches
+    (b, h, t, d), s, dname = sig
+    dt = getattr(torch, dname)
+    q, k, v = (torch.randn((b, n, h * d), generator=gen, device="cuda").to(dt).view(b, n, h, d).transpose(1, 2)
+               for n in (t, s, s))
+    got, want = flash_attention(q, k, v, causal=False), attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got.float()).all())
+    row = dict(b=b, h=h, t=t, s=s, d=d, dtype=dname, max_abs_err=diff.max().item(), within_tol=ok,
+               **launch_config(q, k, v, causal=False))
+    check(ok, f"K3 disagrees with its plain version at the U-Net's shape {row}")
+    del want, diff
+    if timed:
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        flops = 2.0 * b * h * t * s * (d + d)
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+        ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+        kern = lambda: flash_attention(q, k, v, causal=False)  # noqa: E731
+        row.update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, lambda: attention_plain(q, k, v), reps=5),
+                   library_ms=time_ms(torch, lib), library_backend=sdpa_backend(torch, lib),
+                   bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   ffma_bound_ms=max(bound_ms(flops, nbytes, dname, ffma=True)))
+        row["device_us"], row["device_source"] = device_or_event_us(torch, kern, reps=10)
+        row["library_device_us"], row["library_device_source"] = device_or_event_us(torch, lib, reps=10)
+    torch.cuda.synchronize()
+    flash_attention.launches = count
+    return row
+
+
+def perturb_adaln(torch, params, gen) -> None:
+    """DiT's adaLN-zero weights -- every block's ``ada`` and ``final_ada``,
+    zero at init, so each block is the identity and a hold would check
+    nothing of K3 -- drawn in place from ``gen``: w N(0, 1 / d), b 0.1 N(0, 1)."""
+    for p in (params["blocks"]["ada"], params["final_ada"]):
+        p["w"].copy_(torch.randn(p["w"].shape, generator=gen, device="cuda") / math.sqrt(p["w"].shape[-2]))
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen, device="cuda"))
+
+
+def phase_diffusion(torch) -> tuple[dict, dict, list, list]:
+    """Phase 14: UNet-SD1.5 and DiT-XL/2 at full width (seeded weights; DiT's
+    adaLN-zero weights drawn, ``perturb_adaln``), each (1) one float32
+    forward at batch MAX_BATCH at gen_fast's 512 (latent 64), counted
+    against ``DIFFUSION_LAUNCHES`` and recorded, no SDPA operator in its
+    profile, every K1 / K3 call held on its own activations
+    (``held_on_path``), and the same in bfloat16, counted; (2) image 0 of a
+    float32 forward at 256 (latent 32) held to the plain versions' forward on
+    the CPU within DEPTH_RTOL (the plain versions on the card beside); (3)
+    ``configs.steps.build``'s ``gen_fast`` whole (bfloat16, batch 16, 4 DDIM
+    steps), counted, timed and held to the float32 sampler of the same
+    bf16-rounded weights by phase 7's rule; (4) ``gen_1024`` (bfloat16,
+    batch 4, 1024: latent 128) with its steps cut to GEN_1024_STEPS, counted,
+    timed, and every kernel call held on its own activations, K3's one
+    (batch, head) slice at a time; (5) K1 and K3 held against their plain
+    versions at every call signature those runs made (the batch-4 float32
+    ones timed beside F.conv2d / SDPA, never on the path, with device us and
+    the bound); (6) steady f32 / bf16 forwards at batch 4 timed and profiled.
+    Returns the report, the launches of its counted runs, and its K1 and K3
+    rows."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import Cell
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.models.common import tree_map
+
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    launches = {"conv2d": 0, "flash_attention": 0}
+    conv_rows, attn_rows, report = [], [], {}
+
+    def counted(label, fn, want, profile=False):
+        """One call of ``fn`` with the counts set to 0 before and read after,
+        its kernel calls recorded; fatal unless the counts are ``want``."""
+        conv2d_cuda.launches = conv2d_cuda.depthwise_launches = flash_attention.launches = 0
+        with recording_calls() as rec:
+            if profile:
+                with torch.profiler.profile(activities=acts) as prof:
+                    y = fn()
+                    torch.cuda.synchronize()
+                rec.sdpa = sdpa_ops(prof)
+            else:
+                y = fn()
+                torch.cuda.synchronize()
+        got = (conv2d_cuda.launches, flash_attention.launches)
+        launches["conv2d"] += got[0]
+        launches["flash_attention"] += got[1]
+        print(f"  {label}: K1 launches {got[0]}, K3 {got[1]}; expected {want}")
+        check(got == want, f"{label} launched {got}, expected {want}")
+        check(bool(torch.isfinite(y.float()).all()), f"{label}: non-finite output")
+        return y, rec
+
+    for name in DIFFUSION_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        arch = get_arch(name)
+        mod, want = arch.module, DIFFUSION_LAUNCHES[name]
+        is_dit = name == "dit-xl2"
+
+        def cfg_at(res):
+            return dataclasses.replace(arch.cfg, img_res=res)
+
+        res_fast, res_big = (arch.cells[c].meta["img_res"] for c in ("gen_fast", "gen_1024"))
+        # the weights at gen_1024's resolution (DiT's positions cover its 4096
+        # tokens); a cell at a lower one takes its first n_tokens, as its bundle's state is shaped
+        params = mod.init(gen, cfg_at(res_big))
+        if is_dit:
+            perturb_adaln(torch, params, gen)
+            print(f"{name}: adaLN-zero weights (ada, final_ada: zero at init) drawn, w N(0, 1/d), b 0.1 N(0, 1)")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+
+        def at(tree, res):
+            return {**tree, "pos": tree["pos"][:, : cfg_at(res).n_tokens]} if is_dit else tree
+
+        def inputs(b, res, dt):
+            lr = res // 8
+            lat = torch.randn((b, lr, lr, arch.cfg.latent_ch), generator=gen, device="cuda").to(dt)
+            if is_dit:
+                cond = torch.randint(0, arch.cfg.num_classes, (b,), generator=gen, device="cuda",
+                                     dtype=torch.int32)
+            else:
+                cond = torch.randn((b, arch.cfg.ctx_len, arch.cfg.ctx_dim), generator=gen, device="cuda").to(dt)
+            return lat, cond
+
+        tsteps = torch.tensor([999, 666, 333, 1], dtype=torch.int32, device="cuda")
+        c_fast = cfg_at(res_fast)
+        p_fast = at(params, res_fast)
+        x4, cond4 = inputs(MAX_BATCH, res_fast, torch.float32)
+        print(f"{name} ({n_params / 1e6:.1f} M parameters, f32 on the card)")
+
+        # (1) one forward at batch MAX_BATCH at gen_fast's resolution: float32 counted, profiled,
+        # recorded and held on its own activations; then bfloat16, counted
+        y32, rec32 = counted(f"float32 forward, batch 4, {res_fast}", lambda: mod.apply(p_fast, c_fast, x4, tsteps, cond4),
+                             want, profile=True)
+        print(f"  SDPA operators in its profile: {rec32.sdpa or 'none'}")
+        check(not rec32.sdpa, f"{name}'s forward ran {rec32.sdpa}")
+        with held_on_path(torch, SUM_RTOL) as path_rows:
+            mod.apply(p_fast, c_fast, x4, tsteps, cond4)
+        worst = max(path_rows, key=lambda r: r["limit_share"])
+        beyond = sum(not r["within_tol"] for r in path_rows)
+        print(f"  on the path's own activations: {len(path_rows)} kernel calls each within TOL (K1: plus "
+              f"{SUM_RTOL:.3g} x sum |x w|) of its plain version (largest share of the limit "
+              f"{worst['limit_share']:.3f}: {worst['kernel']} {worst['what']}, max_err {worst['max_abs_err']:.3g} "
+              f"at max |out| {worst['max_abs_out']:.3g}; K1 calls past TOL x (1 + |y|) alone: {beyond})")
+        bparams = tree_map(lambda t: t.to(torch.bfloat16), params)
+        bp_fast = at(bparams, res_fast)
+        xb4, condb4 = x4.to(torch.bfloat16), cond4 if is_dit else cond4.to(torch.bfloat16)
+        _, rec16 = counted(f"bfloat16 forward, batch 4, {res_fast}", lambda: mod.apply(bp_fast, c_fast, xb4, tsteps, condb4),
+                           want)
+
+        # (2) image 0 of a float32 forward at DIFFUSION_CPU_RES against the plain versions on the CPU
+        c_cpu = cfg_at(DIFFUSION_CPU_RES)
+        x_cpu, cond_cpu = inputs(MAX_BATCH, DIFFUSION_CPU_RES, torch.float32)
+        y_cpu = mod.apply(at(params, DIFFUSION_CPU_RES), c_cpu, x_cpu, tsteps, cond_cpu)
+        t1 = time.perf_counter()
+        cparams = tree_map(lambda t: t.cpu(), at(params, DIFFUSION_CPU_RES))
+        c0 = mod.apply(cparams, c_cpu, x_cpu[:1].cpu(), tsteps[:1].cpu(), cond_cpu[:1].cpu())
+        cpu_s = time.perf_counter() - t1
+        del cparams
+        with plain_kernels():
+            p0 = mod.apply(at(params, DIFFUSION_CPU_RES), c_cpu, x_cpu[:1], tsteps[:1], cond_cpu[:1])
+        c_err = (y_cpu[:1].cpu() - c0).abs().max().item()
+        c_plain = (p0.cpu() - c0).abs().max().item()
+        c_scale = c0.abs().max().item()
+        print(f"  image 0 at {DIFFUSION_CPU_RES} vs the plain versions on the CPU ({cpu_s:.1f} s with the host copy): max |diff| "
+              f"{c_err:.4g} (max |out| {c_scale:.4g}, limit {DEPTH_RTOL} x that; the plain versions on the card: "
+              f"{c_plain:.4g})")
+        check(c_err <= DEPTH_RTOL * c_scale, f"{name} drifts from the plain versions on the CPU")
+        del y_cpu, p0, c0
+
+        # (3) gen_fast whole: bfloat16, batch 16, 4 DDIM steps
+        fast = build(arch, "gen_fast")
+        n_fast = arch.cells["gen_fast"].meta["steps"]
+        bfast = at(bparams, res_fast)
+        check([(tuple(t.shape), t.dtype) for t in tree_leaves(bfast)] == tree_leaves(fast.state),
+              "the weights do not match gen_fast's bundle")
+        lat16, cond16 = inputs(fast.inputs["latents"][0][0], res_fast, torch.bfloat16)
+        fast_b = lat16.shape[0]
+        check((tuple(lat16.shape), lat16.dtype) == fast.inputs["latents"]
+              and (tuple(cond16.shape), cond16.dtype) == fast.inputs["cond"], "gen_fast's inputs")
+        s16, recf = counted(f"gen_fast (bfloat16, batch {lat16.shape[0]}, {n_fast} steps)",
+                            lambda: fast.fn(bfast, lat16, cond16), tuple(n_fast * c for c in want))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            fast.fn(bfast, lat16, cond16)
+        torch.cuda.synchronize()
+        fast_s = (time.perf_counter() - t1) / 2
+        rparams = tree_map(lambda t: t.float(), bfast)
+        r16 = fast.fn(rparams, lat16.float(), cond16 if is_dit else cond16.float())
+        del rparams
+        with plain_kernels():
+            pl16 = fast.fn(bfast, lat16, cond16)
+        torch.cuda.empty_cache()
+        g_err = (s16.float() - r16).abs().max().item()
+        g_plain = (pl16.float() - r16).abs().max().item()
+        g_scale = r16.abs().max().item()
+        g_limit = max(BF16_RTOL * g_scale, 1.25 * g_plain)
+        print(f"  gen_fast: {fast_s:.3f} s a call (host clock, 2 runs), {fast_b / fast_s:.2f} latents/s; "
+              f"vs the float32 sampler of its bf16-rounded weights: max |diff| {g_err:.4g} (max |latent| "
+              f"{g_scale:.4g}; the plain versions in bf16: {g_plain:.4g}; limit {g_limit:.4g} = the larger of "
+              f"{BF16_RTOL} x max |latent| and 1.25 x the plain gap)")
+        check(g_err <= g_limit, f"{name}'s bfloat16 gen_fast drifts from the float32 sampler")
+        del s16, r16, pl16, lat16, cond16
+
+        # (4) gen_1024 with its steps cut: bfloat16, batch 4, latent 128
+        meta = arch.cells["gen_1024"].meta
+        cut = dataclasses.replace(arch, cells={**arch.cells, "gen_1024": Cell(
+            "gen_1024", "gen", {**meta, "steps": GEN_1024_STEPS})})
+        big = build(cut, "gen_1024")
+        print(f"  gen_1024: steps cut from {meta['steps']} to {GEN_1024_STEPS} (every step runs the same shapes)")
+        bbig = at(bparams, res_big)
+        check([(tuple(t.shape), t.dtype) for t in tree_leaves(bbig)] == tree_leaves(big.state),
+              "the weights do not match gen_1024's bundle")
+        lat4, condb = inputs(big.inputs["latents"][0][0], meta["img_res"], torch.bfloat16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s1024, rec1024 = counted(f"gen_1024 (bfloat16, batch {lat4.shape[0]}, {GEN_1024_STEPS} steps)",
+                                 lambda: big.fn(bbig, lat4, condb), tuple(GEN_1024_STEPS * c for c in want))
+        big_s = time.perf_counter() - t1
+        with held_on_path(torch, SUM_RTOL) as big_rows:
+            h1024 = big.fn(bbig, lat4, condb)
+        big_worst = max(big_rows, key=lambda r: r["limit_share"])
+        print(f"  gen_1024: {big_s:.3f} s for {GEN_1024_STEPS} steps (host clock, the first call), "
+              f"{lat4.shape[0] / big_s:.3f} latents/s at {GEN_1024_STEPS} steps; {len(big_rows)} kernel calls "
+              f"held on their own activations (largest share of the limit {big_worst['limit_share']:.3f}: "
+              f"{big_worst['kernel']} "
+              f"{big_worst['what']}, max_err {big_worst['max_abs_err']:.3g} at max |out| "
+              f"{big_worst['max_abs_out']:.3g}); the held run's latents equal the first's: "
+              f"{bool(torch.equal(h1024, s1024))}")
+        del s1024, h1024, lat4, condb
+
+        # (5) K1 and K3 at every call signature of those runs; batch 4 float32 timed
+        held = 0
+        for path, rec, timed, n_steps in (("b4-float32", rec32, True, 1), ("b4-bfloat16", rec16, False, 1),
+                                          ("gen_fast", recf, False, n_fast),
+                                          ("gen_1024", rec1024, False, GEN_1024_STEPS)):
+            for sig, calls in sorted(rec.convs.items(), key=str):
+                conv_rows.append(dict(hold_conv(torch, F, gen, sig, timed, device_times=timed), arch=name,
+                                      path=path, per_forward=calls // n_steps))
+                held += 1
+            for (shape, s, dname), calls in sorted(rec.attns.items(), key=str):
+                bq, hq, tq, dq = shape
+                row = (hold_vit_attention(torch, F, gen, bq, hq, tq, dq, dname, timed) if is_dit
+                       else hold_diffusion_attention(torch, F, gen, (shape, s, dname), timed))
+                attn_rows.append(dict(row, arch=name, path=path, per_forward=calls // n_steps))
+        for r in (r for r in conv_rows if r["arch"] == name and r["path"] == "b4-float32"):
+            print(f"  conv {r['shape']} k{r['k']} s{r['stride']} p{r['pad']}{' bias' if r['bias'] else ''} "
+                  f"x{r['per_forward']}/fwd S={r['splits']} {r['gather']}: max_err {r['max_abs_err']:.3g} kernel "
+                  f"{r['ms']:.4f} ms ({r['device_us']:.2f} us, {r['device_source']}) plain {r['plain_ms']:.4f} "
+                  f"F.conv2d {r['library_ms']:.4f} ({r['library_device_us']:.2f} us, {r['library_device_source']}) "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        for r in (r for r in attn_rows if r["arch"] == name and "ms" in r):
+            print(f"  attn B{r['b']} H{r['h']} T{r['t']} S{r['s']} D{r['d']} x{r['per_forward']}/fwd [{r['block']}]: "
+                  f"max_err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms ({r['device_us']:.2f} us, "
+                  f"{r['device_source']}) plain {r['plain_ms']:.4f} SDPA {r['library_ms']:.4f} "
+                  f"({r['library_device_us']:.2f} us, {r['library_device_source']}; {r['library_backend']}) bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        mine = [r for r in conv_rows + attn_rows if r["arch"] == name]
+        print(f"  held {held} K1 signatures and {len(mine) - held} K3 (max_err float32 "
+              f"{max([r['max_abs_err'] for r in mine if r['dtype'] == 'float32'], default=0):.3g}, bfloat16 "
+              f"{max([r['max_abs_err'] for r in mine if r['dtype'] == 'bfloat16'], default=0):.3g})")
+
+        # (6) where the time goes: steady forwards at batch 4 at gen_fast's resolution
+        f_ms, f_busy, f_top, f_fams = steady_and_profiled(
+            torch, lambda: mod.apply(p_fast, c_fast, x4, tsteps, cond4), f"{name} float32")
+        h_ms, h_busy, h_top, h_fams = steady_and_profiled(
+            torch, lambda: mod.apply(bp_fast, c_fast, xb4, tsteps, condb4), f"{name} bfloat16")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        arch_s = time.perf_counter() - t0
+        print(f"  {name}: {arch_s:.1f} s, peak device memory allocated {peak_gb:.2f} GB")
+        report[name] = dict(
+            n_params=n_params, launches_per_forward=want, sdpa_ops=rec32.sdpa, path_holds=len(path_rows),
+            path_worst=worst, cpu_max_abs=c_err, cpu_max_abs_out=c_scale, cpu_plain_on_card_max_abs=c_plain,
+            cpu_s=cpu_s, gen_fast=dict(s_per_call=fast_s, latents_per_s=fast_b / fast_s, batch=fast_b, steps=n_fast,
+                                       max_abs=g_err, plain_max_abs=g_plain, max_abs_latent=g_scale,
+                                       limit=g_limit),
+            gen_1024=dict(steps=GEN_1024_STEPS, steps_uncut=meta["steps"], s_first_call=big_s,
+                          path_holds=len(big_rows), path_worst=big_worst),
+            float32=dict(steady_ms=f_ms, device_busy_ms=f_busy, top_device=f_top, device_ms_by_kernel=f_fams),
+            bfloat16=dict(steady_ms=h_ms, device_busy_ms=h_busy, top_device=h_top, device_ms_by_kernel=h_fams),
+            peak_device_gb=peak_gb, phase_s=arch_s)
+        del params, bparams, p_fast, bp_fast, bfast, bbig, x4, xb4, cond4, condb4, y32
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 14: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    return report, launches, conv_rows, attn_rows
+
+
 def plain_kernels():
-    """The vision models' convs and attention through K1's and K3's plain
-    versions on the same device, then the kernels restored."""
-    from repro_torch.kernels.attention import attention_ref
+    """The vision and diffusion models' convs and attention through K1's and
+    K3's plain versions on the same device (``attention_plain``), then the
+    kernels restored."""
     from repro_torch.kernels.conv2d import conv2d_ref
 
-    return vision_kernels(conv2d_ref, attention_ref)
+    return model_kernels(conv2d_ref, attention_plain)
 
 
 def main() -> int:
@@ -2902,13 +3294,14 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"build: {sorted(_build.sources())} in {build_s:.1f} s")
     for name, log in _build.build_logs().items():
-        if name == "attention":
+        if name.startswith("attention"):
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    k3_regs = k3_ptxas(_build.build_logs().get("attention", ""))
-    check(len(k3_regs) == 60, f"ptxas reported {len(k3_regs)} K3 instantiations, expected 60")
+    # K3's two libraries: attention.cu's 5 width pairs, attention_diffusion.cu's 4
+    k3_regs = k3_ptxas(_build.build_logs().get("attention", "") + _build.build_logs().get("attention_diffusion", ""))
+    check(len(k3_regs) == 108, f"ptxas reported {len(k3_regs)} K3 instantiations, expected 108")
     for r in k3_regs:
         print(f"  attention: flash_fwd {r['dtype']:8s} ({r['dqk']}, {r['dv']}) {r['copies']:7s} {r['block']}: "
               f"{r['registers']} registers, {r['spill_store_bytes']} / {r['spill_load_bytes']} bytes spill "
@@ -3429,6 +3822,9 @@ def main() -> int:
     # -- 13. the vision family served at full width ----------------------------
     vision_report, vision_launches, vision_conv_rows, vision_attn_rows = phase_vision(torch)
 
+    # -- 14. diffusion generation at full width -------------------------------
+    diff_report, diff_launches, diff_conv_rows, diff_attn_rows = phase_diffusion(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -3438,6 +3834,8 @@ def main() -> int:
     main_rows += engines_holds
     vision_main = [r for r in vision_conv_rows if r["path"] == "b4-float32"]
     main_rows += vision_main
+    diff_main = [r for r in diff_conv_rows if r["path"] == "b4-float32"]
+    main_rows += diff_main
     halo_main = [r for r in halo_rows if r["per_forward"]]
 
     def per_fwd(rs, key: str) -> float:
@@ -3460,19 +3858,21 @@ def main() -> int:
 
     attn_main = [r for r in attn_rows if r["per_forward"]]
     attn_main += [r for r in vision_attn_rows if r["path"] == "b4-float32"]
+    attn_main += [r for r in diff_attn_rows if r["path"] == "b4-float32"]
     kernels = [
         entry("conv2d", "src/repro_torch/kernels/conv2d/conv2d.cu",
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
-              + replan_launches["conv2d"] + vision_launches["conv2d"]),
+              + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
-              + sum(mla_launches.values()) + vision_launches["flash_attention"]),
+              + sum(mla_launches.values()) + vision_launches["flash_attention"]
+              + diff_launches["flash_attention"]),
     ]
     # K1's depthwise branch on its own: ConvNeXt-B's and EfficientNet-B7's
     # float32 forwards at batch 4 (every vision hold, bf16 too, in its error)
@@ -3498,6 +3898,19 @@ def main() -> int:
                 "ms", "device_us", "plain_ms", "library_ms", "library_device_us", "bound_ms")}
         print(f"per float32 forward of {name} at batch {MAX_BATCH} (device_us: us): "
               f"{json.dumps(vision_per_forward[name])}")
+    diffusion_per_forward = {}
+    for name in DIFFUSION_ARCHS:
+        keys = ("ms", "device_us", "plain_ms", "library_ms", "library_device_us", "bound_ms")
+        diffusion_per_forward[name] = {
+            "K1": {key: per_fwd([r for r in diff_main if r["arch"] == name], key) for key in keys},
+            "K3": {key: per_fwd([r for r in attn_main if r.get("arch") == name], key) for key in keys}}
+        print(f"per float32 forward of {name} at batch {MAX_BATCH}, 512 (device_us: us): "
+              f"{json.dumps(diffusion_per_forward[name])}")
+    # K1 and K3 at every diffusion call signature (bf16 and the samplers' too) add to the errors
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in diff_conv_rows
+                                                                    if r["dtype"] == "float32"))
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], max(r["max_abs_err"] for r in diff_attn_rows
+                                                                    if r["dtype"] == "float32"))
     # phase 12's holds are untimed: they add to K1's error, not to its times
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in replan_holds))
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
@@ -3550,7 +3963,9 @@ def main() -> int:
         "lm": lm_report, "moe": moe_report, "mla": mla_report, "serving": serving_report,
         "engines": engines_report, "replan": replan_report, "vision": vision_report,
         "vision_conv_cases": vision_conv_rows, "vision_attention_cases": vision_attn_rows,
-        "vision_per_forward": vision_per_forward,
+        "vision_per_forward": vision_per_forward, "diffusion": diff_report,
+        "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
+        "diffusion_per_forward": diffusion_per_forward,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -3581,7 +3996,12 @@ def main() -> int:
                 "depthwise) and EfficientNet-B7 at 600 (163: 55 depthwise), and to flash_attention's one "
                 "of ViT-L/16 (24 calls, T = 197); its launches count the 4 served batches of each, its "
                 "counted float32 and bfloat16 forwards at batch 4, serve_b1, serve_b128 and ConvNeXt at "
-                "layer_scale 1.0; conv2d's depthwise entry sums the depthwise calls alone.",
+                "layer_scale 1.0; conv2d's depthwise entry sums the depthwise calls alone.  Phase 14 adds "
+                "to both kernels' sums one float32 forward at batch 4 and 512 (latent 64) of UNet-SD1.5 "
+                "(66 K1 calls, 32 K3 at D = 40 / 80 / 160) and DiT-XL/2 (1 K1, 28 K3 at D = 72); its "
+                "launches count each model's counted float32 and bfloat16 forwards at batch 4, gen_fast "
+                "(bf16, batch 16, 4 steps) and gen_1024 (bf16, batch 4, 2 of its 50 steps); max_abs_err "
+                "covers its float32 holds at every signature (bf16 errors are in chip_smoke.json).",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

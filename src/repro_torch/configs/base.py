@@ -1,15 +1,17 @@
 """Arch registry (twin of ``repro/configs/base.py``): each architecture the
 port runs is a selectable config with its full config, a reduced smoke config
 and one :class:`Cell` per assigned input shape.  :mod:`.steps` builds the step
-function and the input shapes for an (arch, cell).  Only the architectures
-the port has reached are registered (``ROADMAP.md`` queues the rest).
+function and the input shapes for an (arch, cell).  Every architecture of
+the JAX package is registered; the kinds of step not ported yet raise in
+:mod:`.steps` (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["Cell", "Arch", "REGISTRY", "register", "get", "list_archs", "lm_cells", "vision_cells"]
+__all__ = ["Cell", "Arch", "REGISTRY", "register", "get", "list_archs", "lm_cells", "vision_cells",
+           "diffusion_cells"]
 
 
 @dataclass(frozen=True)
@@ -86,4 +88,14 @@ def vision_cells() -> dict[str, Cell]:
         "cls_384": Cell("cls_384", "train", {"img_res": 384, "batch": 64}),
         "serve_b1": Cell("serve_b1", "serve", {"img_res": 224, "batch": 1}),
         "serve_b128": Cell("serve_b128", "serve", {"img_res": 224, "batch": 128}),
+    }
+
+
+# The assigned diffusion shape set (shared by the diffusion archs).
+def diffusion_cells() -> dict[str, Cell]:
+    return {
+        "train_256": Cell("train_256", "train", {"img_res": 256, "batch": 256, "steps": 1000}),
+        "gen_1024": Cell("gen_1024", "gen", {"img_res": 1024, "batch": 4, "steps": 50}),
+        "gen_fast": Cell("gen_fast", "gen", {"img_res": 512, "batch": 16, "steps": 4}),
+        "train_1024": Cell("train_1024", "train", {"img_res": 1024, "batch": 32, "steps": 1000}),
     }

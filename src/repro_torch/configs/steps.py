@@ -3,20 +3,23 @@
 
 JAX's builder returns abstract pytrees (``jax.eval_shape``) for its dry-run;
 the port has no dry-run, so its bundle holds ``(shape, dtype)`` pairs, taken
-from an init on the ``meta`` device.  The LM ``prefill`` and ``decode`` kinds
-and the vision ``serve`` kind are ported; training and the diffusion family
-raise (``ROADMAP.md`` queues them).
+from an init on the ``meta`` device.  The LM ``prefill`` and ``decode`` kinds,
+the vision ``serve`` kind and the diffusion ``gen`` kind (a DDIM sampler over
+the backbone) are ported; training raises (``ROADMAP.md`` queues it).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
+from ..models import dit, unet
 from ..models import transformer_lm as lm
 from ..models.common import tree_map
+from ..parallel.variants import get_variant
 from .base import Arch, Cell
 
 __all__ = ["StepBundle", "build", "abstract_params"]
@@ -81,10 +84,71 @@ def _vision_serve(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
                       inputs={"images": ((b, r, r, 3), dtype)}, kind="serve")
 
 
+def _diff_cfg(arch: Arch, cfg, img_res: int):
+    return dataclasses.replace(cfg, img_res=img_res)
+
+
+def _diffusion_cond_specs(arch: Arch, cfg, b, dtype):
+    if arch.module is dit:
+        return {"cond": ((b,), torch.int32)}
+    return {"cond": ((b, cfg.ctx_len, cfg.ctx_dim), dtype)}
+
+
+def _diffusion_apply(arch: Arch, cfg, params, lat, t, cond):
+    if arch.module is dit:
+        return dit.apply(params, cfg, lat, t, cond)[..., : cfg.latent_ch]
+    return unet.apply(params, cfg, lat, t, cond)
+
+
+def ddim_timesteps(n_train: int, n_steps: int) -> list[int]:
+    """The sampler's timesteps, JAX's ``linspace(n_train - 1, 1, n_steps)``
+    taken in float32 and truncated to int32."""
+    return torch.linspace(n_train - 1, 1, n_steps, dtype=torch.float32).to(torch.int32).tolist()
+
+
+def _alpha(t: int, n_train: int) -> torch.Tensor:
+    """``cos(0.5 pi t / n_train)^2`` in float32, as a 0-dim CPU tensor."""
+    x = torch.tensor(t, dtype=torch.float32) / n_train
+    return torch.cos((0.5 * math.pi) * x) ** 2
+
+
+def _diffusion_gen(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
+    cfg = _diff_cfg(arch, cfg, cell.meta["img_res"])
+    if get_variant().diffusion_spatial2d and hasattr(cfg, "attn_f32"):
+        # JAX's serving variant: SD-style low-precision softmax
+        cfg = dataclasses.replace(cfg, attn_f32=False)
+    n_steps = cell.meta["steps"]
+    n_train = 1000
+
+    def sample(params, latents, cond):
+        """DDIM sampler: ``n_steps`` forwards of the backbone.  Each update
+        runs in float32 and is then cast to the latents' type, as JAX's: its
+        ``jnp.sqrt(1 - a)`` is a float32 array (not a weak scalar), so it
+        promotes a bfloat16 eps and latent to float32."""
+        ts = ddim_timesteps(n_train, n_steps)
+        lat = latents
+        for t, t_next in zip(ts, ts[1:] + [0]):
+            tb = torch.full((lat.shape[0],), t, dtype=torch.int32, device=lat.device)
+            eps = _diffusion_apply(arch, cfg, params, lat, tb, cond).float()
+            a, an = _alpha(t, n_train), _alpha(t_next, n_train)
+            # the float32 coefficients as Python floats: exact, and no host tensor meets the card's
+            s1a, sa, san, s1an = (torch.sqrt(v).item() for v in (1 - a, a, an, 1 - an))
+            x0 = (lat.float() - s1a * eps) / sa
+            lat = (san * x0 + s1an * eps).to(latents.dtype)
+        return lat
+
+    b = cell.meta["batch"]
+    lr = cfg.latent_res
+    cond = _diffusion_cond_specs(arch, cfg, b, dtype)
+    return StepBundle(fn=sample, state=abstract_params(arch, cfg, dtype),
+                      inputs={"latents": ((b, lr, lr, cfg.latent_ch), dtype), **cond}, kind="gen")
+
+
 _BUILDERS = {
     ("lm", "prefill"): _lm_prefill,
     ("lm", "decode"): _lm_decode,
     ("vision", "serve"): _vision_serve,
+    ("diffusion", "gen"): _diffusion_gen,
 }
 
 

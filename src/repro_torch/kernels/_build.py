@@ -5,9 +5,11 @@ and is compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``), with what ``nvcc``/``ptxas`` printed beside it.  All sources
 compile in parallel, one ``nvcc`` process each.
-A library's file name carries a hash of its source, of every shared header
-(``*.cuh`` under ``repro_torch/kernels``) and of the flags, so an edited
-source or header is rebuilt and an unchanged one is reused.  No file includes PyTorch's
+A library's file name carries a hash of its source, of the sources it
+includes (``attention_diffusion.cu`` is ``attention.cu`` with other head
+widths), of every shared header (``*.cuh`` under ``repro_torch/kernels``)
+and of the flags, so an edited source or header is rebuilt and an unchanged
+one is reused.  No file includes PyTorch's
 headers: such a file takes minutes to compile, a plain C interface seconds.
 
 Nothing is compiled when this module is imported: the CPU tests import every
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -63,8 +66,19 @@ def headers() -> list[Path]:
     return sorted(KERNELS_DIR.rglob("*.cuh"))
 
 
+def _included_sources(src: Path) -> list[Path]:
+    """The ``.cu`` files ``src`` includes (``#include "x.cu"``), recursively."""
+    found = []
+    for m in re.finditer(r'^#include "(.+\.cu)"', src.read_text(), re.M):
+        inc = (src.parent / m.group(1)).resolve()
+        found += [inc, *_included_sources(inc)]
+    return found
+
+
 def _lib_path(name: str, src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for inc in _included_sources(src):
+        h.update(inc.read_bytes())
     for hdr in headers():
         h.update(str(hdr.relative_to(KERNELS_DIR)).encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

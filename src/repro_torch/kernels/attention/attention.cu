@@ -13,11 +13,21 @@
 // accumulator are f32, the normaliser is floored at 1e-30 before the
 // division, and the output is cast once to the input type (f32 or bf16).
 // q and k have one head width DQK, v and o another, DV: the compiled pairs
-// (DQK, DV) are (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128), the
-// last MLA's (DeepSeek-V3: 128 no-RoPE + 64 RoPE query/key dims, value 128;
+// (DQK, DV) are (16, 16), (32, 32), (64, 64), (128, 128), (192, 128) --
+// MLA's (DeepSeek-V3: 128 no-RoPE + 64 RoPE query/key dims, value 128;
 // replacing the two einsums of src/repro/models/attention.py: mla_apply,
-// whose sum is one dot product over the concatenated 192 dims).  QK^T runs
-// over DQK; PV, the accumulator, the merge and the store over DV.
+// whose sum is one dot product over the concatenated 192 dims) -- and, in
+// the library of attention_diffusion.cu (this file compiled with the other
+// K3_PAIRS, so the two halves build in parallel), the diffusion models'
+// (40, 40), (80, 80), (160, 160) (UNet-SD1.5: 8 heads over 320 / 640 / 1280
+// channels) and (72, 72) (DiT-XL/2: 16 heads over 1152), replacing the
+// einsums of src/repro/models/unet.py: _mha and dit.py: _block_apply.
+// QK^T runs over DQK; PV, the accumulator, the merge and the
+// store over DV.  A DQK that is a multiple of 8 but not of 16 (40, 72) has a
+// last half slice: in float32 (m16n8k8) QK^T simply takes DQK / 8 slices; in
+// bf16 (m16n8k16) the last slice's upper 8 dims are zeros in both Q's and K's
+// fragments (registers, never read from memory), so QK^T runs over the
+// padded width (48, 80) and the stored rows stay DQK wide.
 //
 // Bound on an H100 SXM.  A head does 2*T*S'*(DQK + DV) FLOPs (S' the
 // unmasked keys) and moves (T + S)*DQK + (T + S)*DV elements.  Per ViT-L/16 forward (24 blocks x heads
@@ -92,6 +102,12 @@
 #include <cstdint>
 
 #include "../sm90_ops.cuh"
+
+// The (DQK, DV) pairs this library compiles (run() below; ops.py: HEAD_DIMS
+// holds those of both libraries).  attention_diffusion.cu defines its own.
+#ifndef K3_PAIRS
+#define K3_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(192, 128)
+#endif
 
 namespace {
 
@@ -191,19 +207,20 @@ struct Warp<float, DQK, DV> {
   }
 
   // s = Q K^T for the step's KB keys (ks: the staged [KB][LDK] K step); each
-  // 16-deep slice goes to a fresh fragment, small terms first, and is added
-  // with a rounded FADD.
+  // 16-deep slice (the last one 8 deep where DQK % 16 == 8) goes to a fresh
+  // fragment, small terms first, and is added with a rounded FADD.
   __device__ __forceinline__ void scores(const float* ks, float s[NJ][4], int g, int t) const {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int k2 = 0; k2 < DQK / 16; ++k2) {
+    for (int k2 = 0; k2 < (DQK + 15) / 16; ++k2) {
       float part[NJ][4] = {};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int kc = 2 * k2 + h;
+        if (kc >= DQK / 8) continue;  // past the last 8-dim slice (compile time)
         uint32_t qh[4], ql[4], bh[NJ][2], bl[NJ][2];
 #pragma unroll
         for (int e = 0; e < 4; ++e) split_tf32(qf[kc][e], qh[e], ql[e]);
@@ -265,37 +282,41 @@ template <int DQK, int DV>
 struct Warp<__nv_bfloat16, DQK, DV> {
   using T = __nv_bfloat16;
   static constexpr int LDK = kLdK<T, DQK>, LDV = kLdV<T, DV>;
-  uint32_t qa[DQK / 16][4];  // Q's A fragments
+  static constexpr int KC = (DQK + 15) / 16;  // 16-dim slices of QK^T, the last padded where DQK % 16 == 8
+  uint32_t qa[KC][4];                          // Q's A fragments
 
+  // dims past DQK (the upper half of a padded last slice) are zeros
   __device__ __forceinline__ void load_q(const T* q0, const T* q1, int t) {
 #pragma unroll
-    for (int kc = 0; kc < DQK / 16; ++kc) {
+    for (int kc = 0; kc < KC; ++kc) {
       const int c = kc * 16 + 2 * t;
+      const bool hi = kc * 16 + 8 < DQK;  // compile time: the slice's upper 8 dims exist
       uint32_t x[4] = {0u, 0u, 0u, 0u};
       if (q0 != nullptr) {
         x[0] = pair(q0 + c, q0 + c + 1);
-        x[2] = pair(q0 + c + 8, q0 + c + 9);
+        if (hi) x[2] = pair(q0 + c + 8, q0 + c + 9);
       }
       if (q1 != nullptr) {
         x[1] = pair(q1 + c, q1 + c + 1);
-        x[3] = pair(q1 + c + 8, q1 + c + 9);
+        if (hi) x[3] = pair(q1 + c + 8, q1 + c + 9);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) qa[kc][e] = x[e];
     }
   }
 
-  // exact bf16 products, straight into s
+  // exact bf16 products, straight into s; K's dims past DQK are zeros in
+  // the fragment (the staged row holds DQK dims)
   __device__ __forceinline__ void scores(const T* ks, float s[NJ][4], int g, int t) const {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < DQK / 16; ++kc) {
+      for (int kc = 0; kc < KC; ++kc) {
         const T* kr = ks + (j * 8 + g) * LDK + kc * 16 + 2 * t;
         const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                               *reinterpret_cast<const uint32_t*>(kr + 8)};
+                               kc * 16 + 8 < DQK ? *reinterpret_cast<const uint32_t*>(kr + 8) : 0u};
         sm90::mma_bf16(s[j], qa[kc], b);
       }
     }
@@ -343,17 +364,27 @@ constexpr int smem_bytes() {
 
 // One staged row (D elements) of K or V: thread `part` of the CPY threads
 // copying the row issues its share of the 16-byte copies (zero-fill where
-// !ok) -- or, unaligned (copy_row1), of the single elements.
+// !ok) -- or, unaligned (copy_row1), of the single elements.  Where the
+// row's copies do not split evenly over its threads (D = 40 or 72: 10 / 18
+// float32 copies, 5 / 9 bf16), thread `part` takes copies part, part + CPY,
+// ..., and the last round only the copies that exist.
 template <int D, int CPY, typename T>
 __device__ __forceinline__ void copy_row16(T* dst, const T* src, int part, bool ok) {
   constexpr int VE = 16 / (int)sizeof(T), CPR = D / VE;  // 16-byte copies per row
-  constexpr int CPT = CPR >= CPY ? CPR / CPY : 1;        // ... per thread
-  static_assert(CPR < CPY || CPR % CPY == 0, "a row's copies must split evenly over its threads");
-  if (part * CPT < CPR) {
+  static_assert(D % VE == 0, "a row must be whole 16-byte copies");
+  if constexpr (CPR >= CPY && CPR % CPY == 0) {
+    constexpr int CPT = CPR / CPY;  // copies per thread
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int c = (part * CPT + i) * VE;
       sm90::cp_async16(dst + c, src + c, ok);
+    }
+  } else {
+    constexpr int ROUNDS = (CPR + CPY - 1) / CPY;
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      const int c = i * CPY + part;
+      if (c < CPR) sm90::cp_async16(dst + c * VE, src + c * VE, ok);
     }
   }
 }
@@ -375,6 +406,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           T* __restrict__ o, Params p) {
   constexpr int NT = 32 * WQ * WK;  // threads
   constexpr int BQ = 16 * WQ;       // query rows
+  static_assert(DQK % 8 == 0 && DV % 8 == 0, "head widths are whole 8-wide tensor-core tiles");
   constexpr int LDK = kLdK<T, DQK>, LDV = kLdV<T, DV>;
   constexpr int KTILE = KB * LDK;  // a stage: K [KB][LDK], then V [KB][LDV]
   T* smem = reinterpret_cast<T*>(sm90::dynamic_smem());
@@ -519,6 +551,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   __syncthreads();
   // each thread finishes EPT consecutive head dims of one row
   constexpr int TPR = NT / BQ, EPT = DV / TPR;
+  static_assert(DV % TPR == 0, "a row's head dims must split evenly over its threads");
   const int rl = tid / TPR, d0 = (tid % TPR) * EPT;
   float m_all = kNegInf;
 #pragma unroll
@@ -644,17 +677,13 @@ int run_d(const void* q, const void* k, const void* v, void* o, int bh, const Pa
   return shape;
 }
 
-// The compiled (DQK, DV) pairs, those of ops.py: HEAD_DIMS; any other is refused.
+// The compiled (DQK, DV) pairs, K3_PAIRS; any other is refused.
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int bh, int d, int dv, const Params& p,
         int shape, bool launch_it, int device, cudaStream_t stream) {
 #define K3_PAIR(DQK, DV) \
   if (d == DQK && dv == DV) return run_d<T, DQK, DV>(q, k, v, o, bh, p, shape, launch_it, device, stream);
-  K3_PAIR(16, 16)
-  K3_PAIR(32, 32)
-  K3_PAIR(64, 64)
-  K3_PAIR(128, 128)
-  K3_PAIR(192, 128)
+  K3_PAIRS(K3_PAIR)
 #undef K3_PAIR
   return -(int)cudaErrorInvalidValue;
 }
@@ -688,7 +717,7 @@ int run_any(const void* q, const void* k, const void* v, void* o, int dtype, int
 // q [B, H, T, D], k [B, Hkv, S, D], v [B, Hkv, S, DV], o [B, H, T, DV], each
 // through `strides` = its (batch, head, row) strides in elements, q's, k's,
 // v's, then o's (12 values); the head dimension is dense.  (d, dv) one of
-// the compiled pairs (run() above; any other: cudaErrorInvalidValue).
+// the library's pairs (K3_PAIRS; any other: cudaErrorInvalidValue).
 // dtype: 0 = float32, 1 = bfloat16.  H must be a multiple of Hkv; B*H at
 // most 65535.  Returns the CUDA error code of the launch (0 on success); the
 // caller checks it and raises.

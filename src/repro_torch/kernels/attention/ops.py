@@ -25,15 +25,23 @@ from .ref import attention_ref
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's block shapes, by its index: (query rows, key groups)
 BLOCK_SHAPES = ((16, 4), (32, 4), (64, 1))
-# the kernel's (query/key, value) head widths; attention.cu: run() dispatches the same
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+# the kernel's (query/key, value) head widths: attention.cu's K3_PAIRS, then
+# attention_diffusion.cu's (its own library) -- UNet-SD1.5's 8 heads over
+# 320 / 640 / 1280 channels (40, 80, 160) and DiT-XL/2's 16 heads over 1152 (72)
+DIFFUSION_HEAD_DIMS = ((40, 40), (72, 72), (80, 80), (160, 160))
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)) + DIFFUSION_HEAD_DIMS
 MAX_GRID_Y = 65535  # B*H blocks along the grid's second axis
 INT32_MAX = 2**31 - 1
 
 
+def _lib_for(d: int, dv: int) -> ctypes.CDLL:
+    """The library that compiles the width pair (d, dv)."""
+    return _lib("attention_diffusion" if (d, dv) in DIFFUSION_HEAD_DIMS else "attention")
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library("attention")
+def _lib(name: str) -> ctypes.CDLL:
+    lib = load_library(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p, i,                          # q, k, v, o, dtype
@@ -91,7 +99,7 @@ def launch_config(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
         raise ValueError("launch_config describes a launch on the card")
     b, h, t, d = q.shape
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, q) for st in x.stride()[:3]])
-    lib = _lib()
+    lib = _lib_for(d, v.shape[3])
     c = lib.flash_attention_shape(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype], b, h,
                                   k.shape[1], t, k.shape[2], d, v.shape[3], strides, int(causal),
                                   q.device.index or 0)
@@ -116,7 +124,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     dv = v.shape[3]
     o = _output(q, dv)
     strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, o) for st in x.stride()[:3]])
-    lib = _lib()
+    lib = _lib_for(d, dv)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), DTYPE_CODES[q.dtype],
         b, h, k.shape[1], t, k.shape[2], d, dv, strides, 1.0 / math.sqrt(d), int(causal),

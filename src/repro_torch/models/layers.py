@@ -1,5 +1,5 @@
 """Core layers on NHWC tensors and [B, T, D] sequences (twin of the VGG,
-vision-zoo and dense-LM subset of ``repro/models/layers.py``).
+vision-zoo, diffusion and dense-LM subset of ``repro/models/layers.py``).
 
 The conv, dense or depthwise, goes to the hand-written kernel's wrapper
 (which takes its plain version for CPU tensors); pooling, the activations,
@@ -84,15 +84,36 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(v.float()).to(v.dtype)
 
 
-def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
-    """Layer norm over the last axis in JAX's order: the mean and the
-    variance (about the unrounded mean) in float32, each rounded to x's type;
-    then ``(x - mu) * rsqrt(var + eps) * scale (+ b)``, each step in x's type."""
+def standardize(x: torch.Tensor, dim, eps: float) -> torch.Tensor:
+    """``(x - mu) * rsqrt(var + eps)`` over ``dim`` in JAX's order for
+    ``jnp.mean`` / ``jnp.var``: the mean and the variance (about the
+    unrounded mean) in float32, each rounded to x's type; then each step in
+    x's type, eps rounded to it first."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
+    mean = xf.mean(dim=dim, keepdim=True)
     mu = mean.to(x.dtype)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True).to(x.dtype)
-    y = (x - mu) * _rsqrt(var + scalar_like(eps, x)) * p["scale"]
+    var = (xf - mean).square().mean(dim=dim, keepdim=True).to(x.dtype)
+    return (x - mu) * _rsqrt(var + scalar_like(eps, x))
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm over the last axis in JAX's order (:func:`standardize`),
+    then ``* scale (+ b)`` in x's type."""
+    y = standardize(x, -1, eps) * p["scale"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def groupnorm(x: torch.Tensor, p: Params, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """NHWC group norm (the U-Net's): ``g = min(groups, C)``, lowered until it
+    divides C; each group's (H, W, C / g) values standardized in JAX's order
+    (:func:`standardize`), then ``* scale (+ b)`` per channel in x's type."""
+    b, h, w, c = x.shape
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    y = standardize(x.reshape(b, h, w, g, c // g), (1, 2, 4), eps).reshape(b, h, w, c) * p["scale"]
     if "b" in p:
         y = y + p["b"]
     return y

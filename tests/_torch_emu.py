@@ -1,7 +1,8 @@
 """Compile one of the port's CUDA sources for the CPU, through the emulation
 in ``tests/cuda_emu/cuda_shim.h``, and load it with ``ctypes``.
 
-The source's local headers (``#include "....cuh"``) are inlined, the CUDA
+The source's local headers (``#include "....cuh"``) and the sources it
+includes (``attention_diffusion.cu`` includes ``attention.cu``) are inlined, the CUDA
 headers dropped, and every launch ``kernel<...><<<grid, block, smem,
 stream>>>(args)`` rewritten to ``_emu_launch(grid, block, smem, stream,
 kernel<...>, args)``; ``g++`` then builds a shared library with the same C
@@ -24,7 +25,7 @@ LAUNCH = re.compile(r"(\w+<[\w, ]+>)<<<(.*?)>>>\(")
 def _inline(path: Path, seen: set) -> str:
     out = []
     for line in path.read_text().splitlines():
-        m = re.match(r'#include "(.+\.cuh)"', line)
+        m = re.match(r'#include "(.+\.cuh?)"', line)
         if m:
             hdr = (path.parent / m.group(1)).resolve()
             if hdr not in seen:

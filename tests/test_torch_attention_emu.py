@@ -17,6 +17,7 @@ go through, is checked on its own.  Tolerances as in tests/test_torch_attention.
 """
 import ctypes
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -24,21 +25,48 @@ import torch
 
 from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.attention import attention_ref
-from repro_torch.kernels.attention.ops import HEAD_DIMS
+from repro_torch.kernels.attention.ops import DIFFUSION_HEAD_DIMS, HEAD_DIMS
 
 SOURCE = KERNELS / "attention" / "attention.cu"
+DIFFUSION_SOURCE = KERNELS / "attention" / "attention_diffusion.cu"
+
+
+class _Libraries:
+    """The two libraries of K3 (attention.cu, and attention_diffusion.cu: the
+    same source with the diffusion models' width pairs) behind the one C
+    interface, each call sent to the library that compiles its (d, dv) --
+    as ``ops._lib_for`` sends the wrapper's; a pair of neither goes to
+    attention.cu's, which refuses it."""
+
+    def __init__(self, main, diffusion):
+        self.main, self.diffusion = main, diffusion
+
+    def _of(self, d, dv):
+        return self.diffusion if (d, dv) in DIFFUSION_HEAD_DIMS else self.main
+
+    def flash_attention_fwd(self, *args):
+        return self._of(*args[10:12]).flash_attention_fwd(*args)
+
+    def flash_attention_fwd_shape(self, *args):
+        return self._of(*args[10:12]).flash_attention_fwd_shape(*args)
+
+    def flash_attention_shape(self, *args):
+        return self._of(*args[9:11]).flash_attention_shape(*args)
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    lib = build_emulated(SOURCE, tmp_path_factory.mktemp("emu"), launches=1)
+    out = tmp_path_factory.mktemp("emu")
+    with ThreadPoolExecutor(2) as pool:  # the two g++ builds side by side
+        libs = list(pool.map(lambda src: build_emulated(src, out, launches=1), (SOURCE, DIFFUSION_SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
     args = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, p]
-    lib.flash_attention_fwd.argtypes = args
-    lib.flash_attention_fwd_shape.argtypes = args + [i]
-    lib.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                                          i, i]
-    return lib
+    for one in libs:
+        one.flash_attention_fwd.argtypes = args
+        one.flash_attention_fwd_shape.argtypes = args + [i]
+        one.flash_attention_shape.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                                              i, i]
+    return _Libraries(*libs)
 
 
 def _args(q, k, v, o):
@@ -345,3 +373,79 @@ def test_emulated_vit_l16_attention(lib, dt):
     want = attention_ref(q, k, v, causal=False)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# -- the diffusion models' widths: attention_diffusion.cu's library ----------
+
+_SHAPES = [None, 0, 1, 2]
+_SHAPE_IDS = ["auto", "16x4", "32x4", "64x1"]
+_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _held(got, want, dt):
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", _DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("pair", DIFFUSION_HEAD_DIMS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_emulated_diffusion_pairs_in_both_types(lib, pair, dt):
+    """Each diffusion width pair in float32 and bfloat16 over one ragged
+    query tile, causal: at 40 and 72 a dim dropped past the last whole
+    16-dim slice, or a stale padded one, would show here."""
+    d, dv = pair
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, w), dtype=np.float32)).to(dt) for n, w in
+               ((20, d), (24, d), (24, dv)))
+    _held(_emulated(lib, q, k, v, causal=True), attention_ref(q, k, v, causal=True), dt)
+
+
+@pytest.mark.parametrize("shape", _SHAPES, ids=_SHAPE_IDS)
+@pytest.mark.parametrize("dt", _DTYPES, ids=["float32", "bfloat16"])
+def test_emulated_unet_cross_attention(lib, dt, shape):
+    """UNet-SD1.5's cross-attention at its first level (``models/unet.py:
+    _mha``): 8 heads of D = 40 over T = 64 latent positions and the text
+    context's S = 77 keys, not causal, q [B, T, H, D] and k / v [B, S, H, D]
+    in the model layout; the launcher's pick and each block shape forced."""
+    b, h, t, s, d = 1, 8, 64, 77, 40
+    rng = np.random.default_rng(77)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32)).to(dt).transpose(1, 2)
+               for n in (t, s, s))
+    _held(_emulated(lib, q, k, v, causal=False, shape=shape), attention_ref(q, k, v, causal=False), dt)
+
+
+@pytest.mark.parametrize("shape", _SHAPES, ids=_SHAPE_IDS)
+@pytest.mark.parametrize("dt", _DTYPES, ids=["float32", "bfloat16"])
+def test_emulated_dit_self_attention(lib, dt, shape):
+    """DiT-XL/2's attention (``models/dit.py: _block_apply``): D = 72, q, k
+    and v the slices of one [B, T, 3, H, D] projection, ragged T = S = 40,
+    not causal; the launcher's pick and each block shape forced."""
+    b, h, t, d = 1, 4, 40, 72
+    rng = np.random.default_rng(72)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3, h, d), dtype=np.float32)).to(dt)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    _held(_emulated(lib, q, k, v, causal=False, shape=shape), attention_ref(q, k, v, causal=False), dt)
+
+
+@pytest.mark.parametrize("shape", _SHAPES, ids=_SHAPE_IDS)
+@pytest.mark.parametrize("dt", _DTYPES, ids=["float32", "bfloat16"])
+def test_emulated_unaligned_kv_at_d40(lib, dt, shape):
+    """D = 40 with K and V one element into wider buffers: the element
+    copies' instantiation (10 of a row's elements per thread at most), and
+    the 16-byte copies' remainder path is bypassed; causal T = 30, S = 45."""
+    rng = np.random.default_rng(41)
+    q = torch.from_numpy(rng.standard_normal((1, 30, 2, 40), dtype=np.float32)).to(dt)
+    k, v = (torch.from_numpy(rng.standard_normal((1, 45, 2, 41), dtype=np.float32)).to(dt)[..., 1:]
+            for _ in range(2))
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    assert k.data_ptr() % 16 and (k.stride(2) * k.element_size()) % 16
+    _held(_emulated(lib, q, k, v, causal=True, shape=shape), attention_ref(q, k, v, causal=True), dt)
+
+
+def test_emulated_libraries_refuse_each_others_pairs(lib):
+    """Each library compiles only its own pairs: attention.cu's refuses 40
+    and attention_diffusion.cu's 64 (cudaErrorInvalidValue, 1)."""
+    for one, d in ((lib.main, 40), (lib.diffusion, 64), (lib.diffusion, 8)):
+        q = torch.zeros((1, 2, 8, d))
+        args = _args(q, q, q, torch.zeros_like(q))
+        assert one.flash_attention_fwd(*args, 1.0, 1, 0, None) == 1

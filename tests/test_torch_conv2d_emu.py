@@ -142,6 +142,12 @@ VISION_CASES = [
 @pytest.mark.parametrize("case", VISION_CASES, ids=lambda c: "x".join(map(str, c[:9])) + f"-{str(c[9])[6:]}"
                          + ("-bias" if c[10] else ""))
 def test_emulated_vision_shapes_match_plain(lib, case):
+    _held_against_plain(lib, case)
+
+
+def _held_against_plain(lib, case):
+    """One (N, H, W, Cin, Cout, k, stride, pad, groups, dtype, bias) case
+    through the emulated kernel against the plain version."""
     n, h, wd, cin, cout, k, s, pad, g, dt, has_bias = case
     rng = np.random.default_rng(sum(case[:9]))
     x = torch.from_numpy(rng.standard_normal((n, h, wd, cin), dtype=np.float32)).to(dt)
@@ -151,3 +157,26 @@ def test_emulated_vision_shapes_match_plain(lib, case):
     want = conv2d_ref(x, w, b, stride=s, padding=pad, groups=g)
     tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The diffusion models' geometries (UNet-SD1.5, DiT-XL/2), H/W reduced as
+# VISION_CASES': conv_in's Cin = 4, a 3x3 stride-2 downsample, an up block's
+# 3x3 from Cin = 2560 (its two skips concatenated: K = 23,040; Cout cut from
+# 1280 to 32, as the emulation runs 1280 in minutes), conv_out's Cout = 4,
+# and DiT's k = s = 2 patch embedding from Cin = 4 to 1152.
+DIFFUSION_CASES = [
+    case
+    for dt in (torch.float32, torch.bfloat16)
+    for case in (
+        (1, 10, 9, 4, 32, 3, 1, 1, 1, dt, True),
+        (1, 10, 9, 32, 32, 3, 2, 1, 1, dt, True),
+        (1, 2, 2, 2560, 32, 3, 1, 1, 1, dt, True),
+        (1, 10, 9, 32, 4, 3, 1, 1, 1, dt, True),
+        (2, 8, 8, 4, 1152, 2, 2, 0, 1, dt, True),
+    )
+]
+
+
+@pytest.mark.parametrize("case", DIFFUSION_CASES, ids=lambda c: "x".join(map(str, c[:9])) + f"-{str(c[9])[6:]}")
+def test_emulated_diffusion_shapes_match_plain(lib, case):
+    _held_against_plain(lib, case)

@@ -639,3 +639,48 @@ def test_conv2d_float32_sum_is_not_biased_toward_zero_on_card(card):
     bias = ((d * want.sign()).sum() / want.abs().sum()).item()
     assert abs(bias) < 1e-7, bias
     torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+
+
+def _forced_shape(q, k, v, causal, shape):
+    """K3 through ``flash_attention_fwd_shape`` (the C interface's call with
+    the block shape given: 0 = 16x4, 1 = 32x4, 2 = 64x1), as the wrapper
+    launches it."""
+    import ctypes
+    import math
+
+    from repro_torch.kernels.attention import ops
+
+    lib = ops._lib_for(q.shape[3], v.shape[3])
+    fn = lib.flash_attention_fwd_shape
+    fn.argtypes, fn.restype = list(lib.flash_attention_fwd.argtypes) + [ctypes.c_int], ctypes.c_int
+    b, h, t, d = q.shape
+    o = q.new_empty((b, h, t, v.shape[3]))
+    strides = (ctypes.c_longlong * 12)(*[st for x in (q, k, v, o) for st in x.stride()[:3]])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ops.DTYPE_CODES[q.dtype], b, h, k.shape[1],
+             t, k.shape[2], d, v.shape[3], strides, 1.0 / math.sqrt(d), int(causal), q.device.index or 0,
+             torch.cuda.current_stream(q.device).cuda_stream, shape)
+    assert err == 0, lib.kernel_error_string(err)
+    return o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [40, 72, 80, 160])
+def test_flash_attention_diffusion_widths_match_plain_on_card(card, dtype, d):
+    """K3 at the diffusion models' head widths (UNet-SD1.5: 40 / 80 / 160,
+    DiT-XL/2: 72; 40 and 72 run QK^T over a padded last slice in bf16)
+    against the plain version: the model layout's strides, T != S both ways
+    (a cross-attention's 77 keys among them), causal and not, the launcher's
+    pick and each block shape forced."""
+    for seed, (b, h, t, s) in enumerate(((2, 8, 100, 77), (1, 4, 130, 260), (2, 4, 260, 33))):
+        rng = np.random.default_rng(seed + d)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d), dtype=np.float32)).to(card, dtype)
+                   .transpose(1, 2) for n in (t, s, s))
+        for causal in (False, True):
+            want = attention_ref(q, k, v, causal=causal).float()
+            before = flash_attention.launches
+            got = [flash_attention(q, k, v, causal=causal)]
+            assert flash_attention.launches == before + 1
+            got += [_forced_shape(q, k, v, causal, shape) for shape in range(3)]
+            for g in got:
+                torch.testing.assert_close(g.float(), want, rtol=TOL[dtype], atol=TOL[dtype])

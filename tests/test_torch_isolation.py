@@ -65,7 +65,8 @@ print(json.dumps({"imported": names, "bad": bad}))
     for name in ("core.events", "core.simulator", "core.schedule", "core.optimizer", "analysis.dag_check",
                  "core.replan", "core.planstore", "core.placement", "analysis.keying_lint",
                  "models.vit", "models.swin", "models.convnext", "models.efficientnet", "configs.vit_l16",
-                 "configs.swin_b", "configs.convnext_b", "configs.efficientnet_b7", "configs.vgg16"):
+                 "configs.swin_b", "configs.convnext_b", "configs.efficientnet_b7", "configs.vgg16",
+                 "models.unet", "models.dit", "configs.unet_sd15", "configs.dit_xl2", "parallel.variants"):
         assert f"repro_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -139,3 +140,41 @@ def test_serving_every_vision_arch_loads_nothing_of_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert sorted(out["served"]) == ["convnext-b", "efficientnet-b7", "swin-b", "vgg16", "vit-l16"]
     assert out["served"]["vit-l16"] == [2, 10] and out["bad"] == []
+
+
+SAMPLE_DIFFUSION = """
+import json, sys
+import torch
+from repro_torch.configs import get
+from repro_torch.configs.steps import build
+from repro_torch.models.common import tree_map
+
+done = {}
+for name in ("unet-sd15", "dit-xl2"):
+    arch = get(name)
+    for cell in ("gen_fast", "gen_1024"):
+        b = build(arch, cell, smoke=True)
+        gen = torch.Generator().manual_seed(0)
+        params = arch.module.init(gen, arch.smoke_cfg)
+        lat = torch.randn(b.inputs["latents"][0], generator=gen)
+        shape, dt = b.inputs["cond"]
+        cond = torch.zeros(shape, dtype=dt) if dt == torch.int32 else torch.randn(shape, generator=gen)
+        out = b.fn(params, lat, cond)
+        done[f"{name}/{cell}"] = [list(out.shape), bool(torch.isfinite(out).all())]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"sampled": done, "bad": bad}))
+"""
+
+
+def test_sampling_every_diffusion_arch_loads_nothing_of_jax():
+    """Both gen bundles of both diffusion archs (``configs.steps.build`` at
+    the smoke configs, on the CPU) sampled in a port-only process: no
+    ``jax`` and no ``repro`` module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", SAMPLE_DIFFUSION], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["sampled"] == {f"{a}/{c}": [[2, 8, 8, 4], True] for a in ("unet-sd15", "dit-xl2")
+                              for c in ("gen_fast", "gen_1024")}
+    assert out["bad"] == []
