@@ -212,7 +212,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    depthwise) and K3 held against their plain versions at every call
    signature those forwards made, the batch-4 float32 ones timed beside
    ``F.conv2d`` / SDPA (never on the path), device us from profiler
-   windows and the bound; (6) steady float32 and bfloat16 forwards at batch
+   windows and the bound, each depthwise signature's copy variant and
+   tile recorded (``launch_config``) and required to take 16-byte channel
+   vectors; (6) steady float32 and bfloat16 forwards at batch
    4 timed and profiled (device ms by family: K1, K1 depthwise, K3, GEMM,
    other) and the peak device memory.
 14. generates with the diffusion family at full width (``phase_diffusion``):
@@ -346,33 +348,56 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of ``fn`` in us per call: the traced kernels' time in a
-    ``torch.profiler`` window over ``reps`` back-to-back calls, per call; nan
-    if the profiler traced no device time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def device_window(torch, fn, reps: int = 20, warmup: int = 3, tries: int = 3) -> tuple[float, dict]:
+    """Device time of ``fn`` in us per call, and the kernels it launches as
+    ``{name: [launches a call, us a call]}``, from ``torch.profiler``
+    windows over ``reps`` back-to-back calls.  Each window is the active
+    step of a schedule whose warmup step (``warmup`` calls, discarded) has
+    the device trace running before it opens.  The first whole window (every
+    kernel's count a multiple of ``reps``) gives the time.  A window may
+    still lose launches (a kernel at 6-9 of 10, the same in every window of
+    a call), so after ``tries`` windows that all lost some, each kernel's
+    time a launch is the mean over the launches the windows kept, times its
+    launches a call: the most any window counted over ``reps``, rounded, and
+    at least 1, since every call of ``fn`` launches the same kernels.  (One
+    count of all kernels over ``reps`` read a call of 2 or 3 kernels at 1/2
+    or 2/3.)  nan if no window traced device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
-    total, count = sum(a.self_device_time_total for a in rows), sum(a.count for a in rows)
-    # a window may drop events: the mean kernel's time x the kernels a call launches
-    return total / count * max(1, round(count / reps)) if total > 0 else float("nan")
+    seen = {}  # kernel: [most launches a window counted, launches kept, us kept]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts,
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for calls in (warmup, reps):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [a for a in prof.key_averages()  # the schedule's step row spans the window: not a kernel
+                if a.device_type == torch.autograd.DeviceType.CUDA and not a.key.startswith("ProfilerStep")]
+        total = sum(a.self_device_time_total for a in rows)
+        if total > 0 and all(a.count % reps == 0 for a in rows) and seen.keys() <= {a.key for a in rows}:
+            return total / reps, {a.key: [a.count / reps, a.self_device_time_total / reps] for a in rows}
+        for a in rows:
+            most, kept, us = seen.get(a.key, (0, 0, 0.0))
+            seen[a.key] = [max(most, a.count), kept + a.count, us + a.self_device_time_total]
+    kernels = {key: [max(1, round(most / reps)), us / kept * max(1, round(most / reps))]
+               for key, (most, kept, us) in seen.items()}
+    total = sum(us for _, us in kernels.values())
+    return (total if total > 0 else float("nan")), kernels
+
+
+def device_us(torch, fn, reps: int = 20, warmup: int = 3, tries: int = 3) -> float:
+    """``device_window``'s time alone: us per call, or nan."""
+    return device_window(torch, fn, reps=reps, warmup=warmup, tries=tries)[0]
 
 
 def device_or_event_us(torch, fn, reps: int = 20) -> tuple[float, str]:
-    """``device_us`` of ``fn``; a profiler window may trace nothing (nan), so
-    it is taken up to three times, then the CUDA-event mean stands in
-    (host-bound where the wrapper outlasts the kernel): (us, "profiler" or
-    "events")."""
-    for _ in range(3):
-        us = device_us(torch, fn, reps=reps)
-        if math.isfinite(us):
-            return us, "profiler"
+    """``device_us`` of ``fn``; where its windows measured nothing (nan),
+    the CUDA-event mean stands in (host-bound where the wrapper outlasts the
+    kernel): (us, "profiler" or "events")."""
+    us = device_us(torch, fn, reps=reps)
+    if math.isfinite(us):
+        return us, "profiler"
     return time_ms(torch, fn, reps=reps) * 1e3, "events"
 
 
@@ -538,6 +563,17 @@ def bound_ms(flops: float, nbytes: float, dtype: str, ffma: bool = False) -> tup
     return flops / rate * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
+def conv_how(config: dict) -> str:
+    """A K1 / K2 ``launch_config`` in a word: the dense core's gather variant,
+    or the depthwise branch's copies, tile (rows x columns x outputs a
+    thread), slab, threads and shared memory."""
+    dw = config.get("depthwise")
+    if not dw:
+        return config["gather"]
+    return (f"depthwise {dw['copies']} tile {'x'.join(map(str, dw['tile']))} slab {dw['slab']} "
+            f"{dw['threads']} threads {dw['smem']} B")
+
+
 # The port's kernels in a profile, by a substring of the device kernel's name
 # (the split-K reduction is one kernel for K1 and K2 alike), cuBLAS's
 # matrix products (the LM's dense layers and the experts' batched products;
@@ -654,7 +690,7 @@ def hold_halo_conv(torch, F, gen, case: dict) -> dict:
         print(f"halo {dname:8s} {case.get('layer', '-')} {case['layout'] or 'extra'} "
               f"x{[n, hs, w, cin]} -> {cout} k{k} s{s} p{p} g{groups} lo{lo} hi{hi}"
               f"{' bottom-absent' if absent else ''} x{case['per_forward']}/fwd "
-              f"S={config['splits']} {config['gather']}: max_err {err:.3g} "
+              f"S={config['splits']} {conv_how(config)}: max_err {err:.3g} "
               f"kernel {t_kernel:.4f} ms ({flops / t_kernel / 1e9:.1f} TFLOP/s) plain {t_plain:.4f} ms "
               f"F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; FFMA {t_ffma:.4f})")
         out[dname] = dict(shape=[n, hs, w, cin, cout], k=k, stride=s, pad=p, groups=groups, lo=lo,
@@ -2857,9 +2893,14 @@ def phase_vision(torch) -> tuple[dict, dict, list, list]:
                 bq, hq, tq, dq = shape
                 attn_rows.append(dict(hold_vit_attention(torch, F, gen, bq, hq, tq, dq, dname, timed),
                                       arch=name, path=path, per_forward=per_forward))
+        # every depthwise signature (bf16 and the serve cells' too) takes 16-byte channel vectors
+        dw_rows = [r for r in conv_rows if r["arch"] == name and r["groups"] > 1]
+        check(all(r["depthwise"]["copies"] == "16-byte" for r in dw_rows),
+              f"{name}: a depthwise conv takes narrower copies: "
+              f"{[(r['shape'], r['dtype'], r['depthwise']) for r in dw_rows if r['depthwise']['copies'] != '16-byte']}")
         for r in (r for r in conv_rows if r["arch"] == name and r["path"] == "b4-float32"):
             print(f"  conv {r['shape']} k{r['k']} s{r['stride']} p{r['pad']} g{r['groups']}"
-                  f"{' bias' if r['bias'] else ''} x{r['per_forward']}/fwd S={r['splits']} {r['gather']}: "
+                  f"{' bias' if r['bias'] else ''} x{r['per_forward']}/fwd S={r['splits']} {conv_how(r)}: "
                   f"max_err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms ({r['device_us']:.2f} us, "
                   f"{r['device_source']}) plain {r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} "
                   f"({r['library_device_us']:.2f} us, {r['library_device_source']}) bound {r['bound_ms']:.4f} "
@@ -3384,7 +3425,7 @@ def main() -> int:
             print(f"conv {dname:8s} {case.get('path') or 'extra'} {case.get('layer') or ''} "
                   f"x{[n, h, w, cin]} -> {cout} k{k} s{s} p{p} g{groups}"
                   f"{' view' if case['view'] else ''} x{case['per_forward']}/fwd "
-                  f"S={config['splits']} {config['gather']}: "
+                  f"S={config['splits']} {conv_how(config)}: "
                   f"max_err {err:.3g} kernel {t_kernel:.4f} ms ({row['tflops']:.1f} TFLOP/s) "
                   f"plain {t_plain:.4f} ms F.conv2d {t_lib:.4f} ms bound {t_bound:.4f} ms ({by}; "
                   f"FFMA {t_ffma:.4f})")

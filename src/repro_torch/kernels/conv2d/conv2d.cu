@@ -76,6 +76,21 @@ extern "C" int conv2d_gather(const void* x, const void* w, int dtype, int cin, l
       source<__nv_bfloat16>(x, sn, sh, sw, 0, 0, 0, cin), w, cout);
 }
 
+// The depthwise branch's launch shape for these operands (C = cin = cout, the
+// output allocated by the wrapper), into out[7]: bytes per staging copy (16;
+// 4, f32 cp.async; 2, bf16 element copies), output tile rows, columns,
+// outputs a thread along W, channels a slab, threads, shared memory bytes.
+extern "C" void conv2d_dw_config(const void* x, const void* w, int dtype, int c, long long sn,
+                                long long sh, long long sw, int k, int stride, int ho, int wo,
+                                int* out) {
+  const conv_igemm::DwTile d =
+      dtype == 0 ? conv_igemm::dw_config<float>(source<float>(x, sn, sh, sw, 0, 0, 0, c), w, nullptr,
+                                                c, k, stride, ho, wo)
+                 : conv_igemm::dw_config<__nv_bfloat16>(
+                       source<__nv_bfloat16>(x, sn, sh, sw, 0, 0, 0, c), w, nullptr, c, k, stride, ho, wo);
+  conv_igemm::dw_describe(d, dtype == 0 ? 4 : 8, out);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null.  ws: splits * M *
 // cout floats (null when splits == 1), splits from conv_splits.  Returns the
 // CUDA error code of the launch (0 on success); the caller checks it and raises.

@@ -38,6 +38,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv2d_fwd.restype = ctypes.c_int
     lib.conv2d_gather.argtypes = [p, p, i, i, i64, i64, i64, i]  # x, w, dtype, cin, strides, cout
     lib.conv2d_gather.restype = ctypes.c_int
+    lib.conv2d_dw_config.argtypes = [p, p, i, i, i64, i64, i64, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.conv2d_dw_config.restype = None
     bind_splits(lib)
     return lib
 
@@ -76,6 +78,19 @@ def workspace(lib, x: torch.Tensor, m: int, cout: int, k: int, cin: int, groups:
 
 
 GATHER_NAMES = {0: "a4/b4", 1: "a16/b4", 2: "a4/b16", 3: "a16/b16"}
+# the depthwise branch's staging copies, by bytes a copy
+DW_COPIES = {16: "16-byte", 4: "4-byte", 2: "element"}
+
+
+def depthwise_config(fn, *args) -> dict:
+    """The depthwise launch shape that a C interface's ``*_dw_config``
+    (``fn``, called with ``args`` and an out array) reports: the staging
+    copies, the output tile (rows, columns, outputs a thread along W), the
+    channels of a slab, threads and shared memory bytes of a block."""
+    out = (ctypes.c_int * 7)()
+    fn(*args, out)
+    copy, th, tw, r, cb, threads, smem = out
+    return dict(copies=DW_COPIES[copy], tile=[th, tw, r], slab=cb, threads=threads, smem=smem)
 
 
 def check_operands(fn: str, x, weights, bias, groups) -> tuple[int, int]:
@@ -180,17 +195,27 @@ def launch(lib, x, weights, bias, y, stride, padding, groups, stream) -> None:
 
 def launch_config(x: torch.Tensor, weights: torch.Tensor, *, stride: int = 1, padding: int = 1,
                   groups: int = 1) -> dict:
-    """How the kernel would run this conv on the card: the split count of K
-    and the gather variant ("a16/b16": input and weights copied as 16-byte
-    vectors; "a4": the input element by element).  Launches nothing."""
+    """How the kernel would run this conv on the card: the split count of K,
+    the gather variant ("a16/b16": input and weights copied as 16-byte
+    vectors; "a4": the input element by element; "depthwise") and, for a
+    depthwise conv, its launch shape (:func:`depthwise_config`; else None).
+    Launches nothing."""
+    return configure(_lib(), x, weights, stride=stride, padding=padding, groups=groups)
+
+
+def configure(lib, x, weights, *, stride: int = 1, padding: int = 1, groups: int = 1) -> dict:
+    """:func:`launch_config` through the kernel library ``lib``."""
     ho, wo = _check_args(x, weights, None, stride, padding, groups)
     n, cin = x.shape[0], x.shape[3]
     k, cout = weights.shape[0], weights.shape[-1]
-    lib = _lib()
     splits = split_count(lib, x, n * ho * wo, cout, k, cin, groups)
-    gather = lib.conv2d_gather(x.data_ptr(), weights.data_ptr(), DTYPE_CODES[x.dtype], cin,
-                               x.stride(0), x.stride(1), x.stride(2), cout)
-    return dict(splits=splits, gather="depthwise" if groups > 1 else GATHER_NAMES[gather])
+    strides = x.stride(0), x.stride(1), x.stride(2)
+    if groups > 1:
+        dw = depthwise_config(lib.conv2d_dw_config, x.data_ptr(), weights.data_ptr(), DTYPE_CODES[x.dtype],
+                              cin, *strides, k, stride, ho, wo)
+        return dict(splits=splits, gather="depthwise", depthwise=dw)
+    gather = lib.conv2d_gather(x.data_ptr(), weights.data_ptr(), DTYPE_CODES[x.dtype], cin, *strides, cout)
+    return dict(splits=splits, gather=GATHER_NAMES[gather], depthwise=None)
 
 
 # Kernel launches so far in this process (CPU calls do not count), and of

@@ -24,14 +24,18 @@
 //   reference (JAX models/layers.py: conv2d and the Pallas kernels' wrappers
 //   round the conv output, then add the bias).
 //
-// Bound on an H100 SXM: every VGG-16 and ViT-L/16 layer does 2*k*k*Cin FLOPs
-// per output element against a few bytes moved per element (hundreds of
-// FLOP/byte), so it is bounded by operations: in float32 by the 3xTF32 rate,
-// a third of the TF32 tensor-core peak (495 / 3 = 165 TFLOP/s; 67 TFLOP/s on
-// the CUDA cores' FMAs), in bf16 by 989 TFLOP/s; the HBM bytes at 3.35 TB/s
-// are 10-100x below that.
+// Bound on an H100 SXM: every dense VGG-16 and ViT-L/16 layer does 2*k*k*Cin
+// FLOPs per output element against a few bytes moved per element (hundreds
+// of FLOP/byte), so it is bounded by operations: in float32 by the 3xTF32
+// rate, a third of the TF32 tensor-core peak (495 / 3 = 165 TFLOP/s; 67
+// TFLOP/s on the CUDA cores' FMAs), in bf16 by 989 TFLOP/s; the HBM bytes at
+// 3.35 TB/s are 10-100x below that.  The depthwise branch (groups == Cin ==
+// Cout) does 2*k*k FLOPs per output against about two elements moved (an
+// input read, an output written: 2-25 FLOP/byte in float32), so it is bounded
+// by bytes at 3.35 TB/s.
 //
-// Design.  M = N*Ho*Wo output pixels, N = Cout, K = k*k*Cin in HWIO order, so
+// Design of the implicit GEMM (dense convs).  M = N*Ho*Wo output pixels,
+// N = Cout, K = k*k*Cin in HWIO order, so
 // the weights are the row-major [K, Cout] B matrix as they lie.  A 256-thread
 // block owns a 128-pixel x 64-channel output tile; its eight warps each own
 // 32 x 32 of it.
@@ -67,11 +71,52 @@
 //    S = 1 the main kernel runs the epilogue itself.
 // wgmma and TMA are not used: 3xTF32 splits both operands in registers, which
 // wgmma (B read from shared memory as it lies) does not allow.
+//
+// Design of the depthwise branch (dwconv2d; w [k,k,1,C]).  It is bound by
+// bytes, so the design reads each input element from HBM about once and
+// keeps 16-byte loads in flight:
+//  * Block tile.  A block owns one image, TH x TW output pixels and a slab
+//    of CB channels: one 128-byte line per pixel (32 f32 / 64 bf16; fewer
+//    when C is smaller, 16 bytes per channel vector).  The grid is direct
+//    (one block per tile and slab); its index math is 32-bit, once per block.
+//  * Staging.  The block resolves each of its ((TH-1)*s+k) input rows once
+//    through the source (Src::row, into a row table in shared memory), then
+//    copies the ((TH-1)*s+k) x ((TW-1)*s+k) x CB input tile and the k*k x CB
+//    weights of the slab into shared memory with cp.async.  Padding, an
+//    absent halo and the ragged row / column / channel edges are copies of
+//    src-size 0, which zero-fill.  16-byte copies need every row base and
+//    stride 16-byte aligned and C a multiple of 16 bytes; otherwise the
+//    launcher picks 4-byte cp.async (f32) or element copies (bf16) before
+//    the launch, with the same tile and the same sum.
+//  * Threads.  Each thread owns one 16-byte channel vector (4 f32 / 8 bf16
+//    channels) x R = 4 consecutive outputs along W, with R x vector f32
+//    accumulators in registers.  For each tap row it holds the row's k
+//    weight vectors and streams the (R-1)*s+k input vectors of its window
+//    from shared memory once, each feeding the outputs whose taps it is.
+//  * The sum is the reference's: from 0.f, ky outer, kx inner, one
+//    fmaf(x, w, acc) per tap in f32 (taps outside the input read the
+//    staged zeros), then finish<T>.  Only where the data lives and which
+//    thread computes which output differ from a per-element loop, so the
+//    output does not depend on the tile, and in bf16 (exact products) it is
+//    bit-equal to the plain version conv2d_ref.
+//  * Parameters.  (TH, TW) is a pure function of the shape (k, s, C, dtype,
+//    Ho, Wo) (dw_tile), so a shape always launches the same way: the tile
+//    of at most 256 threads and kDwSmemCap bytes that costs the least over
+//    the map, counting the staged pixels (halo and ragged tiles) and the
+//    shared-memory reads of the outputs computed.  Measured on the card and
+//    kept out: 8 outputs a thread for k 3 / 5, a register cap of 3 or 4
+//    blocks an SM, and persistent blocks staging the next tile into a second
+//    buffer while computing one (each slower in float32 on EfficientNet-B7's
+//    calls: PERF.md §6).
+//    The window lives in registers for the (k, s) the vision models use
+//    (3 / 5 at stride 1 / 2, 7 at stride 1); any other (k, s) reads each tap
+//    from shared memory (K = S = 0).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "sm90_ops.cuh"
@@ -417,34 +462,234 @@ splitk_reduce(const float* __restrict__ ws, const T* __restrict__ bias, T* __res
   }
 }
 
-// Depthwise branch (w [k,k,1,C], cin == cout): one thread per output element,
-// neighbouring threads on neighbouring channels (coalesced NHWC reads),
-// grid-stride over the output; f32 FMAs.  ConvNeXt's 7x7 and EfficientNet's
-// 3x3 / 5x5 depthwise convs (models/convnext.py, models/efficientnet.py).
-template <typename T, typename Src>
-__global__ void __launch_bounds__(kThreads)
-dwconv2d(Src src, const T* __restrict__ wt, const T* __restrict__ bias,
-         T* __restrict__ y, Shape a) {
-  const long long total = (long long)a.n * a.ho * a.wo * a.cout;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % a.cout);
-    long long t = idx / a.cout;
-    const int ow = (int)(t % a.wo);
-    t /= a.wo;
-    const int oh = (int)(t % a.ho);
-    const typename Src::Px px = src.pixel(t / a.ho);
-    float acc = 0.f;
-    for (int ky = 0; ky < a.k; ++ky) {
-      const Row<T> row = src.row(px, oh * a.stride + ky);
-      for (int kx = 0; kx < a.k; ++kx) {
-        const int iw = ow * a.stride + kx - src.pad;
-        float v = 0.f;
-        if (row.p != nullptr && iw >= 0 && iw < src.w) v = to_f32(row.p[iw * row.sw + c]);
-        acc = fmaf(v, to_f32(wt[(long long)(ky * a.k + kx) * a.cout + c]), acc);
+// ---- The depthwise branch (header: "Design of the depthwise branch") -------
+// ConvNeXt's 7x7 and EfficientNet's 3x3 / 5x5 depthwise convs
+// (models/convnext.py, models/efficientnet.py).
+
+constexpr int kDwR = 4;                 // outputs of a thread along W
+constexpr int kDwMaxThreads = 256;      // 8 channel vectors x 32 output groups, at most
+constexpr int kDwMaxGw = 5;             // thread groups along a tile row, at most
+constexpr int kDwMaxTh = 16;            // output rows of a tile, at most
+constexpr int kDwSmemCap = 100 * 1024;  // shared memory of a block, at most (unless one row needs more)
+
+// How a depthwise conv launches (dw_tile): a pure function of the shape
+// (k, s, C, dtype, Ho, Wo) and the copy width.
+struct DwTile {
+  int th, tw;     // output rows x columns of a block
+  int cv;         // 16-byte channel vectors per pixel of a slab (CB = cv * VEC)
+  int ih, iw;     // staged input rows x columns: (th-1)*s+k x (tw-1)*s+k
+  int threads;    // cv * th * tw / kDwR
+  int smem;       // bytes: the input tile, the weights, the row table
+  int copy;       // bytes per staging copy: 16, or sizeof(T) (4-byte cp.async / element)
+};
+
+// The tile of a Ho x Wo output: gw thread groups of R = kDwR outputs along
+// W (gw <= kDwMaxGw) by TH rows (<= kDwMaxTh and the block's threads), the
+// pair with the least cost over the whole map -- twice the staged input
+// pixels (the L2 -> shared copies, halo and ragged tiles included) plus the
+// outputs computed (ragged ones too) times the shared-memory reads each
+// takes, ((R-1)*s + 2k) * k / R, all per channel vector -- among those
+// within kDwSmemCap bytes; on a tie, the more threads.
+template <typename T>
+DwTile dw_tile(int k, int s, int c, int ho, int wo, bool vec16) {
+  constexpr int VEC = Tile<T>::VEC, R = kDwR;
+  DwTile d{};
+  const int vecs = (c + VEC - 1) / VEC;
+  d.cv = vecs >= 8 ? 8 : vecs > 2 ? 4 : vecs;  // a power of two covering C, at most 8
+  const auto smem = [&](int ih, int iw) { return (ih * iw + k * k) * d.cv * 16 + ih * (int)sizeof(Row<T>); };
+  const long long reads = (long long)((R - 1) * s + 2 * k) * k;  // per output, times R
+  const int gx = (wo + R - 1) / R;                               // groups a full output row takes
+  long long best = LLONG_MAX;
+  for (int gw = 1; gw <= std::min(kDwMaxGw, gx); ++gw) {
+    const int tw = gw * R, iw = (tw - 1) * s + k;
+    for (int th = 1; th <= std::min({kDwMaxTh, kDwMaxThreads / d.cv / gw, ho}); ++th) {
+      const int ih = (th - 1) * s + k;
+      if (smem(ih, iw) > kDwSmemCap && gw * th > 1) break;  // (one row of one group: taken)
+      const long long tiles = (long long)((gx + gw - 1) / gw) * ((ho + th - 1) / th);
+      const long long cost = tiles * (2LL * R * ih * iw + (long long)th * tw * reads);
+      if (cost < best || (cost == best && th * gw > d.th * d.tw / R)) {
+        best = cost;
+        d.th = th;
+        d.tw = tw;
       }
     }
-    y[idx] = finish<T>(acc, bias, c);
+  }
+  d.ih = (d.th - 1) * s + k;
+  d.iw = (d.tw - 1) * s + k;
+  d.smem = smem(d.ih, d.iw);
+  d.threads = d.cv * d.th * d.tw / R;
+  d.copy = vec16 ? 16 : (int)sizeof(T);
+  return d;
+}
+
+// 16 bytes of shared memory as f32 values (bf16: exact, by shifts).
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[8]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  const uint32_t u[4] = {__float_as_uint(q.x), __float_as_uint(q.y), __float_as_uint(q.z),
+                         __float_as_uint(q.w)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);  // the lower-indexed element: the low half
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// VEC values of T to 16 bytes of global memory.
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = float4{v[0], v[1], v[2], v[3]};
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const __nv_bfloat16 (&v)[8]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u[i] = bf16_pair(&v[2 * i], &v[2 * i + 1]);
+  *reinterpret_cast<float4*>(p) =
+      float4{__uint_as_float(u[0]), __uint_as_float(u[1]), __uint_as_float(u[2]), __uint_as_float(u[3])};
+}
+
+// One depthwise conv tile (the header's design).  K, S: the kernel size and
+// stride the register window is unrolled for, or 0 / 0 for any (a.k, a.stride).
+template <typename T, typename Src, int K, int S>
+__global__ void __launch_bounds__(kDwMaxThreads)
+dwconv2d(Src src, const T* __restrict__ wt, const T* __restrict__ bias, T* __restrict__ y,
+         Shape a, DwTile d) {
+  constexpr int VEC = Tile<T>::VEC;
+  constexpr int R = kDwR;  // outputs of a thread along W
+  const int k = K ? K : a.k, s = S ? S : a.stride;
+  const int cb = d.cv * VEC;  // channels of a slab, and elements of a staged pixel
+  T* tile = reinterpret_cast<T*>(sm90::dynamic_smem());
+  T* wsm = tile + d.ih * d.iw * cb;
+  Row<T>* rows = reinterpret_cast<Row<T>*>(wsm + k * k * cb);
+  const int tid = threadIdx.x;
+
+  // the block's image, output tile and slab
+  const int tiles_w = (a.wo + d.tw - 1) / d.tw, tiles_h = (a.ho + d.th - 1) / d.th;
+  const int tx = blockIdx.x % tiles_w, t_rest = blockIdx.x / tiles_w;
+  const int ty = t_rest % tiles_h, n = t_rest / tiles_h;
+  const int oh0 = ty * d.th, ow0 = tx * d.tw, c0 = blockIdx.y * cb;
+  const int q0 = ow0 * s - src.pad;  // the input column of staged column 0
+
+  for (int r = tid; r < d.ih; r += blockDim.x) rows[r] = src.row(src.pixel(n), oh0 * s + r);  // once a row
+  __syncthreads();
+  if (d.copy == 16) {
+    for (int i = tid; i < d.ih * d.iw * d.cv; i += blockDim.x) {
+      const int v = i % d.cv, p = i / d.cv;
+      const Row<T> row = rows[p / d.iw];
+      const int iw = q0 + p % d.iw, c = c0 + v * VEC;
+      const bool ok = row.p != nullptr && iw >= 0 && iw < src.w && c < a.cout;
+      const T* g = wt;  // any valid address: nothing is read when !ok
+      if (ok) g = row.p + iw * row.sw + c;
+      sm90::cp_async16(tile + i * VEC, g, ok);
+    }
+    for (int i = tid; i < k * k * d.cv; i += blockDim.x) {
+      const int c = c0 + (i % d.cv) * VEC;
+      const bool ok = c < a.cout;
+      const T* g = wt;
+      if (ok) g = wt + (long long)(i / d.cv) * a.cout + c;
+      sm90::cp_async16(wsm + i * VEC, g, ok);
+    }
+  } else {
+    for (int i = tid; i < d.ih * d.iw * cb; i += blockDim.x) {
+      const int p = i / cb;
+      const Row<T> row = rows[p / d.iw];
+      const int iw = q0 + p % d.iw, c = c0 + i % cb;
+      const bool ok = row.p != nullptr && iw >= 0 && iw < src.w && c < a.cout;
+      const T* g = wt;
+      if (ok) g = row.p + iw * row.sw + c;
+      copy1(tile + i, g, ok);
+    }
+    for (int i = tid; i < k * k * cb; i += blockDim.x) {
+      const int c = c0 + i % cb;
+      const bool ok = c < a.cout;
+      const T* g = wt;
+      if (ok) g = wt + (long long)(i / cb) * a.cout + c;
+      copy1(wsm + i, g, ok);
+    }
+  }
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  // this thread: channel vector v of the slab, outputs (orow, ocol .. ocol+R-1) of the tile
+  const int v = tid % d.cv, grp = tid / d.cv;
+  const int orow = grp / (d.tw / R), ocol = grp % (d.tw / R) * R;
+  const T* xin = tile + (orow * s * d.iw + ocol * s) * cb + v * VEC;  // window column 0 of tap row 0
+  const T* win = wsm + v * VEC;
+  float acc[R][VEC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+  if constexpr (K > 0) {
+    constexpr int W = (R - 1) * S + K;  // the window's input columns
+#pragma unroll
+    for (int ky = 0; ky < K; ++ky) {
+      float w[K][VEC];
+#pragma unroll
+      for (int kx = 0; kx < K; ++kx) load_vec(win + (ky * K + kx) * cb, w[kx]);
+      const T* xr = xin + ky * d.iw * cb;
+#pragma unroll
+      for (int j = 0; j < W; ++j) {  // window column j is tap kx = j - r*S of output r
+        float xv[VEC];
+        load_vec(xr + j * cb, xv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int kx = j - r * S;
+          if (kx >= 0 && kx < K) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(xv[e], w[kx][e], acc[r][e]);
+          }
+        }
+      }
+    }
+  } else {
+    for (int ky = 0; ky < k; ++ky)
+      for (int kx = 0; kx < k; ++kx) {
+        float w[VEC];
+        load_vec(win + (ky * k + kx) * cb, w);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float xv[VEC];
+          load_vec(xin + (ky * d.iw + r * s + kx) * cb, xv);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(xv[e], w[e], acc[r][e]);
+        }
+      }
+  }
+
+  // the epilogue, finish<T> per element; 16-byte stores with 16-byte copies
+  const int oh = oh0 + orow, c = c0 + v * VEC;
+  T bv[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) bv[e] = from_f32<T>(0.f);
+  if (bias != nullptr) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (c + e < a.cout) bv[e] = bias[c + e];
+  }
+  const T* bp = bias != nullptr ? bv : nullptr;
+  T* yrow = y + ((long long)n * a.ho + oh) * a.wo * a.cout + c;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ow = ow0 + ocol + r;
+    if (oh >= a.ho || ow >= a.wo) continue;
+    T out[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] = finish<T>(acc[r][e], bp, e);
+    T* dst = yrow + (long long)ow * a.cout;
+    if (d.copy == 16) {
+      if (c < a.cout) store_vec(dst, out);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (c + e < a.cout) dst[e] = out[e];
+    }
   }
 }
 
@@ -465,6 +710,51 @@ bool vec16_weights(const void* w, int cout) {
 template <typename T, typename Src>
 int gather_variant(const Src& src, const void* w, int cout) {
   return (src.vec16() ? 1 : 0) | (vec16_weights<T>(w, cout) ? 2 : 0);
+}
+
+// The depthwise launch shape of these operands: the tile of (k, s, C, T), with
+// 16-byte copies when the source, the weights and the output allow them.
+template <typename T, typename Src>
+DwTile dw_config(const Src& src, const void* w, const void* y, int c, int k, int s, int ho, int wo) {
+  const bool vec16 = src.vec16() && vec16_weights<T>(w, c) && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  return dw_tile<T>(k, s, c, ho, wo, vec16);
+}
+
+// A launch shape as the C interfaces report it (conv2d_dw_config); vec:
+// channels per 16-byte vector.
+inline void dw_describe(const DwTile& d, int vec, int* out) {
+  const int v[7] = {d.copy, d.th, d.tw, kDwR, d.cv * vec, d.threads, d.smem};
+  std::copy(v, v + 7, out);
+}
+
+template <typename T, typename Src, int K, int S>
+cudaError_t launch_dw(const Src& src, const T* w, const T* bias, T* y, const Shape& a, const DwTile& d,
+                      cudaStream_t stream) {
+  if (d.smem > 48 * 1024) {  // refused past the card's 227 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        dwconv2d<T, Src, K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long tiles = (long long)a.n * ((a.ho + d.th - 1) / d.th) * ((a.wo + d.tw - 1) / d.tw);
+  const int cb = d.cv * Tile<T>::VEC, slabs = (a.cout + cb - 1) / cb;
+  if (tiles > INT_MAX || slabs > 65535) return cudaErrorInvalidConfiguration;
+  dwconv2d<T, Src, K, S><<<dim3((unsigned)tiles, (unsigned)slabs), d.threads, d.smem, stream>>>(
+      src, w, bias, y, a, d);
+  return cudaSuccess;
+}
+
+// The depthwise conv, its window unrolled for the vision models' (k, s).
+template <typename T, typename Src>
+cudaError_t launch_depthwise(const Src& src, const T* w, const T* bias, T* y, const Shape& a,
+                             cudaStream_t stream) {
+  const DwTile d = dw_config<T>(src, w, y, a.cout, a.k, a.stride, a.ho, a.wo);
+  const int k = a.k, s = a.stride;
+  if (k == 3 && s == 1) return launch_dw<T, Src, 3, 1>(src, w, bias, y, a, d, stream);
+  if (k == 3 && s == 2) return launch_dw<T, Src, 3, 2>(src, w, bias, y, a, d, stream);
+  if (k == 5 && s == 1) return launch_dw<T, Src, 5, 1>(src, w, bias, y, a, d, stream);
+  if (k == 5 && s == 2) return launch_dw<T, Src, 5, 2>(src, w, bias, y, a, d, stream);
+  if (k == 7 && s == 1) return launch_dw<T, Src, 7, 1>(src, w, bias, y, a, d, stream);
+  return launch_dw<T, Src, 0, 0>(src, w, bias, y, a, d, stream);
 }
 
 template <typename T, typename Src, bool VA, bool VB>
@@ -489,12 +779,7 @@ cudaError_t launch(const Src& src, const void* w, const void* bias, void* y, voi
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(bias);
   T* yp = static_cast<T*>(y);
-  if (depthwise) {
-    const long long total = (long long)a.n * a.ho * a.wo * a.cout;
-    const long long blocks = std::min<long long>((total + kThreads - 1) / kThreads, 1LL << 20);
-    dwconv2d<T, Src><<<(unsigned)blocks, kThreads, 0, stream>>>(src, wp, bp, yp, a);
-    return cudaSuccess;
-  }
+  if (depthwise) return launch_depthwise<T>(src, wp, bp, yp, a, stream);
   if (splits < 1 || (splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
   float* wsp = static_cast<float*>(ws);
   cudaError_t err;

@@ -104,6 +104,19 @@ extern "C" int halo_conv2d_gather(const void* top, const void* x, const void* bo
       source<__nv_bfloat16>(top, x, bot, strides, 0, 0, 0, 0, 0, cin), w, cout);
 }
 
+// The depthwise branch's launch shape for these operands, as conv2d_dw_config's.
+extern "C" void halo_conv2d_dw_config(const void* top, const void* x, const void* bot,
+                                     const long long* strides, const void* w, int dtype, int c,
+                                     int k, int stride, int ho, int wo, int* out) {
+  const conv_igemm::DwTile d =
+      dtype == 0 ? conv_igemm::dw_config<float>(source<float>(top, x, bot, strides, 0, 0, 0, 0, 0, c),
+                                                w, nullptr, c, k, stride, ho, wo)
+                 : conv_igemm::dw_config<__nv_bfloat16>(
+                       source<__nv_bfloat16>(top, x, bot, strides, 0, 0, 0, 0, 0, c), w, nullptr, c,
+                       k, stride, ho, wo);
+  conv_igemm::dw_describe(d, dtype == 0 ? 4 : 8, out);
+}
+
 // top/bot may be null (rows of zeros); each operand has its own (batch, row,
 // column) strides in `strides` = [top x3, shard x3, bottom x3], in elements.
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null.  ws: splits * M *

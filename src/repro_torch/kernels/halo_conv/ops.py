@@ -21,6 +21,7 @@ from ..conv2d.ops import (
     INT32_MAX,
     bind_splits,
     check_operands,
+    depthwise_config,
     split_count,
     workspace,
 )
@@ -45,6 +46,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.halo_conv2d_fwd.restype = ctypes.c_int
     lib.halo_conv2d_gather.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_longlong), p, i, i, i]
     lib.halo_conv2d_gather.restype = ctypes.c_int
+    lib.halo_conv2d_dw_config.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_longlong), p, i, i, i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.halo_conv2d_dw_config.restype = None
     bind_splits(lib)
     return lib
 
@@ -192,19 +196,30 @@ def _strides(x, top, bot):
 def launch_config(x_shard, top_halo, bot_halo, weights, *, stride: int = 1, padding: int = 1,
                   groups: int = 1, lo: int | None = None, hi: int | None = None) -> dict:
     """How the kernel would run this halo conv on the card: the split count
-    of K and the gather variant ("a16/b16": shard, halos and weights copied as
-    16-byte vectors; "a4": the slab element by element).  Launches nothing."""
+    of K, the gather variant ("a16/b16": shard, halos and weights copied as
+    16-byte vectors; "a4": the slab element by element; "depthwise") and,
+    for a depthwise conv, its launch shape (``conv2d.ops.depthwise_config``;
+    else None).  Launches nothing."""
+    return configure(_lib(), x_shard, top_halo, bot_halo, weights, stride=stride, padding=padding,
+                     groups=groups, lo=lo, hi=hi)
+
+
+def configure(lib, x_shard, top_halo, bot_halo, weights, *, stride: int = 1, padding: int = 1,
+              groups: int = 1, lo: int | None = None, hi: int | None = None) -> dict:
+    """:func:`launch_config` through the kernel library ``lib``."""
     lo, hi, ho, wo = _check_args(x_shard, top_halo, bot_halo, weights, None,
                                  stride, padding, groups, lo, hi)
     b, _, _, c = x_shard.shape
     k, cout = weights.shape[0], weights.shape[-1]
-    lib = _lib()
     splits = split_count(lib, x_shard, b * ho * wo, cout, k, c, groups)
-    gather = lib.halo_conv2d_gather(
-        None if top_halo is None else top_halo.data_ptr(), x_shard.data_ptr(),
-        None if bot_halo is None else bot_halo.data_ptr(), _strides(x_shard, top_halo, bot_halo),
-        weights.data_ptr(), DTYPE_CODES[x_shard.dtype], c, cout)
-    return dict(splits=splits, gather="depthwise" if groups > 1 else GATHER_NAMES[gather])
+    ptrs = (None if top_halo is None else top_halo.data_ptr(), x_shard.data_ptr(),
+            None if bot_halo is None else bot_halo.data_ptr(), _strides(x_shard, top_halo, bot_halo))
+    if groups > 1:
+        dw = depthwise_config(lib.halo_conv2d_dw_config, *ptrs, weights.data_ptr(),
+                              DTYPE_CODES[x_shard.dtype], c, k, stride, ho, wo)
+        return dict(splits=splits, gather="depthwise", depthwise=dw)
+    gather = lib.halo_conv2d_gather(*ptrs, weights.data_ptr(), DTYPE_CODES[x_shard.dtype], c, cout)
+    return dict(splits=splits, gather=GATHER_NAMES[gather], depthwise=None)
 
 
 # Kernel launches so far in this process (CPU calls do not count).

@@ -9,8 +9,9 @@ through the wrapper's own launch code (``conv2d/ops.py: launch``, which
 allocates the split-K workspace).  This covers the kernel's index math --
 tap-row K steps, masking of ragged M/N/K tiles, strided and padded taps,
 batch strides of row-slice views, the 16-byte and element-wise gathers,
-split-K and its reduction, the 3xTF32 split, the depthwise branch and the
-bfloat16 epilogue -- where there is no card.  The emulated ``mma.sync``
+split-K and its reduction, the 3xTF32 split, the depthwise branch (its
+output tiles, channel slabs, staged rows and copy variants) and the bfloat16
+epilogue -- where there is no card.  The emulated ``mma.sync``
 follows the PTX ISA's fragment layouts as the shim reads them: a layout the
 shim and the kernel got wrong together would pass here, and only the card
 (``chip_smoke.py`` phases 3 / 3b, ``tests/test_torch_cuda.py``) catches that.
@@ -24,7 +25,7 @@ import torch
 
 from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.conv2d import conv2d_ref
-from repro_torch.kernels.conv2d.ops import GATHER_NAMES, _check_args, bind, launch, split_count
+from repro_torch.kernels.conv2d.ops import GATHER_NAMES, _check_args, bind, configure, launch, split_count
 
 SOURCE = KERNELS / "conv2d" / "conv2d.cu"
 
@@ -180,3 +181,67 @@ DIFFUSION_CASES = [
 @pytest.mark.parametrize("case", DIFFUSION_CASES, ids=lambda c: "x".join(map(str, c[:9])) + f"-{str(c[9])[6:]}")
 def test_emulated_diffusion_shapes_match_plain(lib, case):
     _held_against_plain(lib, case)
+
+
+# The depthwise branch's tiles, slabs and copy variants, each named: (N, H, W,
+# C, k, stride, pad, dtype, bias, input kind, copies, tile, slab).  Input
+# kinds as CORE_CASES'; tile: output rows, columns and outputs a thread along
+# W, as the launcher picks them for the shape (conv_igemm.cuh: dw_tile).  The
+# "tiles" cases span two output-row tiles, two column tiles and two channel
+# slabs, each ragged (19 rows in tiles of 10, 13 columns in tiles of 8, 12 of
+# 32 f32 / 24 of 64 bf16 channels in the second slab), at the window shapes
+# the vision models unroll (k3 s2, k5 s2, k7 s1); "c32" is a bfloat16 slab
+# of 32 channels (C < 64, four 16-byte vectors a pixel);
+# "c20" and "c12" take the element / 4-byte copies; k7 s2 has no unrolled
+# window.  In bfloat16 the output must equal the plain version bit for bit
+# (exact products, the same f32 sum order); its inputs are scaled by powers
+# of two from 2^-8 to 2^8 (exactly), so that the f32 sums round and another
+# order of the taps would show.
+DW_CASES = {
+    **{f"k{k}s{s}-{str(dt)[6:]}-tiles": (1, h, w, c, k, s, k // 2, dt, True, "dense", "16-byte", [10, 8, 4], cb)
+       for k, s, h, w in ((3, 2, 38, 26), (5, 2, 38, 26), (7, 1, 19, 13))
+       for dt, c, cb in ((torch.float32, 44, 32), (torch.bfloat16, 88, 64))},
+    "c32-bf16-rows": (2, 9, 13, 32, 3, 1, 1, torch.bfloat16, False, "rows", "16-byte", [9, 16, 4], 32),
+    "c20-bf16-element": (1, 9, 11, 20, 5, 1, 2, torch.bfloat16, True, "dense", "element", [9, 12, 4], 32),
+    "c12-bf16-element-s2": (2, 15, 13, 12, 3, 2, 1, torch.bfloat16, True, "rows", "element", [8, 8, 4], 16),
+    "c12-f32-chan-4byte": (1, 9, 11, 12, 3, 2, 1, torch.float32, False, "chan", "4-byte", [5, 8, 4], 16),
+    "c6-f32-4byte": (1, 10, 9, 6, 5, 1, 2, torch.float32, True, "dense", "4-byte", [10, 12, 4], 8),
+    "k7s2-f32-any-window": (1, 13, 18, 8, 7, 2, 3, torch.float32, True, "rows", "16-byte", [7, 12, 4], 8),
+    "c520-f32-k7": (1, 7, 7, 520, 7, 1, 3, torch.float32, True, "dense", "16-byte", [7, 8, 4], 32),
+}
+
+
+@pytest.mark.parametrize("name", list(DW_CASES))
+def test_emulated_depthwise_tiles_match_plain(lib, name):
+    _depthwise_held(lib, name)
+
+
+def _depthwise_held(lib, name):
+    """DW_CASES[name] through the emulated kernel: its launch shape, and the
+    output against the plain version (bit for bit in bfloat16)."""
+    n, h, wd, c, k, s, pad, dt, has_bias, kind, copies, tile, slab = DW_CASES[name]
+    rng = np.random.default_rng(200 + list(DW_CASES).index(name))
+    big = rng.standard_normal((n, h + 3, wd, c + 5), dtype=np.float32)
+    if dt == torch.bfloat16:
+        big = big * np.exp2(rng.integers(-8, 9, big.shape)).astype(np.float32)
+    big = torch.tensor(big, dtype=dt)
+    if kind == "rows":
+        x = big[..., :c].contiguous()[:, 1:1 + h]
+    elif kind == "chan":
+        x = big[:, :h, :, 1:1 + c]
+    else:
+        x = big[:, :h, :, :c].contiguous()
+    w = torch.tensor(0.3 * rng.standard_normal((k, k, 1, c), dtype=np.float32), dtype=dt)
+    b = torch.tensor(rng.standard_normal(c, dtype=np.float32), dtype=dt) if has_bias else None
+    config = configure(lib, x, w, stride=s, padding=pad, groups=c)
+    assert (config["gather"], config["depthwise"]["copies"]) == ("depthwise", copies)
+    assert (config["depthwise"]["tile"], config["depthwise"]["slab"]) == (tile, slab)
+    if name.endswith("tiles"):  # ragged tiles in rows, columns and channels
+        ho, wo = _check_args(x, w, b, s, pad, c)
+        assert ho > tile[0] and ho % tile[0] and wo > tile[1] and wo % tile[1] and c > slab and c % slab
+    got = _emulated(lib, x, w, b, s, pad, c)
+    want = conv2d_ref(x, w, b, stride=s, padding=pad, groups=c)
+    if dt == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

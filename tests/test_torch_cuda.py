@@ -595,6 +595,25 @@ def test_conv2d_vision_shapes_match_plain_on_card(card, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in VISION_CONV_CASES if c[8] > 1], ids=lambda c: "x".join(map(str, c[:9])))
+def test_conv2d_depthwise_bfloat16_is_bit_equal_to_plain_on_card(card, case):
+    """K1's depthwise branch in bfloat16 at the vision models' full widths:
+    16-byte channel vectors, and the output equal to the plain version bit
+    for bit (exact products, the same f32 sum order), also with inputs
+    scaled by powers of two from 2^-8 to 2^8, where the f32 sums round."""
+    n, h, w, cin, cout, k, s, pad, g, has_bias = case
+    rng = np.random.default_rng(sum(case[:9]))
+    x = rng.standard_normal((n, h, w, cin), dtype=np.float32) * np.exp2(rng.integers(-8, 9, (n, h, w, cin)))
+    x = torch.from_numpy(x.astype(np.float32)).to(card, torch.bfloat16)
+    wts = torch.from_numpy((2.0 / (k * k)) ** 0.5 * rng.standard_normal((k, k, 1, cout), dtype=np.float32))
+    wts = wts.to(card, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32)).to(card, torch.bfloat16) if has_bias else None
+    assert launch_config(x, wts, stride=s, padding=pad, groups=g)["depthwise"]["copies"] == "16-byte"
+    got = conv2d_cuda(x, wts, b, stride=s, padding=pad, groups=g)
+    assert torch.equal(got, conv2d_ref(x, wts, b, stride=s, padding=pad, groups=g))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 def test_flash_attention_vit_l16_shape_matches_plain_on_card(card, dtype):
     """ViT-L/16's attention: 16 heads over T = S = 197 tokens, D = 64, the

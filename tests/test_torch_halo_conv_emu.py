@@ -7,8 +7,8 @@ the wrapper's own launch code (``halo_conv/ops.py: launch``), so the strides
 it passes, the source's row resolution once per pixel and tap row (top halo,
 shard, bottom halo, zero), the zero-filled copies of the width padding and
 of absent halos, the 16-byte and element-wise gathers, split-K, the 3xTF32
-products, the depthwise branch and the bfloat16 epilogue all run where there
-is no card.  The emulated ``mma.sync`` follows the PTX ISA's fragment
+products, the depthwise branch (rows staged once per output tile through
+the source) and the bfloat16 epilogue all run where there is no card.  The emulated ``mma.sync`` follows the PTX ISA's fragment
 layouts as the shim reads them: a layout the shim and the kernel got wrong
 together would pass here, and only the card (``chip_smoke.py`` phase 3b,
 ``tests/test_torch_cuda.py``) catches that.  Timing, the real compiler and
@@ -23,7 +23,7 @@ import torch
 from _torch_emu import KERNELS, build_emulated
 from repro_torch.kernels.halo_conv import halo_conv2d_ref
 from repro_torch.kernels.conv2d.ops import GATHER_NAMES, split_count
-from repro_torch.kernels.halo_conv.ops import _check_args, _strides, bind, launch
+from repro_torch.kernels.halo_conv.ops import _check_args, _strides, bind, configure, launch
 
 SOURCE = KERNELS / "halo_conv" / "halo_conv.cu"
 
@@ -127,3 +127,40 @@ def test_emulated_core_path_matches_plain(lib, name):
         None if bot is None else bot.data_ptr(), _strides(x, top, bot), wts.data_ptr(),
         int(x.dtype == torch.bfloat16), cin, cout)
     assert GATHER_NAMES[variant] == gather
+
+
+# The depthwise branch over several output tiles and two channel slabs, each
+# ragged (as test_torch_conv2d_emu.py's DW_CASES), with its staged rows
+# resolved through the halo source: strided-view halos at k7 s1 (lo = hi = 3)
+# and k3 s2 (lo = 1, hi = 0), absent halos (zero rows) at k5 s2 in bfloat16,
+# whose output must equal the plain version bit for bit, also with the shard
+# scaled by powers of two from 2^-8 to 2^8, where the f32 sums round.
+# (case, tile)
+DW_CASES = {
+    "k7s1-views": ((2, 19, 13, 44, 44, 7, 1, 3, 44, torch.float32, True, "views"), [10, 8, 4]),
+    "k3s2-views": ((2, 38, 26, 44, 44, 3, 2, 1, 44, torch.float32, True, "views"), [10, 8, 4]),
+    "k5s2-absent-bf16": ((1, 38, 26, 88, 88, 5, 2, 2, 88, torch.bfloat16, False, "absent"), [10, 8, 4]),
+}
+
+
+@pytest.mark.parametrize("name", list(DW_CASES))
+def test_emulated_depthwise_tiles_match_plain(lib, name):
+    case, tile = DW_CASES[name]
+    seed = 300 + list(DW_CASES).index(name)
+    (x, top, bot, wts), (lo, hi, ho, wo) = _check_emulated(lib, case, seed)
+    k, s, pad, g = case[5:9]
+    config = configure(lib, x, top, bot, wts, stride=s, padding=pad, groups=g, lo=lo, hi=hi)
+    assert (config["gather"], config["depthwise"]["copies"], config["depthwise"]["tile"]) == (
+        "depthwise", "16-byte", tile)
+    slab = config["depthwise"]["slab"]
+    assert ho > tile[0] and ho % tile[0] and wo > tile[1] and wo % tile[1] and x.shape[3] % slab \
+        and x.shape[3] > slab
+    if x.dtype == torch.bfloat16:
+        x, top, bot, wts, bias, lo, hi = _inputs(case, seed)
+        x = x * torch.from_numpy(np.exp2(np.random.default_rng(seed).integers(-8, 9, x.shape))).to(x.dtype)
+        got = launch(lib, x, top, bot, wts, bias, s, pad, g, lo, hi, ho, wo, None)
+        zeros = x.new_zeros((x.shape[0], max(lo, hi), x.shape[2], x.shape[3]))
+        want = halo_conv2d_ref(x, zeros[:, :lo] if top is None else top,
+                               zeros[:, :hi] if bot is None else bot, wts, bias,
+                               stride=s, padding=pad, groups=g)
+        assert torch.equal(got, want)
