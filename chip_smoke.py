@@ -238,6 +238,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bfloat16 forwards at batch 4 timed and profiled (device ms by family),
    peak device memory.  Phase 2 prints the registers and spills of K3's
    second library (``attention_diffusion.cu``: D = 40, 72, 80, 160).
+15. trains the vision family through ``configs.steps``' cls_224 cells
+   (``phase_train``): ViT-L/16 and EfficientNet-B7 at full width, seeded
+   random weights, with TF32 off: (a) K1 and its autograd Function held
+   against the plain version and autograd through it in float32 on the
+   same values at every K1 signature of a batch-4 step of each (the output,
+   dx where the input needs one, dW, db within 2e-5 x (1 + |g|) plus
+   ``SUM_RTOL`` x the sum of |terms|), and K3's Function at ViT's
+   [4, 16, 197, 64], with K3's forward and plain backward device us; (b)
+   one float32 step of each at batch 4 from a warm state (``warm_state``)
+   held to the same step through the plain versions: the loss within
+   ``DEPTH_RTOL``, and leaf by leaf each new first moment (the clipped
+   gradient / 10) and each update within ``TRAIN_LEAF_RTOL`` of that leaf's
+   own largest (``leaf_shares``), a control step with one K1 call's output
+   gradient scaled by ``TRAIN_CONTROL`` breaking that hold; K1's forward
+   launches, its backward ones (each stride-1 conv whose input needs a
+   gradient) and K3's counted against the recorded calls and phase 13's
+   ``VISION_LAUNCHES``; one such step profiled with the backward's parts
+   apart ("K1 dgrad", the library's dgrad and wgrad, "K3 backward"); (c)
+   ``TRAIN_STEPS`` bfloat16 steps of each through the fault-tolerant
+   trainer (``image_trainer``: ``runtime.train.make_trainer``'s parts) at
+   the cell's batch of 256 or, where a fit of two probe steps' peak memory
+   says it does not fit, the largest power of two that does (printed as
+   reduced): step ms, images/s, peak memory, TFLOP/s (the step's
+   operations: ``FlopCounterMode``'s, the convs' counted from their shapes,
+   K3's forward; ``step_flops_of``) fed to a ``ComputeRateEstimator`` by the
+   trainer's ``compute_observer``, one step profiled by part and its K1 and
+   K3 signatures held as in (a) in bfloat16 at that batch, every loss
+   finite; (d) ViT-L/16 cut to ``FAULT_LAYERS`` layers, bfloat16 at batch
+   256: ``FAULT_STEPS`` steps checkpointed every ``FAULT_EVERY`` with
+   faults injected at ``FAULT_AT``, every final leaf ``torch.equal`` to an
+   uninterrupted run's, failures and restores both exactly
+   ``len(FAULT_AT)``.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -246,6 +278,7 @@ The last two lines of standard output are ``{"kernels": [...]}`` and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -592,8 +625,8 @@ def kernel_family(name: str) -> str:
     return next((fam for key, fam in KERNEL_FAMILIES if key in name), "other")
 
 
-def profile_device(torch, fn) -> tuple[float, list]:
-    """One call of ``fn`` under the profiler: (device busy ms, its device-side
+def profiled(torch, fn) -> tuple:
+    """One call of ``fn`` under the profiler: (the profile, its device-side
     rows -- kernels, copies -- longest first).  Operator rows are left out:
     they repeat their kernels' time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -602,6 +635,12 @@ def profile_device(torch, fn) -> tuple[float, list]:
         torch.cuda.synchronize()
     by_kernel = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
                        key=lambda a: -a.self_device_time_total)
+    return prof, by_kernel
+
+
+def profile_device(torch, fn) -> tuple[float, list]:
+    """``profiled``'s device rows of one call of ``fn``, after its device busy ms."""
+    _, by_kernel = profiled(torch, fn)
     return sum(a.self_device_time_total for a in by_kernel) / 1e3, by_kernel
 
 
@@ -1038,7 +1077,6 @@ def phase_moe(torch) -> tuple[dict, int]:
     finite logits), the plain attention's forward as a record, peak device
     memory below the card's, steady timing.  Returns the report and the K3
     launches of its counted runs."""
-    import dataclasses
 
     from repro_torch.configs import get as get_arch
     from repro_torch.configs.steps import build
@@ -1354,7 +1392,6 @@ def phase_mla(torch) -> tuple[dict, dict]:
     median and p99 of |diff|; steady timing.  (c) peak device memory below
     the card's.  Returns the report and the K3 launches of its counted runs
     by run."""
-    import dataclasses
 
     from repro_torch.configs import get as get_arch
     from repro_torch.configs.steps import build
@@ -1634,7 +1671,6 @@ def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, di
     images on the CPU, computed here when not given).  Returns the report
     and the launches of K1 and K2 on its path: the probe's K2 launches, the
     latency curve's and the burst's forwards."""
-    import dataclasses
 
     from repro_torch.analysis import AnalysisError, check_plan, check_plan_kernels
     from repro_torch.analysis.kernel_check import plan_kernel_calls
@@ -1927,7 +1963,6 @@ def phase_engines(torch, curve_ms: dict, params=None, images=None, plain=None,
     4's plain-conv forward on the CPU and single-device forward on the card).
     Returns the report, K1's launches on its path and its per-shape holds
     of K1 (rows as phase 3's)."""
-    import dataclasses
 
     from repro_torch.analysis import check_dag, check_template
     from repro_torch.core import (Link, Sim, StaticPlanner, enhanced_modnn_delay, equal_ratios, evaluate_plan,
@@ -3043,7 +3078,6 @@ def phase_diffusion(torch) -> tuple[dict, dict, list, list]:
     the bound); (6) steady f32 / bf16 forwards at batch 4 timed and profiled.
     Returns the report, the launches of its counted runs, and its K1 and K3
     rows."""
-    import dataclasses
 
     import torch.nn.functional as F
 
@@ -3277,6 +3311,578 @@ def phase_diffusion(torch) -> tuple[dict, dict, list, list]:
     print(f"  phase 14: {phase_s:.1f} s")
     report["phase_s"] = phase_s
     return report, launches, conv_rows, attn_rows
+
+
+# Phase 15: vision training through configs.steps' cls_224 cells.  (a) and
+# (b) at TRAIN_CHECK_BATCH images in float32; (c) TRAIN_STEPS timed bfloat16
+# steps at the cell's batch, or the largest power of two whose peak memory,
+# fitted from two probe steps, stays under TRAIN_MEM_SHARE of the card (the
+# probes large enough that activations set the peak: at 8 and 16 images
+# AdamW's float32 temporaries did, and the fit sent ViT-L/16 to 256 images,
+# which ran out of the card's 80 GB), then every K1 and K3 signature of one
+# step at that batch held in bfloat16; (d) ViT-L/16 cut to FAULT_LAYERS
+# layers, FAULT_STEPS steps checkpointed every FAULT_EVERY, faults injected
+# at FAULT_AT.
+TRAIN_ARCHS = ("vit-l16", "efficientnet-b7")
+TRAIN_CHECK_BATCH, TRAIN_STEPS, TRAIN_MEM_SHARE, TRAIN_PROBE_BATCHES = 4, 10, 0.8, (32, 64)
+FAULT_LAYERS, FAULT_STEPS, FAULT_EVERY, FAULT_AT = 4, 12, 4, (5, 9)
+# (b)'s holds, leaf by leaf: each new first moment (the clipped gradient /
+# 10) and each update against the plain versions' step, relative to that
+# leaf's largest |moment| or |update| there, within TRAIN_LEAF_RTOL.  A leaf
+# whose largest |moment| is under TRAIN_BLIND of the tree's is one the loss
+# does not see (a shift ahead of a batch-statistics norm: rounding noise in
+# both, no scale of its own) and is held at the tree's largest |moment|.
+# The control, the same step with one K1 call's output gradient scaled by
+# TRAIN_CONTROL, must break the first moments' limit (an update also holds
+# the weight decay, the same in both, which may dilute the change).
+TRAIN_LEAF_RTOL, TRAIN_BLIND, TRAIN_CONTROL = 1e-2, 1e-5, 1.05
+# the backward's record_function ranges (kernels.conv2d.ops.conv2d_backward,
+# kernels.attention.ops.FlashAttentionFunction)
+BACKWARD_RANGES = ("K1 dgrad", "conv dgrad (library)", "conv wgrad (library)", "K3 backward")
+
+
+def with_batch(arch, batch: int):
+    """``arch`` with its cls_224 cell at ``batch`` images."""
+    from repro_torch.configs.base import Cell
+
+    cell = arch.cells["cls_224"]
+    return dataclasses.replace(arch, cells={**arch.cells, "cls_224": Cell(cell.name, cell.kind,
+                                                                          dict(cell.meta, batch=batch))})
+
+
+def image_trainer(torch, arch, fault_cfg, **kw):
+    """(trainer, initial state) of ``arch``'s cls_224 cell on the card, as
+    ``runtime.train.make_trainer`` builds them for a registered arch (state
+    from seed 0, the cell's image stream); ``kw`` goes to the trainer."""
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.data.pipeline import ImageStream, device_batch
+    from repro_torch.runtime import FaultTolerantTrainer
+
+    bundle = build(arch, "cls_224")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = realize(arch, bundle, gen, smoke=False)
+    meta = arch.cells["cls_224"].meta
+    stream = ImageStream(img_res=meta["img_res"], batch=meta["batch"], num_classes=arch.cfg.num_classes)
+
+    def step_fn(state, **batch):
+        return bundle.fn(state, **device_batch(batch, gen.device))
+
+    return FaultTolerantTrainer(step_fn, stream, fault_cfg, **kw), state
+
+
+def named_leaves(tree, name: str = "") -> list:
+    """(path, tensor) of every leaf of a tree, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in named_leaves(v, f"{name}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in named_leaves(v, f"{name}/{i}")]
+    return [(name, tree)]
+
+
+def leaf_shares(new, ref, old) -> dict:
+    """Leaf by leaf, ``new``'s train state against ``ref``'s, both one step
+    from ``old``: the largest |difference| of each first moment over that
+    leaf's largest |moment| in ``ref`` (the tree's, for a leaf under
+    TRAIN_BLIND of it), and of each update over its largest |update|.
+    Returns the worst of each with its leaf, and the blind leaves."""
+    from repro_torch.models.common import tree_leaves
+
+    mus, ref_mus = named_leaves(new[1]["mu"]), named_leaves(ref[1]["mu"])
+    tree_mu = max(t.abs().max().item() for _, t in ref_mus)
+    out = dict(mu=(0.0, ""), update=(0.0, ""), blind=[])
+    for (name, mu), (_, rmu), a, r, o in zip(mus, ref_mus, tree_leaves(new[0]), tree_leaves(ref[0]),
+                                             tree_leaves(old[0])):
+        scale = rmu.abs().max().item()
+        if scale < TRAIN_BLIND * tree_mu:
+            out["blind"].append(name)
+            scale = tree_mu
+        share = (mu - rmu).abs().max().item() / max(scale, 1e-30)
+        u, ru = (a - o).float(), (r - o).float()
+        u_share = (u - ru).abs().max().item() / max(ru.abs().max().item(), 1e-30)
+        out["mu"] = max(out["mu"], (share, name))
+        out["update"] = max(out["update"], (u_share, name))
+    return out
+
+
+def warm_state(torch, state, gen):
+    """A train state past warmup, for holding one step against another: every
+    bias and norm shift ``b`` 0.1 N(0, 1) and every norm ``scale`` 1 + 0.1
+    N(0, 1) (the init's zeros and ones would leave those paths untested),
+    the step and AdamW's count at 1000 (learning-rate scale 1, bias
+    corrections ~1), every second moment 1e-4: so Adam's normalisation does
+    not blow a gradient's rounding noise (a key bias the softmax ignores, a
+    shift ahead of a batch-statistics norm) up to a whole step."""
+    params, opt, n = state
+
+    def perturb(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: perturb(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [perturb(v, name) for v in tree]
+        if name not in ("b", "scale"):  # (a stacked stack's are [layers, d])
+            return tree
+        noise = 0.1 * torch.randn(tree.shape, generator=gen, device=gen.device)
+        return (noise + (1.0 if name == "scale" else 0.0)).to(tree.dtype)
+
+    from repro_torch.models.common import tree_map
+
+    nu = tree_map(lambda t: torch.full_like(t, 1e-4), opt["nu"])
+    return perturb(params), dict(opt, nu=nu, count=torch.full_like(opt["count"], 1000)), torch.full_like(n, 1000)
+
+
+@contextlib.contextmanager
+def recording_train_calls():
+    """Records every K1 and K3 call the vision models make while entered, by
+    signature: K1 ``hold_conv``'s and whether its input requires grad (the
+    images do not), K3 q's shape, the key count, dtype and causal."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+
+    rec = types.SimpleNamespace(convs=Counter(), attns=Counter())
+
+    def conv(x, w, b=None, *, stride=1, padding=1, groups=1):
+        rec.convs[(tuple(x.shape), tuple(w.shape), stride, padding, groups, b is not None,
+                   str(x.dtype).removeprefix("torch."), x.requires_grad)] += 1
+        return conv2d_cuda(x, w, b, stride=stride, padding=padding, groups=groups)
+
+    def attn(q, k, v, *, causal=True):
+        rec.attns[(tuple(q.shape), k.shape[2], str(q.dtype).removeprefix("torch."), causal)] += 1
+        return flash_attention(q, k, v, causal=causal)
+
+    with model_kernels(conv, attn):
+        yield rec
+
+
+def k1_dgrads(rec) -> int:
+    """K1 backward launches a step of these convs makes: one for each stride-1
+    conv whose input needs a gradient (``conv2d_backward``)."""
+    return sum(c for (_, w, st, pad, *_, x_grad), c in rec.convs.items()
+               if x_grad and st == 1 and pad <= w[0] - 1)
+
+
+def conv_flops(rec, dgrad: bool = False) -> float:
+    """Operations of the recorded K1 calls -- a conv's forward, and as many
+    again for its weight gradient -- or, with ``dgrad``, of the input
+    gradients of those whose input needs one (K1's or the library's: the
+    same products)."""
+    total = 0.0
+    for ((n, h, w, _), (k, _, w_cin, cout), st, pad, *_, x_grad), c in rec.convs.items():
+        if dgrad and not x_grad:
+            continue
+        ho, wo = (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1
+        total += c * 2.0 * k * k * w_cin * cout * n * ho * wo
+    return total
+
+
+def step_flops_of(counter, rec) -> float:
+    """One train step's operations: ``FlopCounterMode``'s count without its
+    conv backward (its weight-gradient formula ignores groups: a depthwise
+    conv's is counted C times over), plus the recorded convs' forward,
+    weight and input gradients and K3's forward (neither kernel is an
+    operator it sees)."""
+    library_conv = sum(v for op, v in counter.get_flop_counts()["Global"].items()
+                       if "convolution_backward" in str(op))
+    return counter.get_total_flops() - library_conv + 2 * conv_flops(rec) + conv_flops(rec, dgrad=True) \
+        + attn_flops(rec)
+
+
+def attn_flops(rec) -> float:
+    return sum(c * 2.0 * b * h * t * s * 2 * d for ((b, h, t, d), s, *_), c in rec.attns.items())
+
+
+def hold_conv_grad(torch, gen, sig: tuple) -> dict:
+    """K1 and its autograd Function on the generator's device, in the
+    signature's dtype, against its plain version and autograd through it in
+    float32 on the same values: the output and dx (where the input needs
+    one), dW, db within TOL x (1 + |g|) plus ``SUM_RTOL`` x the same function
+    of the operands' absolute values (large sums cancel); fatal beyond.  (In
+    bfloat16 the plain version's own autograd rounds each tap's share of dx
+    to bfloat16 and sums them so: its reading is kept as ``plain_share``.)
+    The launch counts are left as they were."""
+    from repro_torch.kernels.conv2d import conv2d_cuda, conv2d_ref
+
+    counts = conv2d_cuda.launches, conv2d_cuda.depthwise_launches, conv2d_cuda.backward_launches
+    (n, h, w, cin), (k, _, w_cin, cout), st, pad, groups, has_bias, dname, x_grad = sig
+    dt, dev = getattr(torch, dname), gen.device
+    x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(dt)
+    wt = (math.sqrt(2.0 / (k * k * w_cin)) * torch.randn((k, k, w_cin, cout), generator=gen, device=dev)).to(dt)
+    b = (0.1 * torch.randn((cout,), generator=gen, device=dev)).to(dt) if has_bias else None
+    kw = dict(stride=st, padding=pad, groups=groups)
+    names = ["y"] + (["dx"] if x_grad else []) + ["dw"] + (["db"] if has_bias else [])
+    dy = torch.randn((n, (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1, cout), generator=gen,
+                     device=dev).to(dt)
+
+    def outputs(fn, x, w, b, dy):
+        leaves = [x.clone().requires_grad_(x_grad), w.clone().requires_grad_(),
+                  None if b is None else b.clone().requires_grad_()]
+        asked = [t for t, nm in zip(leaves, ("dx", "dw", "db")) if nm in names]
+        y = fn(*leaves, **kw)
+        return [t.float() for t in (y.detach(), *torch.autograd.grad(y, asked, dy))]
+
+    up = [None if t is None else t.float() for t in (x, wt, b, dy)]
+    got = outputs(conv2d_cuda, x, wt, b, dy)
+    want = outputs(conv2d_ref, *up)
+    sums = outputs(conv2d_ref, *(None if t is None else t.abs() for t in up))
+    plain = want if dname == "float32" else outputs(conv2d_ref, x, wt, b, dy)
+    torch.cuda.synchronize()
+    row = dict(shape=[n, h, w, cin, cout], k=k, stride=st, pad=pad, groups=groups, bias=has_bias, dtype=dname,
+               x_grad=x_grad, k1_dgrad=x_grad and st == 1 and pad <= k - 1)
+    for nm, g, r, s, p in zip(names, got, want, sums, plain):
+        limit = TOL[dname] * (1 + r.abs()) + SUM_RTOL * s
+        diff = (g - r).abs()
+        share = (diff / limit).max().item()
+        row[nm] = dict(max_abs_err=diff.max().item(), max_abs=r.abs().max().item(), limit_share=share,
+                       plain_share=((p - r).abs() / limit).max().item())
+        check(share <= 1.0 and bool(torch.isfinite(g).all()), f"K1's {nm} disagrees with the plain version's "
+                                                            f"at {row}")
+    conv2d_cuda.launches, conv2d_cuda.depthwise_launches, conv2d_cuda.backward_launches = counts
+    return row
+
+
+def hold_attention_grad(torch, gen, b: int, h: int, t: int, d: int, dname: str = "float32") -> dict:
+    """K3's autograd Function in ``dname`` against autograd through its plain
+    version in float32 on the same values, at ViT's layout (q, k, v slices
+    of one [B, T, 3, H, D] projection), not causal: dq, dk, dv within TOL x
+    (1 + |g|); fatal beyond.  In float32 also the device us of K3's forward
+    and of its backward (``attention_backward``) a call.  The count is left
+    as it was."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention
+    from repro_torch.kernels.attention.ops import attention_backward
+
+    count = flash_attention.launches
+    dt = getattr(torch, dname)
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device=gen.device).to(dt)
+    do = torch.randn((b, h, t, d), generator=gen, device=gen.device).to(dt)
+
+    def grads(fn, qkv, do):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = (leaf[:, :, i].transpose(1, 2) for i in range(3))
+        return torch.autograd.grad(fn(q, k, v, causal=False), leaf, do)[0].float()
+
+    got, want = grads(flash_attention, qkv, do), grads(attention_ref, qkv.float(), do.float())
+    diff = (got - want).abs()
+    share = (diff / (TOL[dname] * (1 + want.abs()))).max().item()
+    row = dict(b=b, h=h, t=t, d=d, dtype=dname, max_abs_err=diff.max().item(), max_abs=want.abs().max().item(),
+               limit_share=share)
+    check(share <= 1.0, f"K3's gradients disagree with the plain version's autograd at {row}")
+    if dname == "float32":
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = flash_attention(q, k, v, causal=False)
+        row["forward_device_us"], row["forward_source"] = device_or_event_us(
+            torch, lambda: flash_attention(q, k, v, causal=False), reps=10)
+        row["backward_device_us"], row["backward_source"] = device_or_event_us(
+            torch, lambda: attention_backward(q, k, v, o, do, False), reps=5)
+    flash_attention.launches = count
+    return row
+
+
+def step_breakdown(torch, step) -> tuple[float, dict]:
+    """One call of ``step`` under the profiler (``profiled``): (device busy
+    ms, device ms by part).  The backward's ranges (``BACKWARD_RANGES``)
+    take every kernel launched inside them; the kernels outside go to "K1
+    forward" (K1's families), "K3" (its forward), "GEMM" or "other"."""
+    prof, by_kernel = profiled(torch, step)
+    parts = {name: 0.0 for name in ("K1 forward", *BACKWARD_RANGES, "K3", "GEMM", "other")}
+
+    def kernels(ev):
+        return list(ev.kernels) + [kn for ch in ev.cpu_children for kn in kernels(ch)]
+
+    inside = Counter()
+    for ev in prof.events():
+        if ev.name in BACKWARD_RANGES and ev.device_type == torch.autograd.DeviceType.CPU:
+            for kn in kernels(ev):
+                parts[ev.name] += kn.duration / 1e3
+                inside[kn.name] += kn.duration / 1e3
+    for a in by_kernel:
+        if a.key in BACKWARD_RANGES:
+            continue  # the device-side spans of the ranges
+        fam = kernel_family(a.key)
+        part = "K1 forward" if fam.startswith("K1") else fam if fam in ("K3", "GEMM (cuBLAS)") else "other"
+        parts["GEMM" if part == "GEMM (cuBLAS)" else part] += a.self_device_time_total / 1e3 - inside[a.key]
+    return sum(parts.values()), parts
+
+
+def phase_train(torch) -> tuple[dict, dict]:
+    """Phase 15: training of ViT-L/16 and EfficientNet-B7 through
+    ``configs.steps``' cls_224 cells (224 x 224, random weights from seeds)
+    on the card: (a) K1's and K3's autograd Functions held against autograd
+    through their plain versions at every K1 signature of one batch-4 step
+    of each and at ViT's K3 shape, float32; (b) one full-width float32 step
+    of each at batch 4 held against the same step through the plain
+    versions (the loss; each leaf's first moment and update), a control
+    step with one wrong gradient breaking that hold, its launches counted;
+    (c) TRAIN_STEPS bfloat16 steps of each through the fault-tolerant
+    trainer, timed, their FLOP/s fed to a ``ComputeRateEstimator`` by the
+    trainer's ``compute_observer``, one step profiled by part and its K1
+    and K3 signatures held as in (a) in bfloat16; (d) a fault-injected run
+    of ViT-L/16 (FAULT_LAYERS layers) equal bit for bit to an uninterrupted
+    one.  Returns the report and the launches of its counted runs."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.core import ComputeRateEstimator
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import FaultConfig, InjectedFault
+
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dev = gen.device
+    launches = {"conv2d": 0, "conv2d_backward": 0, "flash_attention": 0}
+    report: dict = {}
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.depthwise_launches = conv2d_cuda.backward_launches = 0
+        flash_attention.launches = 0
+
+    def read() -> tuple[int, int, int, int]:
+        got = (conv2d_cuda.launches, conv2d_cuda.depthwise_launches, conv2d_cuda.backward_launches,
+               flash_attention.launches)
+        launches["conv2d"] += got[0]
+        launches["conv2d_backward"] += got[2]
+        launches["flash_attention"] += got[3]
+        return got
+
+    class ScaledGrad(torch.autograd.Function):
+        """The identity, whose backward scales the gradient by TRAIN_CONTROL."""
+
+        @staticmethod
+        def forward(ctx, y):
+            return y.view_as(y)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * TRAIN_CONTROL
+
+    for name in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        rep = report[name] = {}
+
+        # (b) one float32 step at batch 4 through the kernels, counted and recorded
+        bundle = build(arch, "cls_224", dtype=torch.float32)
+        state, _ = realize(arch, bundle, gen, smoke=False)
+        state = warm_state(torch, state, gen)
+        b, res = TRAIN_CHECK_BATCH, arch.cells["cls_224"].meta["img_res"]
+        images = torch.randn((b, res, res, 3), generator=gen, device=dev)
+        labels = torch.randint(0, arch.cfg.num_classes, (b,), generator=gen, device=dev).to(torch.int32)
+        zero()
+        with recording_train_calls() as rec:
+            new, metrics = bundle.fn(state, images=images, labels=labels)
+            torch.cuda.synchronize()
+        got = read()
+        want = (sum(rec.convs.values()), sum(c for sig, c in rec.convs.items() if sig[4] > 1), k1_dgrads(rec),
+                sum(rec.attns.values()))
+        print(f"{name} float32 step at batch {b} (cls_224, {res} x {res}): K1 launches {got[0]} (depthwise {got[1]}) "
+              f"forward, {got[2]} backward; K3 {got[3]}; expected {want}")
+        check(got == want and got[:2] + got[3:] == (*VISION_LAUNCHES[name][:2], VISION_LAUNCHES[name][2]),
+              f"{name}'s step launched {got}, expected {want} (forward as phase 13's {VISION_LAUNCHES[name]})")
+        check(got[0] > 0 and (got[3] > 0 or name != "vit-l16") and (got[2] > 0 or name == "vit-l16"),
+              f"{name}'s step left a kernel of its path unlaunched: {got}")
+        zero()
+        with plain_kernels():
+            plain, pmetrics = bundle.fn(state, images=images, labels=labels)
+            torch.cuda.synchronize()
+        check(read() == (0, 0, 0, 0), "the plain step launched a kernel")
+        # the control: the output gradient of the middle K1 call scaled
+        calls, pick = [0], sum(rec.convs.values()) // 2
+
+        def control_conv(*args, **kw):
+            calls[0] += 1
+            y = conv2d_cuda(*args, **kw)
+            return ScaledGrad.apply(y) if calls[0] - 1 == pick else y
+
+        with model_kernels(control_conv, flash_attention):
+            control, _ = bundle.fn(state, images=images, labels=labels)
+            torch.cuda.synchronize()
+        read()
+        loss, ploss = metrics["loss"].item(), pmetrics["loss"].item()
+        shares, ctl = leaf_shares(new, plain, state), leaf_shares(control, plain, state)
+        moved = max((a - o).abs().max().item() for a, o in zip(tree_leaves(new[0]), tree_leaves(state[0])))
+        print(f"  vs the plain versions' step: loss {loss:.7g} / {ploss:.7g}; leaf by leaf, largest |diff| of a "
+              f"first moment {shares['mu'][0]:.3g} of its leaf's largest ({shares['mu'][1]}), of an update "
+              f"{shares['update'][0]:.3g} ({shares['update'][1]}); limit {TRAIN_LEAF_RTOL}; "
+              f"{len(shares['blind'])} blind leaves held at the tree's largest |moment| {shares['blind'][:4]}; "
+              f"largest |update| {moved:.3g}")
+        print(f"  the control (K1 call {pick} of {calls[0]}'s output gradient x {TRAIN_CONTROL}): first moment "
+              f"{ctl['mu'][0]:.3g} ({ctl['mu'][1]}), update {ctl['update'][0]:.3g} ({ctl['update'][1]})")
+        check(abs(loss - ploss) <= DEPTH_RTOL * abs(ploss) and shares["mu"][0] <= TRAIN_LEAF_RTOL
+              and shares["update"][0] <= TRAIN_LEAF_RTOL, f"{name}'s float32 step drifts from the plain versions' step")
+        check(ctl["mu"][0] > TRAIN_LEAF_RTOL,
+              f"{name}: the control step with one wrong gradient passes the hold: it tests nothing")
+        check(moved > 0, f"{name}'s step left the parameters where they were: the holds test nothing")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)), f"{name}: non-finite state")
+        zero()
+        bwd_ms, bwd_parts = step_breakdown(torch, lambda: bundle.fn(state, images=images, labels=labels))
+        read()
+        print("  one profiled float32 step, device ms by part: "
+              + "; ".join(f"{k} {v:.3f}" for k, v in bwd_parts.items()) + f" (busy {bwd_ms:.3f})")
+        rep["float32_step"] = dict(batch=b, launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)),
+                                   loss=loss, plain_loss=ploss, mu_share=shares["mu"], update_share=shares["update"],
+                                   blind_leaves=shares["blind"], limit=TRAIN_LEAF_RTOL,
+                                   control=dict(scale=TRAIN_CONTROL, call=pick, mu_share=ctl["mu"],
+                                                update_share=ctl["update"]),
+                                   max_abs_update=moved, device_busy_ms=bwd_ms, device_ms_by_part=bwd_parts)
+        del new, plain, control, metrics, pmetrics
+
+        # (a) the Functions' gradients at every K1 signature of that step, and K3 at ViT's
+        rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(rec.convs.items(), key=str)]
+        rep["k1_grad_rows"] = rows
+        print_conv_holds(rows, "float32")
+        for (shape, s, dname, causal), c in rec.attns.items():
+            row = hold_attention_grad(torch, gen, *shape)
+            rep["k3_grad"] = dict(row, per_step=c)
+            print(f"  K3's Function held at {list(shape)}: max_err {row['max_abs_err']:.3g} (share "
+                  f"{row['limit_share']:.3g}); K3 forward {row['forward_device_us']:.2f} us, its plain backward "
+                  f"{row['backward_device_us']:.2f} us a call, x{c} a step")
+        del state, images, labels
+
+        # (c) timed bfloat16 training through the trainer
+        bundle = build(arch, "cls_224")
+        state, _ = realize(arch, bundle, gen, smoke=False)
+        peaks, flops = {}, {}
+        for pb in TRAIN_PROBE_BATCHES:
+            x = torch.randn((pb, res, res, 3), generator=gen, device=dev).to(torch.bfloat16)
+            y = torch.randint(0, arch.cfg.num_classes, (pb,), generator=gen, device=dev).to(torch.int32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            with recording_train_calls() as prec, FlopCounterMode(display=False) as counter:
+                bundle.fn(state, images=x, labels=y)
+                torch.cuda.synchronize()
+            read()
+            peaks[pb] = torch.cuda.max_memory_allocated()
+            flops[pb] = step_flops_of(counter, prec)
+        lo, hi = TRAIN_PROBE_BATCHES
+        per_image = (peaks[hi] - peaks[lo]) / (hi - lo)
+        fixed = peaks[lo] - per_image * lo
+        room = TRAIN_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
+        cell_batch = arch.cells["cls_224"].meta["batch"]
+        batch = cell_batch
+        while batch > lo and fixed + per_image * batch > room:
+            batch //= 2
+        step_flops = flops[lo] / lo * batch
+        del state
+        print(f"  bfloat16 peak memory {peaks[lo] / 1e9:.2f} GB at batch {lo}, {peaks[hi] / 1e9:.2f} GB at {hi}: "
+              f"{per_image / 1e9:.3f} GB an image -> batch {batch}"
+              + (f" (reduced from the cell's {cell_batch}: {(fixed + per_image * cell_batch) / 1e9:.1f} GB "
+                 f"predicted, over {TRAIN_MEM_SHARE} of the card)" if batch < cell_batch else " (the cell's)"))
+        est = ComputeRateEstimator({"h100": 1e14}, alpha=0.5)
+        dts = []
+
+        def observe(es, fl, dt):
+            dts.append(dt)
+            est.observe(es, fl, dt)
+
+        with tempfile.TemporaryDirectory() as d:
+            trainer, state = image_trainer(torch, with_batch(arch, batch), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
+                                           compute_observer=observe, es_name="h100", step_flops=step_flops)
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            state, stats = trainer.run(state, TRAIN_STEPS, resume=False)
+            got = read()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check(stats.steps == TRAIN_STEPS and stats.failures == 0, f"{name}'s bf16 run: {stats}")
+            check(all(math.isfinite(v) for v in stats.losses), f"{name}: a non-finite bf16 loss {stats.losses}")
+            check(got[0] == TRAIN_STEPS * want[0] and got[2] == TRAIN_STEPS * want[2]
+                  and got[3] == TRAIN_STEPS * want[3], f"{name}'s bf16 steps launched {got}, {TRAIN_STEPS} x {want}")
+            zero()
+            with recording_train_calls() as brec:
+                busy, parts = step_breakdown(torch, lambda: trainer.step_fn(
+                    state, **trainer.stream.batch_at(TRAIN_STEPS)))
+            read()
+        steady = sorted(dts[1:])
+        step_ms = steady[len(steady) // 2] * 1e3
+        tflops = step_flops / (step_ms / 1e3) / 1e12
+        print(f"  {TRAIN_STEPS} bf16 steps at batch {batch} through the trainer: losses "
+              f"{', '.join(f'{v:.4f}' for v in stats.losses)}; median step {step_ms:.3f} ms (first "
+              f"{dts[0] * 1e3:.1f} ms), {batch / step_ms * 1e3:.1f} images/s, {step_flops / 1e12:.3f} TFLOP a step "
+              f"-> {tflops:.1f} TFLOP/s (the estimator's EWMA {est.rate('h100') / 1e12:.1f}); peak memory "
+              f"{peak_gb:.2f} GB")
+        print("  one profiled bf16 step, device ms by part: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f" (busy {busy:.3f}, idle share {1 - busy / step_ms:.3f} of the median step)")
+        del state, trainer
+        torch.cuda.empty_cache()
+        # that step's K1 and K3 signatures, in bfloat16 at the timed batch
+        bf_rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(brec.convs.items(), key=str)]
+        print_conv_holds(bf_rows, f"bfloat16 at batch {batch}")
+        bf_attn = [dict(hold_attention_grad(torch, gen, *shape, dname), per_step=c)
+                   for (shape, s, dname, causal), c in brec.attns.items()]
+        for row in bf_attn:
+            print(f"  K3's Function held in bfloat16 at [{row['b']}, {row['h']}, {row['t']}, {row['d']}]: max_err "
+                  f"{row['max_abs_err']:.3g} (share {row['limit_share']:.3g})")
+        check(bool(bf_rows) and {r["dtype"] for r in bf_rows} == {"bfloat16"} and all(r["shape"][0] == batch
+                                                                                     for r in bf_rows),
+              f"{name}: the timed step's K1 calls were not bf16 at batch {batch}")
+        rep["bfloat16"] = dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch,
+                               probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}, losses=stats.losses,
+                               step_ms=step_ms, step_ms_all=[v * 1e3 for v in dts], images_per_s=batch / step_ms * 1e3,
+                               step_tflop=step_flops / 1e12, tflops=tflops, estimator_tflops=est.rate("h100") / 1e12,
+                               peak_gb=peak_gb, device_busy_ms=busy, device_ms_by_part=parts,
+                               launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)),
+                               k1_grad_rows=bf_rows, k3_grad_rows=bf_attn)
+        torch.cuda.empty_cache()
+        rep["phase_s"] = time.perf_counter() - t0
+        print(f"  {name}: {rep['phase_s']:.1f} s")
+
+    # (d) fault tolerance: faults at FAULT_AT against an uninterrupted run
+    t0 = time.perf_counter()
+    vit = get_arch("vit-l16")
+    cut = dataclasses.replace(vit, cfg=dataclasses.replace(vit.cfg, n_layers=FAULT_LAYERS))
+    fired = set()
+
+    def hook(i):
+        if i in FAULT_AT and i not in fired:
+            fired.add(i)
+            raise InjectedFault(f"injected at step {i}")
+
+    with tempfile.TemporaryDirectory() as d:
+        runs = []
+        for label, fault_hook in (("uninterrupted", None), ("faulted", hook)):
+            trainer, state = image_trainer(torch, cut, FaultConfig(ckpt_dir=f"{d}/{label}", ckpt_every=FAULT_EVERY),
+                                           fault_hook=fault_hook)
+            zero()
+            state, stats = trainer.run(state, FAULT_STEPS, resume=False)
+            got = read()
+            runs.append((state, stats))
+            print(f"  {label} run: {stats.steps} steps, {stats.failures} failures, {stats.restores} restores; "
+                  f"K1 {got[0]} forward / {got[2]} backward, K3 {got[3]}")
+        (ref, ref_stats), (faulted, stats) = runs
+        batch = vit.cells["cls_224"].meta["batch"]
+        equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(faulted)))
+        print(f"ViT-L/16 at full width cut to {FAULT_LAYERS} of its {vit.cfg.n_layers} layers, bf16, batch "
+              f"{batch}: {FAULT_STEPS} steps checkpointed every {FAULT_EVERY}, faults injected at {FAULT_AT}: "
+              f"final state bit-identical to the uninterrupted run's: {equal}; losses equal: "
+              f"{stats.losses == ref_stats.losses}")
+        check(stats.failures == len(FAULT_AT) and stats.restores == len(FAULT_AT),
+              f"the faulted run counted {stats.failures} failures and {stats.restores} restores, "
+              f"expected {len(FAULT_AT)} each (a kernel failure must not pass as a recovered fault)")
+        check(equal and stats.losses == ref_stats.losses and int(faulted[2]) == FAULT_STEPS,
+              "the fault-injected run does not replay to the uninterrupted run's state")
+        report["fault"] = dict(layers=FAULT_LAYERS, batch=batch, steps=FAULT_STEPS, ckpt_every=FAULT_EVERY,
+                               faults_at=list(FAULT_AT), failures=stats.failures, restores=stats.restores,
+                               bit_identical=equal, s=time.perf_counter() - t0)
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 15: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    return report, launches
+
+
+def print_conv_holds(rows: list, label: str) -> None:
+    """One line for a set of ``hold_conv_grad`` rows: how many, how many with
+    a K1 dgrad, and the largest share of the limit, where."""
+    def worst_share(r):
+        return max(r[g]["limit_share"] for g in ("y", "dx", "dw", "db") if g in r)
+
+    worst = max(rows, key=worst_share)
+    plain = max(r[g]["plain_share"] for r in rows for g in ("y", "dx", "dw", "db") if g in r)
+    print(f"  K1 and its Function held in {label} at {len(rows)} signatures ({sum(r['k1_dgrad'] for r in rows)} "
+          f"with a K1 dgrad): largest share of the limit {worst_share(worst):.3g} at {worst['shape']} "
+          f"k{worst['k']} s{worst['stride']} g{worst['groups']} (the plain version's own autograd: {plain:.3g})")
 
 
 def plain_kernels():
@@ -3866,6 +4472,9 @@ def main() -> int:
     # -- 14. diffusion generation at full width -------------------------------
     diff_report, diff_launches, diff_conv_rows, diff_attn_rows = phase_diffusion(torch)
 
+    # -- 15. vision training through configs.steps' cls_224 cells -------------
+    train_report, train_launches = phase_train(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -3905,7 +4514,8 @@ def main() -> int:
               "src/repro/kernels/conv2d/conv2d.py:39", main_rows,
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
-              + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]),
+              + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]
+              + train_launches["conv2d"] + train_launches["conv2d_backward"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
@@ -3913,8 +4523,17 @@ def main() -> int:
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
-              + diff_launches["flash_attention"]),
+              + diff_launches["flash_attention"] + train_launches["flash_attention"]),
     ]
+    # phase 15's backward: K1's launches in it, and per float32 step at batch
+    # 4 the device ms of its parts; K3's plain backward at ViT's shape
+    kernels[0]["backward"] = dict(launches=train_launches["conv2d_backward"], **{
+        name: {part: train_report[name]["float32_step"]["device_ms_by_part"][part] for part in BACKWARD_RANGES[:3]}
+        for name in TRAIN_ARCHS})
+    k3_grad = train_report["vit-l16"]["k3_grad"]
+    kernels[2]["backward"] = dict(per_step=k3_grad["per_step"], device_us=k3_grad["backward_device_us"],
+                                  forward_device_us=k3_grad["forward_device_us"],
+                                  vit_step_ms=train_report["vit-l16"]["float32_step"]["device_ms_by_part"]["K3 backward"])
     # K1's depthwise branch on its own: ConvNeXt-B's and EfficientNet-B7's
     # float32 forwards at batch 4 (every vision hold, bf16 too, in its error)
     dw_main = [r for r in vision_main if r["groups"] > 1]
@@ -4006,7 +4625,7 @@ def main() -> int:
         "vision_conv_cases": vision_conv_rows, "vision_attention_cases": vision_attn_rows,
         "vision_per_forward": vision_per_forward, "diffusion": diff_report,
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
-        "diffusion_per_forward": diffusion_per_forward,
+        "diffusion_per_forward": diffusion_per_forward, "train": train_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -4042,7 +4661,13 @@ def main() -> int:
                 "(66 K1 calls, 32 K3 at D = 40 / 80 / 160) and DiT-XL/2 (1 K1, 28 K3 at D = 72); its "
                 "launches count each model's counted float32 and bfloat16 forwards at batch 4, gen_fast "
                 "(bf16, batch 16, 4 steps) and gen_1024 (bf16, batch 4, 2 of its 50 steps); max_abs_err "
-                "covers its float32 holds at every signature (bf16 errors are in chip_smoke.json).",
+                "covers its float32 holds at every signature (bf16 errors are in chip_smoke.json).  Phase 15 "
+                "adds to the launches those of its training steps (ViT-L/16 and EfficientNet-B7 at cls_224: "
+                "one float32 step at batch 4, two probe steps and 10 timed and one profiled bf16 steps each; "
+                "and every step of the fault-injected pair, replays included), K1's forward and backward (its input gradients at "
+                "stride 1) launches alike; conv2d's backward entry counts the backward ones and gives the "
+                "backward's device ms by part in one profiled float32 step at batch 4 of each model, "
+                "flash_attention's the device us of K3's plain backward at ViT's shape.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

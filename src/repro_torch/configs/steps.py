@@ -1,11 +1,19 @@
-"""Step builders (twin of the serving half of ``repro/configs/steps.py``):
-(arch, cell) -> step function + the shapes and types of its inputs.
+"""Step builders (twin of ``repro/configs/steps.py``): (arch, cell) -> step
+function + the shapes and types of its inputs.
 
 JAX's builder returns abstract pytrees (``jax.eval_shape``) for its dry-run;
 the port has no dry-run, so its bundle holds ``(shape, dtype)`` pairs, taken
 from an init on the ``meta`` device.  The LM ``prefill`` and ``decode`` kinds,
-the vision ``serve`` kind and the diffusion ``gen`` kind (a DDIM sampler over
-the backbone) are ported; training raises (``ROADMAP.md`` queues it).
+the vision ``serve`` and ``train`` kinds and the diffusion ``gen`` kind (a
+DDIM sampler over the backbone) are ported; LM and diffusion training raise
+(``ROADMAP.md`` queues them).
+
+A train step is a plain function ``step((params, opt, n), **batch) ->
+((params, opt, n + 1), {"loss": loss})``: the model's ``loss_fn``, the
+gradients of every parameter leaf by ``torch.autograd.grad`` (a leaf the
+loss does not reach gets zeros, as JAX's gradient gives it), then
+:func:`~repro_torch.optim.adamw_update` at ``warmup_cosine(n)``.  It returns
+new tensors and leaves its input state intact.
 """
 from __future__ import annotations
 
@@ -18,19 +26,20 @@ import torch
 
 from ..models import dit, unet
 from ..models import transformer_lm as lm
-from ..models.common import tree_map
+from ..models.common import tree_leaves, tree_map, tree_unflatten
+from ..optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 from ..parallel.variants import get_variant
 from .base import Arch, Cell
 
-__all__ = ["StepBundle", "build", "abstract_params"]
+__all__ = ["StepBundle", "build", "abstract_params", "abstract_state", "realize"]
 
 
 @dataclass
 class StepBundle:
     """One (arch, cell): the step, and the shapes its arguments take."""
 
-    fn: Callable  # fn(params, *inputs)
-    state: Any  # the parameters as a tree of (shape, dtype)
+    fn: Callable  # fn(params or (params, opt, n), *inputs)
+    state: Any  # the parameters (train: (params, opt, n)) as a tree of (shape, dtype)
     inputs: dict[str, Any]  # name -> (shape, dtype), or a tree of them (a KV or latent cache)
     kind: str
 
@@ -41,6 +50,32 @@ def _spec(t: torch.Tensor) -> tuple[tuple[int, ...], torch.dtype]:
 
 def abstract_params(arch: Arch, cfg, dtype) -> Any:
     return tree_map(_spec, arch.module.init(torch.Generator(), cfg, dtype, device="meta"))
+
+
+def abstract_state(arch: Arch, cfg, dtype, opt_cfg: AdamWConfig) -> tuple:
+    """A train step's state ``(params, opt, n)`` as (shape, dtype) trees."""
+    params = arch.module.init(torch.Generator(), cfg, dtype, device="meta")
+    return tree_map(_spec, params), tree_map(_spec, adamw_init(params, opt_cfg)), ((), torch.int32)
+
+
+def _opt_cfg_for(arch: Arch) -> AdamWConfig:
+    # bf16 moments for the very large configs, as JAX's builder takes them
+    if arch.name.startswith("deepseek"):
+        return AdamWConfig(moment_dtype=torch.bfloat16)
+    return AdamWConfig()
+
+
+def _grads(loss_of: Callable, params) -> tuple[torch.Tensor, Any, Any]:
+    """(loss, aux, gradient tree) of ``loss_of(params) -> (loss, aux)``: each
+    leaf's gradient by ``torch.autograd.grad``, zeros where the loss does not
+    reach the leaf."""
+    with torch.enable_grad():
+        tracked = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, aux = loss_of(tracked)
+        leaves = tree_leaves(tracked)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    return loss.detach(), aux, tree_unflatten(params, grads)
 
 
 def _lm_prefill(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
@@ -71,6 +106,23 @@ def _adapt_vision_cfg(arch: Arch, cfg, img_res: int):
         # Swin finetunes at 384 with window 12 (arXiv:2103.14030 §4.1)
         cfg = dataclasses.replace(cfg, window=12)
     return cfg
+
+
+def _vision_train(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
+    cfg = _adapt_vision_cfg(arch, cfg, cell.meta["img_res"])
+    opt_cfg = _opt_cfg_for(arch)
+
+    def step(state, images, labels):
+        params, opt, n = state
+        # the stream's float32 images in the parameters' type
+        images = images.to(dtype)
+        loss, _, grads = _grads(lambda p: arch.module.loss_fn(p, cfg, images, labels), params)
+        params, opt = adamw_update(grads, opt, params, opt_cfg, warmup_cosine(n))
+        return (params, opt, n + 1), {"loss": loss}
+
+    b, r = cell.meta["batch"], cell.meta["img_res"]
+    return StepBundle(fn=step, state=abstract_state(arch, cfg, dtype, opt_cfg),
+                      inputs={"images": ((b, r, r, 3), dtype), "labels": ((b,), torch.int32)}, kind="train")
 
 
 def _vision_serve(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
@@ -147,6 +199,7 @@ def _diffusion_gen(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
 _BUILDERS = {
     ("lm", "prefill"): _lm_prefill,
     ("lm", "decode"): _lm_decode,
+    ("vision", "train"): _vision_train,
     ("vision", "serve"): _vision_serve,
     ("diffusion", "gen"): _diffusion_gen,
 }
@@ -165,6 +218,51 @@ def build(arch: Arch, cell_name: str, *, smoke: bool = False, dtype=None) -> Ste
     if dtype is None:
         dtype = torch.float32 if smoke else torch.bfloat16
     return _BUILDERS[(arch.family, cell.kind)](arch, cfg, cell, dtype)
+
+
+def realize(arch: Arch, bundle: StepBundle, gen: torch.Generator, *, smoke: bool = True) -> tuple[Any, dict]:
+    """Real (state, inputs) for a bundle on ``gen``'s device: parameters
+    from the arch's init (a train bundle adds zero AdamW moments and step
+    0), random inputs -- integers below 8 (under every smoke config's
+    classes and vocabulary), 0 for a scalar, floats N(0, 1) -- and zeros for
+    a tree of inputs (a cache)."""
+    cfg = arch.smoke_cfg if smoke else arch.cfg
+    dtype = _spec_leaves(bundle.state)[0][1]  # the parameters' type: a train state leads with them
+    params = arch.module.init(gen, cfg, dtype)
+    state = params
+    if bundle.kind == "train":
+        state = (params, adamw_init(params, _opt_cfg_for(arch)), torch.zeros((), dtype=torch.int32, device=gen.device))
+    return state, {name: _random_like(spec, gen) for name, spec in bundle.inputs.items()}
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
+def _spec_leaves(tree) -> list:
+    if _is_spec(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [x for v in items for x in _spec_leaves(v)]
+
+
+def _zeros(spec, device) -> Any:
+    if _is_spec(spec):
+        return torch.zeros(spec[0], dtype=spec[1], device=device)
+    if isinstance(spec, dict):
+        return {k: _zeros(v, device) for k, v in spec.items()}
+    return type(spec)(_zeros(v, device) for v in spec)
+
+
+def _random_like(spec, gen: torch.Generator):
+    if not _is_spec(spec):  # a tree of inputs (a cache): zeros
+        return _zeros(spec, gen.device)
+    shape, dtype = spec
+    if not dtype.is_floating_point:
+        if shape == ():
+            return torch.zeros((), dtype=dtype, device=gen.device)
+        return torch.randint(0, 8, shape, generator=gen, device=gen.device).to(dtype)
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
 def _shrink(cell: Cell) -> Cell:

@@ -9,7 +9,10 @@ dimension must be dense), so the model layout [B, T, H, D] goes to the kernel
 as a transposed view, without a copy, and a KV head shared by several query
 heads is indexed, never repeated.  v may be narrower than q and k (MLA: a
 query/key width of 192, a value width of 128); the output has v's width and
-is allocated here, in q's memory layout where q is dense.
+is allocated here, in q's memory layout where q is dense.  Under autograd
+both go through :class:`FlashAttentionFunction`: K3 forward, and a plain
+float32 backward chunked over query rows (:func:`attention_backward`); JAX's
+models differentiate einsums with XLA and have no Pallas backward.
 """
 from __future__ import annotations
 
@@ -136,6 +139,23 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     return o
 
 
+def _attend(q, k, v, causal: bool) -> torch.Tensor:
+    """Attention on checked [B, H, T, D] operands whose KV heads divide H:
+    the plain version on the CPU (KV heads repeated), else the kernel."""
+    if q.device.type == "cpu":
+        g = q.shape[1] // k.shape[1]
+        if g > 1:
+            k, v = (x.repeat_interleave(g, dim=1) for x in (k, v))
+        return attention_ref(q, k, v, causal=causal)
+    if q.numel() == 0:  # nothing to compute: no launch, no count
+        return _output(q, v.shape[3])
+    return _launch(q, k, v, causal)
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, T, D]
     k: torch.Tensor,  # [B, H, S, D]
@@ -145,15 +165,14 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention, scale 1/sqrt(D), the causal mask aligned
     top-left; output [B, H, T, DV] in q's dtype.  Any T and S (no block
-    multiples); (D, DV) one of ``HEAD_DIMS``."""
+    multiples); (D, DV) one of ``HEAD_DIMS``.  Where grad is enabled and an
+    operand requires it, through :class:`FlashAttentionFunction`."""
     _check("flash_attention", q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention: k has {k.shape[1]} heads, q {q.shape[1]} (use gqa_flash)")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    if q.numel() == 0:  # nothing to compute: no launch, no count
-        return _output(q, v.shape[3])
-    return _launch(q, k, v, causal)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, causal)
+    return _attend(q, k, v, causal)
 
 
 def gqa_flash(
@@ -167,13 +186,74 @@ def gqa_flash(
     reads KV head ``h // (H / Hkv)``; output [B, T, H, DV]."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, T, D] views
     _check("gqa_flash", qt, kt, vt)
-    if q.device.type == "cpu":
-        g = qt.shape[1] // kt.shape[1]
-        kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
-        return attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
-    if q.numel() == 0:
-        return _output(qt, v.shape[3]).transpose(1, 2)
-    return _launch(qt, kt, vt, causal).transpose(1, 2)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFunction.apply(qt, kt, vt, causal).transpose(1, 2)
+    return _attend(qt, kt, vt, causal).transpose(1, 2)
+
+
+# float32 scores (and as many probabilities and score gradients) that one
+# chunk of query rows of the backward holds at once
+BACKWARD_SCORE_BYTES = 256 * 2**20
+
+
+def attention_backward(q, k, v, o, do, causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of K3's attention for the output cotangent ``do``, plain
+    PyTorch in float32, a chunk of query rows at a time (at most
+    ``BACKWARD_SCORE_BYTES`` of scores).  q [B, H, T, D], k [B, Hkv, S, D],
+    v [B, Hkv, S, DV], the saved output o and do [B, H, T, DV]; query head
+    ``h`` reads KV head ``h // (H / Hkv)``, so dk and dv sum over each KV
+    head's group.  P is recomputed with K3's scale 1/sqrt(D) and top-left
+    causal mask; dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D).  Each gradient in its
+    operand's type."""
+    b, h, t, d = q.shape
+    hkv, s, dv_ = k.shape[1], k.shape[2], v.shape[3]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, g, t, d)
+    of, dof = (x.float().reshape(b, hkv, g, t, dv_) for x in (o, do))
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk = torch.zeros((b, hkv, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, hkv, s, dv_), dtype=torch.float32, device=q.device)
+    rows = max(1, BACKWARD_SCORE_BYTES // (4 * b * h * s))
+    keys = torch.arange(s, device=q.device)
+    for t0 in range(0, t, rows):
+        t1 = min(t, t0 + rows)
+        qc, oc, doc = qf[:, :, :, t0:t1], of[:, :, :, t0:t1], dof[:, :, :, t0:t1]
+        scores = torch.einsum("bhgtd,bhsd->bhgts", qc, kf) * scale
+        if causal:
+            seen = torch.arange(t0, t1, device=q.device)[:, None] >= keys[None, :]
+            scores = scores.masked_fill(~seen, float("-inf"))
+        p = torch.softmax(scores, dim=-1)
+        del scores
+        dv += torch.einsum("bhgts,bhgtd->bhsd", p, doc)
+        dp = torch.einsum("bhgtd,bhsd->bhgts", doc, vf)
+        ds = p * (dp - (doc * oc).sum(dim=-1, keepdim=True))
+        del p, dp
+        dq[:, :, :, t0:t1] = torch.einsum("bhgts,bhsd->bhgtd", ds, kf) * scale
+        dk += torch.einsum("bhgts,bhgtd->bhsd", ds, qc) * scale
+    return dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K3 under autograd on [B, H, T, D] operands (KV heads dividing H): the
+    forward is the kernel (the plain version on the CPU), the backward
+    :func:`attention_backward` on the saved output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o = _attend(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        with torch.profiler.record_function("K3 backward"):
+            dq, dk, dv = attention_backward(q, k, v, o, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 # Kernel launches so far in this process, by either wrapper (CPU calls do not count).

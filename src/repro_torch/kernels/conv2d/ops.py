@@ -5,6 +5,10 @@ For a CPU tensor it runs the plain version (:func:`.ref.conv2d_ref`); for a
 CUDA tensor it launches the kernel or raises -- there is no fallback.  The
 input is read in place (any batch/row/column strides, dense channels), the
 padding is applied inside the kernel, and the output is allocated here.
+Under autograd the call is :class:`Conv2dFunction`, whose backward
+(:func:`conv2d_backward`) runs a stride-1 conv's input gradient through the
+kernel again; JAX differentiates ``lax.conv_general_dilated`` with XLA and
+has no Pallas backward.
 """
 from __future__ import annotations
 
@@ -157,21 +161,112 @@ def conv2d_cuda(
 
     ``groups`` is 1 (dense) or ``Cin == Cout`` (depthwise); anything else
     raises, as in ``conv2d_pallas``.  The arguments are checked alike on both
-    devices, so the plain version keeps the kernel's contract."""
+    devices, so the plain version keeps the kernel's contract.  Where grad is
+    enabled and an operand requires it, the call goes through
+    :class:`Conv2dFunction` (same forward, and a backward); else straight to
+    the kernel."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weights, bias)):
+        return Conv2dFunction.apply(x, weights, bias, stride, padding, groups)
+    y, launched = _conv(x, weights, bias, stride, padding, groups)
+    _count_forward(launched, groups)
+    return y
+
+
+def _count_forward(launched: bool, groups: int) -> None:
+    if launched:
+        conv2d_cuda.launches += 1
+        if groups > 1:
+            conv2d_cuda.depthwise_launches += 1
+
+
+def _conv(x, weights, bias, stride: int, padding: int, groups: int) -> tuple[torch.Tensor, bool]:
+    """(the conv, whether the kernel launched): the plain version for a CPU
+    tensor, the kernel for a CUDA one (not counted here)."""
     ho, wo = _check_args(x, weights, bias, stride, padding, groups)
     if x.device.type == "cpu":
-        return conv2d_ref(x, weights, bias, stride=stride, padding=padding, groups=groups)
+        return conv2d_ref(x, weights, bias, stride=stride, padding=padding, groups=groups), False
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_cuda takes CPU or CUDA tensors, got {x.device}")
     y = torch.empty((x.shape[0], ho, wo, weights.shape[-1]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y
+        return y, False
     launch(_lib(), x, weights, bias, y, stride, padding, groups,
            torch.cuda.current_stream(x.device).cuda_stream)
-    conv2d_cuda.launches += 1
-    if groups > 1:
-        conv2d_cuda.depthwise_launches += 1
-    return y
+    return y, True
+
+
+def library_flags(allow_tf32: bool = False):
+    """cuDNN as the backward's library calls take it: deterministic (a
+    replayed step is bit-identical), no autotuning, and float32 kept float32
+    (no TF32) unless ``allow_tf32``."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=allow_tf32)
+
+
+def conv2d_backward(dy: torch.Tensor, x: torch.Tensor, weights: torch.Tensor, stride: int, padding: int,
+                    groups: int, needs: tuple[bool, bool, bool]) -> tuple:
+    """(dx, dW, db) of the conv for the output cotangent ``dy``, each None
+    unless ``needs`` asks for it.
+
+    At stride 1 (and ``padding <= k - 1``) dx is itself a stride-1 conv that
+    K1 computes: dy at padding ``k - 1 - padding`` with the filter flipped in
+    H and W (dense: I and O swapped), H x W again; those launches count in
+    ``conv2d_cuda.backward_launches``.  dx at a larger stride and dW come
+    from the library (``aten.convolution_backward`` on channels-last views,
+    one call each, under :func:`library_flags`; bfloat16 and float16
+    operands go to it as float32 copies with TF32 on, which holds their
+    values exactly: cuDNN's own bfloat16 weight gradient rounds its partial
+    sums, up to 24x the bfloat16 tolerance off at EfficientNet-B7's 1x1
+    convs on the H100), db is dy summed in float32:
+    JAX takes all of these from XLA, outside any Pallas kernel.  Each part
+    runs in a ``torch.profiler.record_function`` range of its name, so a
+    profile of a step tells them apart: "K1 dgrad", "conv dgrad (library)",
+    "conv wgrad (library)"."""
+    need_x, need_w, need_b = needs
+    k = weights.shape[0]
+    dy = dy if dy.stride(3) == 1 else dy.contiguous()
+    dx = dw = db = None
+    k1_dgrad = need_x and stride == 1 and padding <= k - 1
+    if k1_dgrad:
+        flipped = weights.flip(0, 1) if groups > 1 else weights.flip(0, 1).transpose(2, 3)
+        with torch.profiler.record_function("K1 dgrad"):
+            dx, launched = _conv(dy, flipped.contiguous(), None, 1, k - 1 - padding, groups)
+        conv2d_cuda.backward_launches += launched
+
+    def library(name: str, mask: list[bool], i: int, order: list[int]):
+        wide = dy.dtype != torch.float32
+        with library_flags(allow_tf32=wide), torch.profiler.record_function(name):
+            d, a, w = (t.float() if wide else t for t in (dy, x, weights))
+            out = torch.ops.aten.convolution_backward(
+                d.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
+                [stride] * 2, [padding] * 2, [1, 1], False, [0, 0], groups, mask)[i]
+            return out.permute(order).to(dy.dtype).contiguous()
+
+    if need_x and not k1_dgrad:
+        dx = library("conv dgrad (library)", [True, False, False], 0, [0, 2, 3, 1])
+    if need_w:
+        dw = library("conv wgrad (library)", [False, True, False], 1, [2, 3, 1, 0])
+    if need_b:
+        db = dy.float().sum(dim=(0, 1, 2)).to(dy.dtype)
+    return dx, dw, db
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """K1 under autograd: the forward is the kernel (the plain version on the
+    CPU), the backward :func:`conv2d_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, weights, bias, stride: int, padding: int, groups: int):
+        y, launched = _conv(x, weights, bias, stride, padding, groups)
+        _count_forward(launched, groups)
+        ctx.save_for_backward(x, weights)
+        ctx.conv = (stride, padding, groups)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weights = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad[:3])
+        return conv2d_backward(dy, x, weights, *ctx.conv, needs) + (None, None, None)
 
 
 def launch(lib, x, weights, bias, y, stride, padding, groups, stream) -> None:
@@ -218,7 +313,9 @@ def configure(lib, x, weights, *, stride: int = 1, padding: int = 1, groups: int
     return dict(splits=splits, gather=GATHER_NAMES[gather], depthwise=None)
 
 
-# Kernel launches so far in this process (CPU calls do not count), and of
-# those the depthwise branch's.
+# Kernel launches so far in this process (CPU calls do not count): the
+# forward's, of those the depthwise branch's, and the backward's input
+# gradients (``conv2d_backward``).
 conv2d_cuda.launches = 0
 conv2d_cuda.depthwise_launches = 0
+conv2d_cuda.backward_launches = 0

@@ -131,10 +131,36 @@ def params_from_jax(tree, device: str | torch.device = "cpu",
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def tree_map(fn, tree) -> Params:
-    """Apply ``fn`` to every tensor leaf of a dict/list/tuple tree."""
+def train_state_from_jax(state, device: str | torch.device = "cpu"):
+    """A JAX trainer's state ``(params, opt, step)`` -- AdamW's ``mu``,
+    ``nu`` and ``count`` included -- as the port's, on ``device``, so that a
+    JAX run continues in the port (:func:`params_from_jax`, leaf types kept)."""
+    params, opt, step = state
+    return params_from_jax(params, device), params_from_jax(opt, device), params_from_jax(step, device)
+
+
+def tree_map(fn, tree, *rest) -> Params:
+    """Apply ``fn`` to every tensor leaf of a dict/list/tuple tree, with the
+    leaves at the same place in the trees of ``rest`` as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list/tuple tree in the order :func:`tree_map`
+    visits them."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves) -> Params:
+    """``leaves`` (in :func:`tree_leaves` order) in the structure of ``like``."""
+    leaves, n = list(leaves), len(tree_leaves(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

@@ -14,9 +14,9 @@ from dataclasses import dataclass
 import torch
 
 from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers
-from .layers import conv2d, dense, gelu, global_avg_pool, layernorm
+from .layers import conv2d, dense, gelu, global_avg_pool, layernorm, softmax_xent
 
-__all__ = ["ConvNeXtConfig", "init", "apply"]
+__all__ = ["ConvNeXtConfig", "init", "apply", "loss_fn"]
 
 
 @dataclass(frozen=True)
@@ -84,3 +84,10 @@ def apply(params: Params, cfg: ConvNeXtConfig, x: torch.Tensor) -> torch.Tensor:
             x = conv2d(x, stage["down"], stride=2, padding="VALID")
     x = layernorm(global_avg_pool(x), params["ln"])
     return dense(x, params["head"])
+
+
+def loss_fn(params: Params, cfg: ConvNeXtConfig, images: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy of the logits (:func:`~.layers.softmax_xent`);
+    returns (loss, {"logits": logits})."""
+    logits = apply(params, cfg, images)
+    return softmax_xent(logits, labels), {"logits": logits}

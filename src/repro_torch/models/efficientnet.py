@@ -5,8 +5,9 @@ img_res=600).
 MBConv blocks with squeeze-excitation.  The stem, the 1x1 expand and
 project convs and the head conv go to K1's dense route; the 3x3 / 5x5
 depthwise convs (stride 1 or 2, symmetric padding (k - 1) // 2) to its
-depthwise branch.  Squeeze-excitation stays plain.  Inference only: the
-batch norms use their folded running statistics.
+depthwise branch.  Squeeze-excitation stays plain.  The batch norms use
+their folded running statistics, or under ``train=True`` (the loss) the
+batch's own.
 """
 from __future__ import annotations
 
@@ -16,9 +17,10 @@ from dataclasses import dataclass
 import torch
 
 from .common import Params, conv_params, dense_params
-from .layers import batchnorm_inference, conv2d, dense, global_avg_pool, sigmoid, silu
+from .layers import (batchnorm_inference, batchnorm_train, conv2d, dense, global_avg_pool, sigmoid, silu,
+                     softmax_xent)
 
-__all__ = ["EfficientNetConfig", "init", "apply", "block_meta", "B0_STAGES"]
+__all__ = ["EfficientNetConfig", "init", "apply", "loss_fn", "block_meta", "B0_STAGES"]
 
 # B0 baseline: (expand, channels, repeats, stride, kernel)
 B0_STAGES = (
@@ -83,10 +85,7 @@ def _mbconv_init(gen: torch.Generator, c_in: int, c_out: int, expand: int, k: in
 
 
 def _bn(x: torch.Tensor, p: Params, train: bool) -> torch.Tensor:
-    if train:
-        raise NotImplementedError("efficientnet.apply(train=True) (batch statistics) belongs to training, "
-                                  "which is not ported to repro_torch yet (ROADMAP.md, open item 9)")
-    return batchnorm_inference(x, p)
+    return batchnorm_train(x, p) if train else batchnorm_inference(x, p)
 
 
 def _mbconv_apply(p: Params, x: torch.Tensor, stride: int, k: int, train: bool) -> torch.Tensor:
@@ -135,9 +134,17 @@ def block_meta(cfg: EfficientNetConfig) -> list[tuple[int, int]]:
 
 
 def apply(params: Params, cfg: EfficientNetConfig, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-    """x [B, H, W, C] -> logits [B, classes]; ``train=True`` raises."""
+    """x [B, H, W, C] -> logits [B, classes]; ``train=True`` normalises
+    with the batch's own statistics (:func:`~.layers.batchnorm_train`)."""
     x = silu(_bn(conv2d(x, params["stem"], stride=2, padding=1), params["stem_bn"], train))
     for p_b, (s, k) in zip(params["blocks"], block_meta(cfg)):
         x = _mbconv_apply(p_b, x, s, k, train)
     x = silu(_bn(conv2d(x, params["head_conv"], padding="VALID"), params["head_bn"], train))
     return dense(global_avg_pool(x), params["fc"])
+
+
+def loss_fn(params: Params, cfg: EfficientNetConfig, images: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy (:func:`~.layers.softmax_xent`) of the logits of
+    ``apply(train=True)``; returns (loss, {"logits": logits})."""
+    logits = apply(params, cfg, images, train=True)
+    return softmax_xent(logits, labels), {"logits": logits}

@@ -153,3 +153,32 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     rounded to x's type: the expansion XLA gives ``jax.nn.silu``, so bfloat16
     rounds where JAX's does (``F.silu`` rounds once)."""
     return x * sigmoid(x)
+
+
+def batchnorm_train(x: torch.Tensor, p: Params, eps: float = 1e-5, axes=(0, 1, 2)) -> torch.Tensor:
+    """Batch norm over the batch's own statistics (no running-average
+    update, as JAX's smoke trainer): the population variance (``jnp.var``
+    has ddof 0) about the batch mean, in JAX's order (:func:`standardize`),
+    then ``* scale + b`` in x's type."""
+    return standardize(x, axes, eps) * p["scale"] + p["b"]
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy with integer labels, taken in float32.  The cast's
+    backward returns the cotangent in the logits' type, as the transpose of
+    JAX's ``astype`` does, so a bfloat16 model's backward stays bfloat16."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return (logz - gold).mean()
+
+
+def drop_path(x: torch.Tensor, gen: torch.Generator, rate: float) -> torch.Tensor:
+    """Stochastic depth: each sample's residual kept with probability
+    ``1 - rate`` (a draw from ``gen``, on its device) and scaled by
+    ``1 / (1 - rate)``, else zeroed.  The draw is not JAX's bits for a key."""
+    if rate <= 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = torch.rand(shape, generator=gen, device=gen.device) < 1.0 - rate
+    return x * keep.to(device=x.device, dtype=x.dtype) / (1.0 - rate)

@@ -17,9 +17,9 @@ from dataclasses import dataclass
 import torch
 
 from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
-from .layers import conv2d, dense, gelu, global_avg_pool, layernorm, scalar_like
+from .layers import conv2d, dense, gelu, global_avg_pool, layernorm, scalar_like, softmax_xent
 
-__all__ = ["SwinConfig", "init", "apply"]
+__all__ = ["SwinConfig", "init", "apply", "loss_fn"]
 
 
 @dataclass(frozen=True)
@@ -165,3 +165,10 @@ def apply(params: Params, cfg: SwinConfig, x: torch.Tensor) -> torch.Tensor:
             x = dense(layernorm(x, stage["merge_norm"]), stage["merge"])
     x = layernorm(x, params["ln"])
     return dense(global_avg_pool(x), params["head"])
+
+
+def loss_fn(params: Params, cfg: SwinConfig, images: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy of the logits (:func:`~.layers.softmax_xent`);
+    returns (loss, {"logits": logits})."""
+    logits = apply(params, cfg, images)
+    return softmax_xent(logits, labels), {"logits": logits}

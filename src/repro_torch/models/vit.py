@@ -16,9 +16,9 @@ import torch
 
 from ..kernels.attention import flash_attention
 from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
-from .layers import conv2d, dense, gelu, layernorm
+from .layers import conv2d, dense, gelu, layernorm, softmax_xent
 
-__all__ = ["ViTConfig", "init", "apply", "vit_block_init", "vit_block_apply"]
+__all__ = ["ViTConfig", "init", "apply", "loss_fn", "vit_block_init", "vit_block_apply"]
 
 
 @dataclass(frozen=True)
@@ -93,3 +93,10 @@ def apply(params: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
         x = vit_block_apply(layer(params["blocks"], i), x, cfg.n_heads)
     x = layernorm(x, params["ln"])
     return dense(x[:, 0], params["head"])
+
+
+def loss_fn(params: Params, cfg: ViTConfig, images: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy of the logits (:func:`~.layers.softmax_xent`);
+    returns (loss, {"logits": logits})."""
+    logits = apply(params, cfg, images)
+    return softmax_xent(logits, labels), {"logits": logits}

@@ -1,5 +1,7 @@
-"""Serving runtime of the port: the batching engine, admission and
-trace-scale serving, and the traffic models."""
+"""Runtime of the port: the batching engine, admission and trace-scale
+serving, the traffic models, and checkpoint/restart training."""
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .fault import FaultConfig, FaultTolerantTrainer, InjectedFault, TrainerStats
 from .serve import (
     BatchingEngine,
     Request,
@@ -24,16 +26,23 @@ __all__ = [
     "BatchingEngine",
     "DeadlineClass",
     "DiurnalProcess",
+    "FaultConfig",
+    "FaultTolerantTrainer",
     "FlashCrowdProcess",
+    "InjectedFault",
     "PoissonProcess",
     "Request",
     "ServeConfig",
     "ServeLoopConfig",
     "ServedTrace",
     "Trace",
+    "TrainerStats",
     "VirtualClock",
     "choose_batch_size",
+    "latest_step",
     "make_trace",
     "plan_aware_batch_size",
+    "restore_checkpoint",
+    "save_checkpoint",
     "serve_trace",
 ]

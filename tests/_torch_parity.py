@@ -65,3 +65,23 @@ def port_lm_config(jcfg) -> lm.LMConfig:
     if jcfg.mla is not None:
         fields["mla"] = attention.MLAConfig(**dataclasses.asdict(jcfg.mla))
     return lm.LMConfig(**fields)
+
+
+def perturb_vision(tree, seed):
+    """JAX's tree with each one-dimensional leaf replaced by seeded numpy
+    values of its role: biases and means 0.1 N(0, 1), scales 1 + 0.1 N(0, 1),
+    variances 1 + 0.2 |N(0, 1)|; ConvNeXt's gamma keeps its layer scale."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        name = str(path[-1].key) if hasattr(path[-1], "key") else ""
+        shape = a.shape
+        if name in ("b", "mean"):
+            return jnp.asarray(0.1 * rng.standard_normal(shape, dtype=np.float32), a.dtype)
+        if name == "scale":
+            return jnp.asarray(1 + 0.1 * rng.standard_normal(shape, dtype=np.float32), a.dtype)
+        if name == "var":
+            return jnp.asarray(1 + 0.2 * np.abs(rng.standard_normal(shape, dtype=np.float32)), a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)

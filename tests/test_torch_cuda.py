@@ -703,3 +703,86 @@ def test_flash_attention_diffusion_widths_match_plain_on_card(card, dtype, d):
             got += [_forced_shape(q, k, v, causal, shape) for shape in range(3)]
             for g in got:
                 torch.testing.assert_close(g.float(), want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# (N, H, W, Cin, Cout, k, stride, pad, groups): a dense stride-1 conv (its
+# input gradient is K1 on the flipped filter), a depthwise one (the same, on
+# K1's depthwise branch), a strided one (the library's input gradient), and
+# one of EfficientNet-B7's 1x1 convs at batch 64 (where cuDNN's own bfloat16
+# weight gradient is far off: the library takes float32 copies)
+GRAD_CONVS = [(2, 28, 28, 64, 96, 3, 1, 1, 1), (2, 28, 28, 96, 96, 5, 1, 2, 96), (2, 29, 29, 32, 64, 3, 2, 1, 1),
+              (64, 28, 28, 80, 480, 1, 1, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in GRAD_CONVS],
+                         ids=[f"{n}{dt}" for dt in ("", "-bfloat16") for n in ("dense", "depthwise", "strided", "pointwise")])
+def test_conv2d_function_grads_match_plain_autograd_on_card(card, case, dtype):
+    """K1's autograd Function in float32 (TF32 off) or bfloat16: dx, dW and
+    db against autograd through the plain version in float32 on the card on
+    the same values, within TOL x (1 + |g|) plus 2^-20 of each gradient's
+    sum of |terms| (large sums cancel; in bfloat16 the plain version's own
+    autograd rounds each tap's share of dx to bfloat16 and sums them so);
+    dx at stride 1 launches K1 once in the backward; two backward runs are
+    bit-identical (the library calls run deterministic)."""
+    n, h, w, cin, cout, k, s, pad, g = case
+    rng = np.random.default_rng(sum(case))
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+
+    x, wts, b = arr(n, h, w, cin), arr(k, k, 1 if g > 1 else cin, cout, scale=0.1), arr(cout)
+    kw = dict(stride=s, padding=pad, groups=g)
+    leaves = [t.float().detach().requires_grad_() for t in (x, wts, b)]
+    y = conv2d_ref(*leaves, **kw)
+    dy = arr(*y.shape)
+    want = torch.autograd.grad(y, leaves, dy.float())
+    abs_leaves = [t.float().abs().requires_grad_() for t in (x, wts, b)]
+    sums = torch.autograd.grad(conv2d_ref(*abs_leaves, **kw), abs_leaves, dy.float().abs())
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (x, wts, b)]
+        before = conv2d_cuda.launches, conv2d_cuda.backward_launches
+        got = torch.autograd.grad(conv2d_cuda(*leaves, **kw), leaves, dy)
+        torch.cuda.synchronize()
+        assert conv2d_cuda.launches == before[0] + 1
+        assert conv2d_cuda.backward_launches == before[1] + (s == 1)
+        runs.append(got)
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    for gt, wt, sm in zip(runs[0], want, sums):
+        assert gt.dtype == dtype
+        gt = gt.float()
+        assert bool(((gt - wt).abs() <= TOL[dtype] * (1 + wt.abs()) + 2.0 ** -20 * sm).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_grads_match_plain_autograd_on_card(card):
+    """K3's autograd Function at ViT-L/16's shape ([4, 16, 197, 64], the
+    model layout's strides, not causal) and a causal GQA one: dq, dk, dv
+    against autograd through the plain version on the card, float32, at
+    2e-5 x (1 + |g|); two backward runs are bit-identical."""
+    rng = np.random.default_rng(7)
+    for (b, t, h, hkv, d, causal) in ((4, 197, 16, 16, 64, False), (2, 130, 8, 2, 128, True)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, t, n, d), dtype=np.float32)).to(card)
+                   for n in (h, hkv, hkv))
+        do = torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32)).to(card)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        g = h // hkv
+        qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+        ref = attention_ref(qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), causal=causal)
+        want = torch.autograd.grad(ref.transpose(1, 2), leaves, do)
+        runs = []
+        for _ in range(2):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = flash_attention.launches
+            if g > 1:
+                out = gqa_flash(*leaves, causal=causal)
+            else:
+                out = flash_attention(*(x.transpose(1, 2) for x in leaves), causal=causal).transpose(1, 2)
+            runs.append(torch.autograd.grad(out, leaves, do))
+            assert flash_attention.launches == before + 1
+        for a, c in zip(*runs):
+            assert torch.equal(a, c)
+        for gt, wt in zip(runs[0], want):
+            torch.testing.assert_close(gt, wt, rtol=2e-5, atol=2e-5)

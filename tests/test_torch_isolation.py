@@ -1,5 +1,7 @@
 """The PyTorch/CUDA port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any module of the JAX package ``repro``."""
+import neither ``jax`` nor any module of the JAX package ``repro``, nor
+``msgpack`` (the JAX package's checkpoint manifest; the card's machine has
+none)."""
 import ast
 import json
 import os
@@ -16,7 +18,7 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -41,7 +43,7 @@ import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(json.dumps({"imported": names, "bad": bad}))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,7 +68,9 @@ print(json.dumps({"imported": names, "bad": bad}))
                  "core.replan", "core.planstore", "core.placement", "analysis.keying_lint",
                  "models.vit", "models.swin", "models.convnext", "models.efficientnet", "configs.vit_l16",
                  "configs.swin_b", "configs.convnext_b", "configs.efficientnet_b7", "configs.vgg16",
-                 "models.unet", "models.dit", "configs.unet_sd15", "configs.dit_xl2", "parallel.variants"):
+                 "models.unet", "models.dit", "configs.unet_sd15", "configs.dit_xl2", "parallel.variants",
+                 "optim.adamw", "optim.schedules", "optim.grad_compress", "data.pipeline", "runtime.checkpoint",
+                 "runtime.fault", "runtime.train", "launch.train"):
         assert f"repro_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -125,7 +129,7 @@ done = {}
 for name in serve_archs():
     out = serve(name, n_requests=2, max_batch=2, device="cpu", smoke=True)
     done[name] = list(out["logits"].shape)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(json.dumps({"served": done, "bad": bad}))
 """
 
@@ -161,7 +165,7 @@ for name in ("unet-sd15", "dit-xl2"):
         cond = torch.zeros(shape, dtype=dt) if dt == torch.int32 else torch.randn(shape, generator=gen)
         out = b.fn(params, lat, cond)
         done[f"{name}/{cell}"] = [list(out.shape), bool(torch.isfinite(out).all())]
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(json.dumps({"sampled": done, "bad": bad}))
 """
 
