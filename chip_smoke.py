@@ -257,7 +257,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``VISION_LAUNCHES``; one such step profiled with the backward's parts
    apart ("K1 dgrad", the library's dgrad and wgrad, "K3 backward"); (c)
    ``TRAIN_STEPS`` bfloat16 steps of each through the fault-tolerant
-   trainer (``image_trainer``: ``runtime.train.make_trainer``'s parts) at
+   trainer (``cell_trainer``: ``runtime.train.make_trainer``'s parts) at
    the cell's batch of 256 or, where a fit of two probe steps' peak memory
    says it does not fit, the largest power of two that does (printed as
    reduced): step ms, images/s, peak memory, TFLOP/s (the step's
@@ -270,6 +270,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    faults injected at ``FAULT_AT``, every final leaf ``torch.equal`` to an
    uninterrupted run's, failures and restores both exactly
    ``len(FAULT_AT)``.
+16. trains the LM and diffusion families through ``configs.steps``' train
+   cells (``phase_lm_diffusion_train``), TF32 off, seeded random weights:
+   (a) K3's autograd Function held against the plain version's autograd in
+   float32 at Qwen3-4B's [1, 32, 4096, 128] causal GQA (8 KV heads),
+   DeepSeek-V3's (192, 128) at [1, 128, 512], the U-Net's D = 40 at T =
+   1024 and its cross-attention at S = 77 for D = 40 / 80 / 160, DiT's D =
+   72 at T = 256 (o, dq, dk, dv within 2e-5 x (1 + |g|) plus ``SUM_RTOL``
+   x the sum of |terms|), each timed beside its plain backward, that
+   backward's bound and SDPA's forward + backward; the U-Net's T = 16384
+   timed only; K1's Function at every K1 signature of a U-Net train_256
+   step; (b) float32 steps from ``warm_state`` held to the same steps
+   through the plain versions (``held_step``: the loss within
+   ``DEPTH_RTOL``, each first moment and update within
+   ``TRAIN_LEAF_RTOL``; a control with one K3 call's output gradient scaled
+   must break it): Qwen3-4B at full width cut to ``LM_CHECK_LAYERS`` layers
+   at 1 x 4096 tokens, the U-Net and DiT at train_256 and batch 4; remat on
+   against off equal (``same_step``); K3 / K1 launches (forward, recompute,
+   K1 dgrad) counted against the recorded calls; (c) bfloat16 through the
+   fault-tolerant trainer (``train_bf16``): Qwen3-4B at all 36 layers at
+   4096 tokens with remat, the U-Net and DiT at train_256, each at the
+   cell's batch of 256 or the largest power of two two probe steps' peak
+   memory (up to the update: ``split_peaks``) fits, ``TRAIN16_STEPS``
+   steps timed (ms, tokens or latents/s, TFLOP/s, peak memory) and one
+   profiled by part; one train_1024 step of each at the batch that fits;
+   (d) DeepSeek-V3's ``loss_fn`` with its MTP module at full width (1 dense
+   trunk layer, no MoE trunk layer, 14.1 B parameters, bf16, no AdamW
+   step: its moments do not fit) at 1 x 512 tokens, its metrics and every
+   gradient held to the same pass with plain attention (``mtp_pass``),
+   route aware.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -279,8 +308,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -913,7 +944,7 @@ class RouteRecorder:
 
     def host(self) -> list:
         """The records as numpy arrays, one dict per layer."""
-        return [{k: v.cpu().numpy() for k, v in rec.items()} for rec in self.layers]
+        return [{k: v.detach().cpu().numpy() for k, v in rec.items()} for rec in self.layers]
 
 
 def route_rows(records: list, shape: tuple, rows) -> list:
@@ -3341,28 +3372,31 @@ TRAIN_LEAF_RTOL, TRAIN_BLIND, TRAIN_CONTROL = 1e-2, 1e-5, 1.05
 BACKWARD_RANGES = ("K1 dgrad", "conv dgrad (library)", "conv wgrad (library)", "K3 backward")
 
 
-def with_batch(arch, batch: int):
-    """``arch`` with its cls_224 cell at ``batch`` images."""
+def with_batch(arch, batch: int, cell: str = "cls_224"):
+    """``arch`` with its ``cell`` at ``batch`` (images, latents or
+    sequences)."""
     from repro_torch.configs.base import Cell
 
-    cell = arch.cells["cls_224"]
-    return dataclasses.replace(arch, cells={**arch.cells, "cls_224": Cell(cell.name, cell.kind,
-                                                                          dict(cell.meta, batch=batch))})
+    c = arch.cells[cell]
+    key = "global_batch" if "global_batch" in c.meta else "batch"
+    return dataclasses.replace(arch, cells={**arch.cells, cell: Cell(c.name, c.kind, {**c.meta, key: batch})})
 
 
-def image_trainer(torch, arch, fault_cfg, **kw):
-    """(trainer, initial state) of ``arch``'s cls_224 cell on the card, as
+def cell_trainer(torch, arch, fault_cfg, cell: str = "cls_224", state=None, **kw):
+    """(trainer, initial state) of ``arch``'s ``cell`` on the card, as
     ``runtime.train.make_trainer`` builds them for a registered arch (state
-    from seed 0, the cell's image stream); ``kw`` goes to the trainer."""
+    from seed 0 unless ``state`` is given, the cell's stream: images,
+    tokens or latents); ``kw`` goes to the trainer."""
     from repro_torch.configs.steps import build, realize
-    from repro_torch.data.pipeline import ImageStream, device_batch
+    from repro_torch.data.pipeline import device_batch
     from repro_torch.runtime import FaultTolerantTrainer
+    from repro_torch.runtime.train import _stream_for
 
-    bundle = build(arch, "cls_224")
+    bundle = build(arch, cell)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    state, _ = realize(arch, bundle, gen, smoke=False)
-    meta = arch.cells["cls_224"].meta
-    stream = ImageStream(img_res=meta["img_res"], batch=meta["batch"], num_classes=arch.cfg.num_classes)
+    if state is None:
+        state, _ = realize(arch, bundle, gen)
+    stream = _stream_for(bundle)
 
     def step_fn(state, **batch):
         return bundle.fn(state, **device_batch(batch, gen.device))
@@ -3478,8 +3512,13 @@ def step_flops_of(counter, rec) -> float:
     """One train step's operations: ``FlopCounterMode``'s count without its
     conv backward (its weight-gradient formula ignores groups: a depthwise
     conv's is counted C times over), plus the recorded convs' forward,
-    weight and input gradients and K3's forward (neither kernel is an
-    operator it sees)."""
+    weight and input gradients and K3's forwards (neither kernel is an
+    operator it sees).  What ran counts: under remat the second forward of
+    each checkpointed layer (its products, and its K3 call, recorded
+    again), and the plain K3 backward's five products over every (query,
+    key) pair, masked or not; K3's forwards at the pairs they weigh (the
+    causal half).  The LM's cross-entropy and AdamW are elementwise, not
+    counted."""
     library_conv = sum(v for op, v in counter.get_flop_counts()["Global"].items()
                        if "convolution_backward" in str(op))
     return counter.get_total_flops() - library_conv + 2 * conv_flops(rec) + conv_flops(rec, dgrad=True) \
@@ -3487,7 +3526,11 @@ def step_flops_of(counter, rec) -> float:
 
 
 def attn_flops(rec) -> float:
-    return sum(c * 2.0 * b * h * t * s * 2 * d for ((b, h, t, d), s, *_), c in rec.attns.items())
+    """Operations of the recorded K3 forwards: 2 x the (query, key) pairs the
+    softmax weighs (``attention_pairs``: under the causal mask, the half
+    computed) x (D + DV); a record without DV has DV = D."""
+    return sum(c * 2.0 * b * h * attention_pairs(t, s, causal) * (d + (dv[0] if dv else d))
+               for ((b, h, t, d), s, _, causal, *dv), c in rec.attns.items())
 
 
 def hold_conv_grad(torch, gen, sig: tuple) -> dict:
@@ -3647,16 +3690,7 @@ def phase_train(torch) -> tuple[dict, dict]:
         launches["flash_attention"] += got[3]
         return got
 
-    class ScaledGrad(torch.autograd.Function):
-        """The identity, whose backward scales the gradient by TRAIN_CONTROL."""
-
-        @staticmethod
-        def forward(ctx, y):
-            return y.view_as(y)
-
-        @staticmethod
-        def backward(ctx, g):
-            return g * TRAIN_CONTROL
+    apply_scaled = scaled_grad(torch)
 
     for name in TRAIN_ARCHS:
         t0 = time.perf_counter()
@@ -3665,7 +3699,7 @@ def phase_train(torch) -> tuple[dict, dict]:
 
         # (b) one float32 step at batch 4 through the kernels, counted and recorded
         bundle = build(arch, "cls_224", dtype=torch.float32)
-        state, _ = realize(arch, bundle, gen, smoke=False)
+        state, _ = realize(arch, bundle, gen)
         state = warm_state(torch, state, gen)
         b, res = TRAIN_CHECK_BATCH, arch.cells["cls_224"].meta["img_res"]
         images = torch.randn((b, res, res, 3), generator=gen, device=dev)
@@ -3694,7 +3728,7 @@ def phase_train(torch) -> tuple[dict, dict]:
         def control_conv(*args, **kw):
             calls[0] += 1
             y = conv2d_cuda(*args, **kw)
-            return ScaledGrad.apply(y) if calls[0] - 1 == pick else y
+            return apply_scaled(y) if calls[0] - 1 == pick else y
 
         with model_kernels(control_conv, flash_attention):
             control, _ = bundle.fn(state, images=images, labels=labels)
@@ -3743,7 +3777,7 @@ def phase_train(torch) -> tuple[dict, dict]:
 
         # (c) timed bfloat16 training through the trainer
         bundle = build(arch, "cls_224")
-        state, _ = realize(arch, bundle, gen, smoke=False)
+        state, _ = realize(arch, bundle, gen)
         peaks, flops = {}, {}
         for pb in TRAIN_PROBE_BATCHES:
             x = torch.randn((pb, res, res, 3), generator=gen, device=dev).to(torch.bfloat16)
@@ -3779,7 +3813,7 @@ def phase_train(torch) -> tuple[dict, dict]:
             est.observe(es, fl, dt)
 
         with tempfile.TemporaryDirectory() as d:
-            trainer, state = image_trainer(torch, with_batch(arch, batch), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
+            trainer, state = cell_trainer(torch, with_batch(arch, batch), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
                                            compute_observer=observe, es_name="h100", step_flops=step_flops)
             torch.cuda.reset_peak_memory_stats()
             zero()
@@ -3843,7 +3877,7 @@ def phase_train(torch) -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory() as d:
         runs = []
         for label, fault_hook in (("uninterrupted", None), ("faulted", hook)):
-            trainer, state = image_trainer(torch, cut, FaultConfig(ckpt_dir=f"{d}/{label}", ckpt_every=FAULT_EVERY),
+            trainer, state = cell_trainer(torch, cut, FaultConfig(ckpt_dir=f"{d}/{label}", ckpt_every=FAULT_EVERY),
                                            fault_hook=fault_hook)
             zero()
             state, stats = trainer.run(state, FAULT_STEPS, resume=False)
@@ -3872,6 +3906,822 @@ def phase_train(torch) -> tuple[dict, dict]:
     return report, launches
 
 
+# Phase 16 (``phase_lm_diffusion_train``): LM and diffusion training.  (a)
+# K3's Function held at LM_FN_SHAPES and DIFF_FN_SHAPES (label, B, H, Hkv,
+# T, S, D, DV, causal) and timed beside its plain backward, that backward's
+# bound and SDPA's forward + backward; at TIMED_ONLY_SHAPES (gen and
+# train_1024's U-Net level 0, T = 16384: its plain autograd alone would hold
+# ~30 GB) timed only.  (b) f32 steps: Qwen3-4B cut to LM_CHECK_LAYERS layers
+# at 1 x LM_TRAIN_LEN tokens, the U-Net and DiT at train_256 and batch
+# TRAIN_CHECK_BATCH.  (c) bf16 through the trainer: Qwen3-4B at all its
+# layers (probes LM_PROBE_BATCHES), the diffusion pair at train_256 (probes
+# DIFF_PROBE_BATCHES), TRAIN16_STEPS timed steps each; one train_1024 step of
+# each (probes DIFF_1024_PROBES).  (d) DeepSeek-V3's loss_fn with the MTP
+# module at full width, MTP_TOKENS tokens, its gradient held group by group
+# (MTP_GROUPS: each of the MTP block's expert matrices, then the rest) so
+# that one group's plain gradient fits beside the kernels' whole one.
+LM_FN_SHAPES = (("qwen3-4b causal GQA", 1, 32, 8, 4096, 4096, 128, 128, True),
+                ("deepseek-v3 MLA", 1, 128, 128, 512, 512, 192, 128, True))
+DIFF_FN_SHAPES = (("unet-sd15 self D=40", 4, 8, 8, 1024, 1024, 40, 40, False),
+                  ("unet-sd15 cross D=40", 4, 8, 8, 1024, 77, 40, 40, False),
+                  ("unet-sd15 cross D=80", 4, 8, 8, 256, 77, 80, 80, False),
+                  ("unet-sd15 cross D=160", 4, 8, 8, 64, 77, 160, 160, False),
+                  ("dit-xl2 D=72", 4, 16, 16, 256, 256, 72, 72, False))
+TIMED_ONLY_SHAPES = (("unet-sd15 self D=40 T=16384", 1, 8, 8, 16384, 16384, 40, 40, False),)
+LM_CHECK_LAYERS, LM_TRAIN_LEN, TRAIN16_STEPS = 4, 4096, 6  # the median of steps 2-6: the first is warm-up
+LM_PROBE_BATCHES, DIFF_PROBE_BATCHES, DIFF_1024_PROBES = (1, 2), (16, 32), (1, 2)
+MTP_TOKENS = 512
+MTP_GROUPS = ("mtp/block/ffn/experts/w1", "mtp/block/ffn/experts/w3", "mtp/block/ffn/experts/w2", None)
+
+
+@contextlib.contextmanager
+def recording_lm_calls(attn_wrap=None):
+    """Records every K3 call the LM makes while entered (``gqa_flash`` as
+    ``models.attention`` calls it), by q's [B, H, T, D] shape, the key
+    count, dtype, causal and the value width; ``attn_wrap(out, call)`` may
+    replace each output (the control).  The wrapper runs as it is."""
+    from repro_torch.kernels.attention import gqa_flash
+    from repro_torch.models import attention as lm_attention
+
+    rec = types.SimpleNamespace(convs=Counter(), attns=Counter(), calls=0)
+
+    def attn(q, k, v, *, causal):
+        b, t, h, d = q.shape
+        rec.attns[((b, h, t, d), k.shape[1], str(q.dtype).removeprefix("torch."), causal, v.shape[3])] += 1
+        out = gqa_flash(q, k, v, causal=causal)
+        rec.calls += 1
+        return attn_wrap(out, rec.calls - 1) if attn_wrap else out
+
+    lm_attention.gqa_flash = attn
+    try:
+        yield rec
+    finally:
+        lm_attention.gqa_flash = gqa_flash
+
+
+def scaled_grad(torch):
+    """The identity, whose backward scales the gradient by TRAIN_CONTROL."""
+    class ScaledGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y):
+            return y.view_as(y)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * TRAIN_CONTROL
+
+    return ScaledGrad.apply
+
+
+def attention_backward_bound(b, h, hkv, t, s, d, dv, causal) -> dict:
+    """The least time of K3's backward at a shape: operations of its five
+    products over the (query, key) pairs the softmax weighs (the scores
+    recomputed, dV, dP, dQ, dK: 2 x pairs x (3 D + 2 DV)) and float32 bytes
+    (q, k, v, o, dO read once, dq, dk, dv written once), at the 3xTF32 peak
+    and, beside it, at the CUDA cores' FMA rate (the plain backward runs
+    with TF32 off)."""
+    flops = 2.0 * b * h * attention_pairs(t, s, causal) * (3 * d + 2 * dv)
+    nbytes = 4.0 * (2 * b * h * t * d + 2 * b * hkv * s * d + 2 * b * hkv * s * dv + 2 * b * h * t * dv)
+    ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
+    return dict(flops=flops, bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ffma_bound_ms=max(flops / FFMA_FLOPS * 1e3, bytes_ms))
+
+
+def attention_abs_sums(torch, q, k, v, do, *, causal: bool = True) -> tuple:
+    """The scale of float32 rounding in attention and its gradients: for o,
+    dq, dk and dv (the operands as ``attention_ref``'s, [B,H,T,D], ``do``
+    the output's cotangent, [B,H,T,DV]) the sum of the absolute values of
+    the terms each element adds up, from the plain version's probabilities
+    P: ``P |v|``; ``A |k| / sqrt(D)``, ``A^T |q| / sqrt(D)`` and
+    ``P^T |do|``, where ``A = P * (|do| |v|^T + rowsum(|do| * |o|))`` bounds
+    the terms of the score gradient ``P * (do v^T - rowsum(do * o))``.  A
+    difference of float32 sums where large terms cancel is of this scale
+    times 2^-20 or so, which 2e-5 x (1 + |g|) does not follow; float32."""
+    t, d = q.shape[2], q.shape[3]
+    s = k.shape[2]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    logits = torch.einsum("bhtd,bhsd->bhts", qf, kf) / math.sqrt(d)
+    if causal:
+        mask = torch.arange(t, device=q.device)[:, None] >= torch.arange(s, device=q.device)[None, :]
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    o_abs = torch.einsum("bhts,bhsd->bhtd", p, vf.abs())
+    o = torch.einsum("bhts,bhsd->bhtd", p, vf)
+    a = p * (torch.einsum("bhtd,bhsd->bhts", dof.abs(), vf.abs()) + (dof * o).abs().sum(-1, keepdim=True))
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bhts,bhsd->bhtd", a, kf.abs()) * scale
+    dk = torch.einsum("bhts,bhtd->bhsd", a, qf.abs()) * scale
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof.abs())
+    return o_abs, dq, dk, dv
+
+
+def hold_attention_fn(torch, F, gen, shape: tuple, hold: bool = True) -> dict:
+    """K3's autograd Function at one shape (label, B, H, Hkv, T, S, D, DV,
+    causal), float32 in the model layout ([B, T, H, D]; ``gqa_flash``):
+    with ``hold``, o, dq, dk and dv against autograd through the plain
+    version on the same values within 2e-5 x (1 + |g|) plus ``SUM_RTOL`` x
+    the sum of |terms| (``attention_abs_sums``), fatal beyond.  Then device
+    us of K3's forward, of its plain backward (``attention_backward``) a
+    call, the backward's bound, and of SDPA's forward + backward on the
+    repeated KV heads (the library's yardstick).  The count is left as it
+    was."""
+    from repro_torch.kernels.attention import attention_ref, flash_attention, gqa_flash
+    from repro_torch.kernels.attention.ops import attention_backward
+
+    label, b, h, hkv, t, s, d, dv, causal = shape
+    count, g = flash_attention.launches, h // hkv
+    q, k, v, do = (torch.randn(sh, generator=gen, device=gen.device)
+                   for sh in ((b, t, h, d), (b, s, hkv, d), (b, s, hkv, dv), (b, t, h, dv)))
+    row = dict(label=label, b=b, h=h, hkv=hkv, t=t, s=s, d=d, dv=dv, causal=causal)
+
+    def plain(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return attention_ref(qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
+                             causal=causal).transpose(1, 2)
+
+    def outputs(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, do)]
+
+    if hold:
+        got = outputs(lambda q, k, v: gqa_flash(q, k, v, causal=causal))
+        want = outputs(plain)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        sums = [x.transpose(1, 2) for x in attention_abs_sums(torch, qt, kt.repeat_interleave(g, 1),
+                                                              vt.repeat_interleave(g, 1), dot, causal=causal)]
+        sums[2:] = [x.reshape(b, s, hkv, g, -1).sum(3) for x in sums[2:]]  # a KV head's query heads
+        for name, gt, wt, sm in zip(("o", "dq", "dk", "dv"), got, want, sums):
+            diff = (gt - wt).abs()
+            tol = TOL["float32"] * (1 + wt.abs())
+            share = (diff / (tol + SUM_RTOL * sm)).max().item()
+            row[name] = dict(max_abs_err=diff.max().item(), max_abs=wt.abs().max().item(), limit_share=share,
+                             within_tol=bool((diff <= tol).all()))
+            check(share <= 1.0 and bool(torch.isfinite(gt).all()),
+                  f"K3's Function disagrees with the plain version's autograd at {label}: {name} {row[name]}")
+        del got, want, sums
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    o = gqa_flash(q, k, v, causal=causal).transpose(1, 2)
+    row["forward_device_us"], row["forward_source"] = device_or_event_us(
+        torch, lambda: gqa_flash(q, k, v, causal=causal), reps=5)
+    row["backward_device_us"], row["backward_source"] = device_or_event_us(
+        torch, lambda: attention_backward(qt, kt, vt, o, dot, causal), reps=3)
+    row["backward"] = attention_backward_bound(b, h, hkv, t, s, d, dv, causal)
+    qs, ks, vs = (x.contiguous().requires_grad_() for x in (qt, kt.repeat_interleave(g, 1),
+                                                             vt.repeat_interleave(g, 1)))
+    dos = dot.contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        torch.autograd.grad(out, (qs, ks, vs), dos)
+
+    row["sdpa_fwd_bwd_device_us"], row["sdpa_source"] = device_or_event_us(torch, sdpa_fwd_bwd, reps=3)
+    row["sdpa_backend"] = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
+    flash_attention.launches = count
+    held = (f"held: max_err o {row['o']['max_abs_err']:.3g} dq {row['dq']['max_abs_err']:.3g} dk "
+            f"{row['dk']['max_abs_err']:.3g} dv {row['dv']['max_abs_err']:.3g}, largest share of the limit "
+            f"{max(row[n]['limit_share'] for n in ('o', 'dq', 'dk', 'dv')):.3g} (within 2e-5 x (1 + |g|) alone: "
+            f"{all(row[n]['within_tol'] for n in ('o', 'dq', 'dk', 'dv'))}); " if hold else "timed only; ")
+    bw = row["backward"]
+    print(f"  K3's Function at {label} [{b}, {h} ({hkv} KV), {t}, {d}/{dv}] S={s}{' causal' if causal else ''}: "
+          f"{held}K3 forward {row['forward_device_us']:.1f} us, plain backward {row['backward_device_us']:.1f} us "
+          f"(bound {bw['bound_ms'] * 1e3:.1f} us by {bw['bound_by']}, {bw['ffma_bound_ms'] * 1e3:.1f} at the FMA "
+          f"rate), SDPA forward + backward {row['sdpa_fwd_bwd_device_us']:.1f} us ({row['sdpa_backend']})")
+    return row
+
+
+def settle(torch, label: str) -> float:
+    """Collect what a finished part left (autograd graphs and checkpoint
+    frames can hold device tensors in reference cycles until Python's
+    collector runs), return the cache, and print the device memory still
+    allocated, in GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    print(f"  {label}: {resident:.2f} GB of device memory still allocated")
+    return resident
+
+
+@contextlib.contextmanager
+def no_final_checkpoint():
+    """The fault-tolerant trainer's checkpoints skipped while entered."""
+    from repro_torch.runtime import fault
+
+    real = fault.save_checkpoint
+    fault.save_checkpoint = lambda *args, **kw: None
+    try:
+        yield
+    finally:
+        fault.save_checkpoint = real
+
+
+def random_batch(torch, arch, bundle, batch: int, gen) -> dict:
+    """A batch of the bundle's inputs at ``batch`` on the generator's device,
+    as the streams make them: tokens below the vocabulary, timesteps below
+    1000, class ids below the class count, float32 N(0, 1) (the step casts
+    them)."""
+    out = {}
+    for name, (shape, dt) in bundle.inputs.items():
+        shape = (batch,) + tuple(shape[1:])
+        if dt.is_floating_point:
+            out[name] = torch.randn(shape, generator=gen, device=gen.device)
+            continue
+        high = {"tokens": getattr(arch.cfg, "vocab", 0), "labels": getattr(arch.cfg, "vocab", 0), "t": 1000,
+                "cond": getattr(arch.cfg, "num_classes", 0)}[name]
+        out[name] = torch.randint(0, high, shape, generator=gen, device=gen.device).to(dt)
+    return out
+
+
+def held_step(torch, label: str, run, plain, state, rtol: float = TRAIN_LEAF_RTOL) -> dict:
+    """One f32 train step through the kernels (``run``: (new state,
+    metrics)) held to the same step through the plain versions (``plain``):
+    the loss within DEPTH_RTOL, leaf by leaf each first moment and update
+    within ``rtol`` (``leaf_shares``).  Returns the shares."""
+    from repro_torch.models.common import tree_leaves
+
+    new, metrics = run
+    ref, pmetrics = plain
+    key = "total" if "total" in metrics else "loss"
+    loss, ploss = metrics[key].item(), pmetrics[key].item()
+    shares = leaf_shares(new, ref, state)
+    moved = max((a - o).abs().max().item() for a, o in zip(tree_leaves(new[0]), tree_leaves(state[0])))
+    print(f"  {label} vs the plain versions' step: loss {loss:.7g} / {ploss:.7g}; leaf by leaf, largest |diff| of a "
+          f"first moment {shares['mu'][0]:.3g} of its leaf's largest ({shares['mu'][1]}), of an update "
+          f"{shares['update'][0]:.3g} ({shares['update'][1]}); limit {rtol}; {len(shares['blind'])} blind leaves; "
+          f"largest |update| {moved:.3g}")
+    check(abs(loss - ploss) <= DEPTH_RTOL * abs(ploss) and shares["mu"][0] <= rtol and shares["update"][0] <= rtol,
+          f"{label}: the float32 step drifts from the plain versions' step")
+    check(moved > 0 and all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+          f"{label}: the step left the parameters where they were, or made them non-finite")
+    return dict(loss=loss, plain_loss=ploss, mu_share=shares["mu"], update_share=shares["update"],
+                blind_leaves=shares["blind"], max_abs_update=moved)
+
+
+def held_control(label: str, control, plain, state, rtol: float = TRAIN_LEAF_RTOL) -> tuple:
+    """The control: the step with one kernel call's output gradient scaled
+    by TRAIN_CONTROL must break ``held_step``'s first-moment hold against
+    the plain versions' step.  Returns its largest share and leaf."""
+    ctl = leaf_shares(control[0], plain[0], state)
+    print(f"  {label}: the control (one K3 call's output gradient x {TRAIN_CONTROL}): first moment "
+          f"{ctl['mu'][0]:.3g} ({ctl['mu'][1]}), update {ctl['update'][0]:.3g}")
+    check(ctl["mu"][0] > rtol, f"{label}: the control step with one wrong gradient passes the hold: it tests nothing")
+    return ctl["mu"]
+
+
+def same_step(torch, label: str, a, b, state) -> dict:
+    """Two f32 steps that must agree (remat on and off): the losses equal,
+    every first moment and update within TRAIN_LEAF_RTOL of its leaf's
+    (``leaf_shares``); whether every leaf is bit-identical is printed."""
+    from repro_torch.models.common import tree_leaves
+
+    key = "total" if "total" in a[1] else "loss"
+    shares = leaf_shares(a[0], b[0], state)
+    bits = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])))
+    print(f"  {label}: loss {a[1][key].item():.9g} / {b[1][key].item():.9g}; first moments {shares['mu'][0]:.3g}, "
+          f"updates {shares['update'][0]:.3g} of their leaves' largest; every leaf bit-identical: {bits}")
+    check(torch.equal(a[1][key], b[1][key]) and shares["mu"][0] <= TRAIN_LEAF_RTOL
+          and shares["update"][0] <= TRAIN_LEAF_RTOL, f"{label}: the two steps differ")
+    return dict(mu_share=shares["mu"], update_share=shares["update"], bit_identical=bits)
+
+
+@contextlib.contextmanager
+def split_peaks(torch):
+    """While entered, a train step's peak device memory is read in two
+    parts: up to its AdamW update (the parameters, the state, the
+    activations and the gradients: ``"grad"``), and in the update (the old
+    and the new state side by side, the same at any batch: ``"update"``);
+    ``configs.steps.adamw_update`` is wrapped to read them."""
+    from repro_torch.configs import steps
+
+    real, peaks = steps.adamw_update, {}
+
+    def update(*args, **kw):
+        torch.cuda.synchronize()
+        peaks["grad"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        peaks["update"] = torch.cuda.max_memory_allocated()
+        return out
+
+    steps.adamw_update = update
+    try:
+        yield peaks
+    finally:
+        steps.adamw_update = real
+
+
+def fit_batch(torch, peaks: dict, probes: tuple, cell_batch: int) -> tuple[int, float, float]:
+    """The largest power-of-two cut of ``cell_batch`` whose peak memory up to
+    the update (``split_peaks``' "grad"), by a line through the probes',
+    stays within TRAIN_MEM_SHARE of the card (at least the larger probe):
+    (batch, bytes an item, fixed bytes).  The update's own peak does not
+    grow with the batch, and the probes ran it."""
+    lo, hi = probes
+    per = (peaks[hi] - peaks[lo]) / (hi - lo)
+    fixed = peaks[lo] - per * lo
+    room = TRAIN_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
+    batch = cell_batch
+    while batch > hi and fixed + per * batch > room:
+        batch //= 2
+    return batch, per, fixed
+
+
+def train_bf16(torch, gen, arch, cell: str, probes: tuple, recorder, unit: str, items_per: int) -> tuple[dict, dict]:
+    """(c) for one arch: bfloat16 at full width through ``configs.steps``'
+    ``cell``: two probe steps (peak memory, operations), the batch fitted
+    (``fit_batch``), TRAIN16_STEPS steps through the fault-tolerant trainer
+    (``cell_trainer``) timed, one more profiled by part.  ``recorder()``
+    records the kernel calls; ``items_per`` counts ``unit`` in one batch
+    item (tokens of a sequence, one latent).  Returns (report, the counted
+    launches' recordings)."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.core import ComputeRateEstimator
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import FaultConfig
+
+    bundle = build(arch, cell)
+    state, _ = realize(arch, bundle, gen)
+    n_params = sum(t.numel() for t in tree_leaves(state[0]))
+    peaks, update_peaks, flops, recs = {}, {}, {}, []
+    for pb in probes:
+        batch = random_batch(torch, arch, bundle, pb, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorder() as rec, FlopCounterMode(display=False) as counter, split_peaks(torch) as split:
+            metrics = bundle.fn(state, **batch)[1]  # the new state dropped at once: a second would not fit
+            torch.cuda.synchronize()
+        recs.append(rec)
+        peaks[pb], update_peaks[pb] = split["grad"], split["update"]
+        flops[pb] = step_flops_of(counter, rec)
+        check(all(math.isfinite(v.item()) for v in metrics.values()), f"{arch.name}: a non-finite probe loss")
+        del batch, metrics
+    cell_batch = max(arch.cells[cell].meta.get(k, 0) for k in ("batch", "global_batch"))
+    batch, per, fixed = fit_batch(torch, peaks, probes, cell_batch)
+    step_flops = flops[probes[0]] / probes[0] * batch
+    print(f"  {arch.name} {cell} bf16 ({n_params / 1e9:.3f} B parameters): peak memory up to the update "
+          + ", ".join(f"{peaks[p] / 1e9:.2f} GB at batch {p}" for p in probes)
+          + f" (in the update {max(update_peaks.values()) / 1e9:.2f} GB): {per / 1e9:.3f} GB an item -> batch {batch}"
+          + (f" (reduced from the cell's {cell_batch}: {(fixed + per * cell_batch) / 1e9:.1f} GB predicted, over "
+             f"{TRAIN_MEM_SHARE} of the card)" if batch < cell_batch else " (the cell's)"))
+    est = ComputeRateEstimator({"h100": 1e14}, alpha=0.5)
+    dts = []
+
+    def observe(es, fl, dt):
+        dts.append(dt)
+        est.observe(es, fl, dt)
+
+    # the trainer's run keeps its entry state for a rollback beside the
+    # step's old and new states: where that third state does not fit, the
+    # trainer's step runs in a loop of its own (2 states at the update)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    through_run = max(update_peaks.values()) + state_bytes <= 0.95 * torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as d:
+        trainer, state = cell_trainer(torch, with_batch(arch, batch, cell), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
+                                      cell=cell, state=state, compute_observer=observe, es_name="h100",
+                                      step_flops=step_flops)
+        torch.cuda.reset_peak_memory_stats()
+        with recorder() as rec:
+            if through_run:
+                # the run's closing checkpoint is not written (phase 15 (d)
+                # holds checkpoint and restart bit for bit)
+                with no_final_checkpoint():
+                    state, stats = trainer.run(state, TRAIN16_STEPS, resume=False)
+                losses = stats.losses
+                check(stats.steps == TRAIN16_STEPS and stats.failures == 0, f"{arch.name}'s bf16 run: {stats}")
+            else:
+                print(f"  the trainer's run would hold a third state of {state_bytes / 1e9:.1f} GB beside the "
+                      f"update's peak {max(update_peaks.values()) / 1e9:.1f} GB: its step runs in a loop")
+                losses = []
+                for i in range(TRAIN16_STEPS):
+                    host = trainer.stream.batch_at(i)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    state, metrics = trainer.step_fn(state, **host)
+                    torch.cuda.synchronize()
+                    observe("h100", step_flops, time.perf_counter() - t1)
+                    losses.append(metrics.get("total", metrics.get("loss")).item())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        recs.append(rec)
+        check(len(losses) == TRAIN16_STEPS and all(math.isfinite(v) for v in losses),
+              f"{arch.name}: a non-finite bf16 loss {losses}")
+        with recorder() as rec:
+            busy, parts = step_breakdown(
+                torch, lambda: trainer.step_fn(state, **trainer.stream.batch_at(TRAIN16_STEPS)))
+        recs.append(rec)
+    steady = sorted(dts[1:]) or dts
+    step_ms = steady[len(steady) // 2] * 1e3
+    tflops = step_flops / (step_ms / 1e3) / 1e12
+    rate = batch * items_per / step_ms * 1e3
+    print(f"  {TRAIN16_STEPS} bf16 steps at batch {batch} through the trainer's "
+          f"{'run' if through_run else 'step'}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"median of steps 2-{len(dts)} {step_ms:.1f} ms (all "
+          f"{', '.join(f'{v * 1e3:.1f}' for v in dts)}), {rate:.1f} {unit}/s, {step_flops / 1e12:.2f} TFLOP a step "
+          f"-> {tflops:.1f} TFLOP/s (the estimator's EWMA {est.rate('h100') / 1e12:.1f}); peak memory {peak_gb:.2f} GB")
+    print("  one profiled bf16 step, device ms by part: " + "; ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f" (busy {busy:.1f}, idle share {1 - busy / step_ms:.3f} of the median step); the TFLOP counted: "
+          f"matrix products as they ran (remat's second forward, K3's plain backward over every pair), the convs "
+          f"from their shapes, K3's forwards at the pairs they weigh")
+    del state, trainer
+    settle(torch, f"after {arch.name}'s bf16 steps")
+    return dict(params_b=n_params / 1e9, batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch,
+                probe_peak_gb={k: v / 1e9 for k, v in peaks.items()},
+                update_peak_gb=max(update_peaks.values()) / 1e9, through_run=through_run, losses=losses,
+                step_ms=step_ms,
+                step_ms_all=[v * 1e3 for v in dts], per_s=rate, unit=unit, step_tflop=step_flops / 1e12,
+                tflops=tflops, estimator_tflops=est.rate("h100") / 1e12, peak_gb=peak_gb, device_busy_ms=busy,
+                device_ms_by_part=parts), recs
+
+
+def one_step_at_fit(torch, gen, arch, cell: str, probes: tuple, recorder) -> tuple[dict, list]:
+    """One bfloat16 step of ``cell`` at the batch two probe steps' peak
+    memory fits (``fit_batch``): ms a step (host clock to a synchronize) and
+    peak memory.  Returns (report, the recordings)."""
+    from repro_torch.configs.steps import build, realize
+
+    bundle = build(arch, cell)
+    state, _ = realize(arch, bundle, gen)
+    peaks, recs = {}, []
+
+    def step(b):
+        batch = random_batch(torch, arch, bundle, b, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorder() as rec, split_peaks(torch) as split:
+            metrics = bundle.fn(state, **batch)[1]
+            torch.cuda.synchronize()
+        recs.append(rec)
+        check(math.isfinite(metrics["loss"].item()), f"{arch.name} {cell}: a non-finite loss")
+        return (time.perf_counter() - t0) * 1e3, split, metrics["loss"].item()
+
+    for pb in probes:
+        peaks[pb] = step(pb)[1]["grad"]
+    cell_batch = arch.cells[cell].meta["batch"]
+    batch, per, _ = fit_batch(torch, peaks, probes, cell_batch)
+    ms, split, loss = step(batch)
+    peak = max(split.values())
+    print(f"  {arch.name} {cell} bf16: one step at batch {batch} (the cell's {cell_batch}; {per / 1e9:.2f} GB an "
+          f"item by the probes at {probes}): {ms:.1f} ms, loss {loss:.4f}, peak memory {peak / 1e9:.2f} GB "
+          f"({split['grad'] / 1e9:.2f} up to the update)")
+    del state
+    settle(torch, f"after {arch.name}'s {cell} step")
+    return dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch, ms=ms, peak_gb=peak / 1e9,
+                loss=loss, probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}), recs
+
+
+def phase_lm_diffusion_train(torch) -> tuple[dict, dict]:
+    """Phase 16: LM and diffusion training through ``configs.steps``' train
+    cells on the card, TF32 off, seeded random weights: (a) K3's autograd
+    Function held against the plain version's autograd at the LM and
+    diffusion train shapes (``hold_attention_fn``), and K1's at every K1
+    signature of a U-Net train_256 step (``hold_conv_grad``); (b) float32
+    steps from a warm state held to the same steps through the plain
+    versions (``held_step``), a control that must break the hold, remat on
+    against off (``same_step``), the launches counted: Qwen3-4B at full
+    width cut to LM_CHECK_LAYERS layers at 1 x LM_TRAIN_LEN tokens, the
+    U-Net and DiT at train_256 and batch TRAIN_CHECK_BATCH; (c) bfloat16
+    through the trainer (``train_bf16``): Qwen3-4B at all 36 layers at
+    train_4k's 4096 tokens, remat on; the U-Net and DiT at train_256; one
+    train_1024 step of each (``one_step_at_fit``); (d) DeepSeek-V3's
+    ``loss_fn`` with its MTP module at full width (1 dense layer, no MoE
+    trunk layer) at MTP_TOKENS tokens: metrics and gradients held to the
+    same pass with plain attention, route aware, with no AdamW step (its
+    moments would not fit).  Returns the report and the launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.common import tree_leaves
+
+    phase_t0 = time.perf_counter()
+    settle(torch, "phase 16 starts")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dev = gen.device
+    launches = {"conv2d": 0, "conv2d_backward": 0, "flash_attention": 0}
+    report: dict = {}
+    apply_scaled = scaled_grad(torch)
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.depthwise_launches = conv2d_cuda.backward_launches = 0
+        flash_attention.launches = 0
+
+    def read() -> tuple[int, int, int]:
+        """The launches since the last read (or ``zero``), added to the phase's."""
+        got = conv2d_cuda.launches, conv2d_cuda.backward_launches, flash_attention.launches
+        for key, n in zip(("conv2d", "conv2d_backward", "flash_attention"), got):
+            launches[key] += n
+        zero()
+        return got
+
+    # (a) K3's Function at the train shapes
+    t0 = time.perf_counter()
+    report["k3_fn"] = [hold_attention_fn(torch, F, gen, sh) for sh in LM_FN_SHAPES + DIFF_FN_SHAPES]
+    report["k3_fn"] += [hold_attention_fn(torch, F, gen, sh, hold=False) for sh in TIMED_ONLY_SHAPES]
+    settle(torch, "after (a)")
+    print(f"  (a) K3's Function: {time.perf_counter() - t0:.1f} s")
+
+    # (b) Qwen3-4B at full width, LM_CHECK_LAYERS layers, float32 at 1 x LM_TRAIN_LEN
+    t0 = time.perf_counter()
+    qwen = get_arch("qwen3-4b")
+    cut = dataclasses.replace(qwen, cfg=dataclasses.replace(qwen.cfg, n_layers=LM_CHECK_LAYERS))
+    bundle = build(cut, "train_4k", dtype=torch.float32)
+    state, _ = realize(cut, bundle, gen)
+    state = warm_state(torch, state, gen)
+    batch = random_batch(torch, cut, bundle, 1, gen)  # 1 x train_4k's seq_len
+    zero()
+    plain = with_plain_attention(lambda: bundle.fn(state, **batch))
+    torch.cuda.synchronize()
+    check(read() == (0, 0, 0), "the plain LM step launched a kernel")
+    with recording_lm_calls() as rec:
+        run = bundle.fn(state, **batch)
+        torch.cuda.synchronize()
+    got = read()
+    check(got[2] == sum(rec.attns.values()) == 2 * LM_CHECK_LAYERS,
+          f"Qwen3-4B's remat step launched K3 {got[2]} times, recorded {sum(rec.attns.values())}, expected "
+          f"{2 * LM_CHECK_LAYERS} (forward and recompute)")
+    print(f"qwen3-4b float32 step at full width, {LM_CHECK_LAYERS} of {qwen.cfg.n_layers} layers, 1 x {LM_TRAIN_LEN} "
+          f"tokens: K3 launches {got[2]} with remat (forward and recompute); metrics "
+          + ", ".join(f"{k} {v.item():.6g}" for k, v in run[1].items()))
+    off = build(dataclasses.replace(cut, cfg=dataclasses.replace(cut.cfg, remat=False)), "train_4k",
+                dtype=torch.float32)
+    run_off = off.fn(state, **batch)
+    torch.cuda.synchronize()
+    check(read()[2] == LM_CHECK_LAYERS, "Qwen3-4B's step without remat launched K3 other than once a layer")
+    remat = same_step(torch, "qwen3-4b remat on against off", run, run_off, state)
+    del run_off
+    lm_rep = held_step(torch, "qwen3-4b", run, plain, state)
+    del run
+    with recording_lm_calls(lambda y, i: apply_scaled(y) if i == LM_CHECK_LAYERS // 2 else y):
+        control = off.fn(state, **batch)
+        torch.cuda.synchronize()
+    read()
+    lm_rep.update(remat=remat, control_mu_share=held_control("qwen3-4b", control, plain, state))
+    del control, plain
+    bwd_ms, bwd_parts = step_breakdown(torch, lambda: bundle.fn(state, **batch))
+    read()
+    print("  one profiled float32 step, device ms by part: " + "; ".join(f"{k} {v:.2f}" for k, v in bwd_parts.items())
+          + f" (busy {bwd_ms:.2f})")
+    report["qwen3-4b"] = dict(float32_step=dict(lm_rep, layers=LM_CHECK_LAYERS, tokens=LM_TRAIN_LEN, k3_launches=got[2],
+                                                device_busy_ms=bwd_ms, device_ms_by_part=bwd_parts))
+    del state, bundle, off
+    settle(torch, "after qwen3-4b's float32 steps")
+    print(f"  qwen3-4b float32: {time.perf_counter() - t0:.1f} s")
+
+    # (b) the U-Net and DiT, float32 at train_256 and batch TRAIN_CHECK_BATCH
+    for name in DIFFUSION_ARCHS:
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        bundle = build(arch, "train_256", dtype=torch.float32)
+        state, _ = realize(arch, bundle, gen)
+        state = warm_state(torch, state, gen)
+        batch = random_batch(torch, arch, bundle, TRAIN_CHECK_BATCH, gen)
+        zero()
+        with recording_train_calls() as rec:
+            run = bundle.fn(state, **batch)
+            torch.cuda.synchronize()
+        got = read()
+        remat = 2 if getattr(arch.cfg, "remat", False) else 1
+        want = (sum(rec.convs.values()), k1_dgrads(rec), sum(rec.attns.values()))
+        conv_fwd, attn_fwd = DIFFUSION_LAUNCHES[name]
+        print(f"{name} float32 step at batch {TRAIN_CHECK_BATCH} (train_256: latent "
+              f"{arch.cells['train_256'].meta['img_res'] // 8}): K1 launches {got[0]} forward, {got[1]} backward; "
+              f"K3 {got[2]}; recorded {want}; remat x{remat}")
+        check(got == want and got[0] == conv_fwd and got[2] == remat * attn_fwd,
+              f"{name}'s step launched {got}, recorded {want}, expected K1 {conv_fwd} and K3 {remat} x {attn_fwd}")
+        check(got[0] > 0 and got[2] > 0 and (got[1] > 0 or name == "dit-xl2"),
+              f"{name}'s step left a kernel of its path unlaunched: {got}")
+        with plain_kernels():
+            plain = bundle.fn(state, **batch)
+            torch.cuda.synchronize()
+        check(read() == (0, 0, 0), "the plain diffusion step launched a kernel")
+        rep = report[name] = {}
+        if remat > 1:
+            off = build(dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, remat=False)), "train_256",
+                        dtype=torch.float32)
+            run_off = off.fn(state, **batch)
+            torch.cuda.synchronize()
+            check(read()[2] == attn_fwd, f"{name}'s step without remat launched K3 other than once a block")
+            remat_rep = same_step(torch, f"{name} remat on against off", run, run_off, state)
+            del run_off, off
+        rep["float32_step"] = held_step(torch, name, run, plain, state)
+        del run
+        if remat > 1:
+            rep["float32_step"]["remat"] = remat_rep
+        calls, pick = [0], attn_fwd // 2
+
+        def control_attn(*args, **kw):
+            calls[0] += 1
+            y = flash_attention(*args, **kw)
+            return apply_scaled(y) if calls[0] - 1 == pick else y
+
+        with model_kernels(conv2d_cuda, control_attn):
+            control = bundle.fn(state, **batch)
+            torch.cuda.synchronize()
+        read()
+        rep["float32_step"]["control_mu_share"] = held_control(name, control, plain, state)
+        del control, plain
+        zero()
+        bwd_ms, bwd_parts = step_breakdown(torch, lambda: bundle.fn(state, **batch))
+        read()
+        print("  one profiled float32 step, device ms by part: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in bwd_parts.items()) + f" (busy {bwd_ms:.2f})")
+        rep["float32_step"].update(batch=TRAIN_CHECK_BATCH, launches=dict(zip(("k1", "k1_backward", "k3"), got)),
+                                   device_busy_ms=bwd_ms, device_ms_by_part=bwd_parts)
+        del state, bundle
+        if name == "unet-sd15":  # (a) K1's Function at every K1 signature of the step
+            rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(rec.convs.items(), key=str)]
+            rep["k1_grad_rows"] = rows
+            print_conv_holds(rows, "float32")
+        settle(torch, f"after {name}'s float32 steps")
+        print(f"  {name} float32: {time.perf_counter() - t0:.1f} s")
+
+    # (c) bfloat16 through the trainer
+    t0 = time.perf_counter()
+    rep_c, recs = train_bf16(torch, gen, qwen, "train_4k", LM_PROBE_BATCHES, recording_lm_calls, "tokens",
+                             qwen.cells["train_4k"].meta["seq_len"])
+    report["qwen3-4b"]["bfloat16"] = rep_c
+    lm_calls = [sum(r.attns.values()) for r in recs]
+    n = read()
+    check(n[2] == sum(lm_calls) and all(c == 2 * qwen.cfg.n_layers * k for k, c in
+                                        zip((1, 1, TRAIN16_STEPS, 1), lm_calls)),
+          f"Qwen3-4B's bf16 steps launched K3 {n[2]} times, recorded {lm_calls}")
+    print(f"  qwen3-4b bf16: K3 launches {n[2]} ({2 * qwen.cfg.n_layers} a step: forward and recompute); "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in DIFFUSION_ARCHS:
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        rep_c, recs = train_bf16(torch, gen, arch, "train_256", DIFF_PROBE_BATCHES, recording_train_calls, "latents", 1)
+        n = read()
+        k3 = sum(sum(r.attns.values()) for r in recs)
+        k1 = sum(sum(r.convs.values()) for r in recs)
+        check(n[2] == k3 and n[0] == k1 and n[1] == sum(k1_dgrads(r) for r in recs),
+              f"{name}'s bf16 steps launched {n}, recorded K1 {k1}, K3 {k3}")
+        report[name]["bfloat16"] = rep_c
+        rep_1024, recs = one_step_at_fit(torch, gen, arch, "train_1024", DIFF_1024_PROBES, recording_train_calls)
+        n = read()
+        check(n[2] == sum(sum(r.attns.values()) for r in recs) and n[0] == sum(sum(r.convs.values()) for r in recs),
+              f"{name}'s train_1024 steps launched {n}")
+        k3_t = sorted({sig[0][2] for r in recs for sig in r.attns})
+        print(f"    K3 at T = {k3_t} in train_1024")
+        report[name]["train_1024"] = dict(rep_1024, k3_t=k3_t)
+        print(f"  {name} bf16: {time.perf_counter() - t0:.1f} s")
+
+    # (d) DeepSeek-V3's loss_fn with MTP at full width
+    t0 = time.perf_counter()
+    report["deepseek-v3-mtp"] = mtp_pass(torch, gen, get_arch("deepseek-v3-671b"), read, zero)
+    print(f"  deepseek-v3 MTP: {time.perf_counter() - t0:.1f} s")
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 16: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    return report, launches
+
+
+def chunked_quantiles(torch, g, ref, expert_axis=None) -> dict:
+    """The median and p99 of |g - ref| over a leaf, bounded from above by
+    the largest of each over chunks along its first axis (an expert, where
+    ``expert_axis`` names the leaf's expert axis; rows of <= 2^26 elements
+    otherwise): if no chunk has more than 1 % of its elements above x, the
+    leaf has not either.  A sort of a whole expert leaf (3.8e9 elements)
+    would not fit the card.  Also the largest |diff| and ``ref``'s largest
+    |value|."""
+    ref = torch.zeros_like(g) if ref is None else ref
+    if g.dim() >= 2 and g.shape[0] == 1:  # a stack of one layer (the trunk's dense layer, the MTP module)
+        g, ref = g[0], ref[0]
+    if expert_axis is not None:
+        g, ref = g.movedim(expert_axis, 0), ref.movedim(expert_axis, 0)
+    step = 1 if expert_axis is not None else max(1, (1 << 26) // max(1, g[0].numel()))
+    out = dict(median=0.0, p99=0.0, max=0.0, max_abs_grad=0.0)
+    for i in range(0, g.shape[0], step):
+        a, r = (x[i:i + step].reshape(-1) for x in (g, ref))
+        d = (a.float() - r.float()).abs()
+        med, p99 = abs_quantiles(torch, d)
+        out = dict(median=max(out["median"], med), p99=max(out["p99"], p99), max=max(out["max"], d.max().item()),
+                   max_abs_grad=max(out["max_abs_grad"], r.float().abs().max().item()))
+    return out
+
+
+@contextlib.contextmanager
+def pinned_routes(ids: list):
+    """While entered, each MoE layer (in call order, ``ids`` repeating) takes
+    the experts ``ids`` gives it, their gates from its own router
+    probabilities renormalised as ``moe.router_topk`` does: two passes then
+    route alike, and what differs between them is not a flipped near-tie."""
+    from repro_torch.models import moe
+
+    real, calls = moe.router_topk, [0]
+
+    def router_topk(p, cfg, x):
+        _, _, probs = real(p, cfg, x)
+        chosen = ids[calls[0] % len(ids)]
+        calls[0] += 1
+        gates = probs.gather(1, chosen)
+        return (gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), chosen, probs
+
+    moe.router_topk = router_topk
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+def mtp_pass(torch, gen, ds, read, zero) -> dict:
+    """(d): DeepSeek-V3 at full width with 1 dense trunk layer, no MoE trunk
+    layer and the MTP module (an MoE block of 256 experts), bfloat16, one
+    ``loss_fn`` and its gradient at 1 x MTP_TOKENS tokens through the
+    kernels.  Held: every gradient finite, the MTP block's expert and
+    attention leaves non-zero; against the same pass with plain attention
+    (route aware): a forward with its own routes, every metric within
+    BF16_RTOL and the tokens whose kept experts differ counted; then, with
+    the kernels' pass's experts (``pinned_routes``), once per MTP_GROUPS
+    group of leaves (one group's gradient beside the kernels' whole one fits
+    the card), leaf by leaf the median and p99 of |diff| within BF16_RTOL x
+    the leaf's largest |gradient| (``chunked_quantiles``)."""
+    from repro_torch.models import transformer_lm as lm
+
+    cfg = dataclasses.replace(ds.cfg, n_layers=1, first_k_dense=1)
+    params = lm.init(gen, cfg, torch.bfloat16)
+    named = named_leaves(params)
+    n_params = sum(t.numel() for _, t in named)
+    tokens = torch.randint(0, cfg.vocab, (1, MTP_TOKENS + 1), generator=gen, device=gen.device).to(torch.int32)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def loss_and_grads(leaves):
+        for _, t in named:
+            t.requires_grad_(any(t is u for u in leaves))
+        loss, metrics = lm.loss_fn(params, cfg, x, y)
+        return {k: v.item() for k, v in metrics.items()}, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    with RouteRecorder() as rec:
+        metrics, grads = loss_and_grads([t for _, t in named])
+        torch.cuda.synchronize()
+    got = read()
+    ids, routes = [layer["ids"] for layer in rec.layers], rec.host()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = {name: torch.zeros_like(t) if g is None else g for (name, t), g in zip(named, grads)}
+    print(f"deepseek-v3-671b loss_fn with MTP at full width: 1 dense trunk layer, no MoE trunk layer, the MTP module "
+          f"(an MoE block of {cfg.moe.n_experts} experts): {n_params / 1e9:.2f} B parameters, bf16, 1 x {MTP_TOKENS} "
+          f"tokens: " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items())
+          + f" (load_balance is the trunk's: it has no MoE layer, and the MTP block's is not counted, as JAX's); "
+          f"K3 launches {got[2]}; peak memory {peak_gb:.2f} GB. No AdamW step: its moments "
+          f"({2 * 2 * n_params / 1e9:.0f} GB in bf16) do not fit beside the parameters and gradients")
+    check(got[2] == 3, f"the MTP pass launched K3 {got[2]} times: expected the trunk layer's forward and recompute "
+                       f"and the MTP block's once")
+    check(all(math.isfinite(v) for v in metrics.values()) and set(metrics) == {"ce", "load_balance", "mtp", "total"},
+          f"bad MTP metrics {metrics}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()), "a non-finite MTP-pass gradient")
+    block = [n for n in grads if n.startswith("/mtp/block/ffn/experts") or n.startswith("/mtp/block/attn")]
+    check(bool(block) and all(grads[n].abs().max().item() > 0 for n in block),
+          f"an MTP block leaf got a zero gradient: {[n for n in block if grads[n].abs().max().item() == 0]}")
+    # plain attention with its own routes: the metrics, and the tokens whose kept experts differ
+    zero()
+    with RouteRecorder() as prec, torch.no_grad():
+        plain_metrics = {k: v.item() for k, v in with_plain_attention(lambda: lm.loss_fn(params, cfg, x, y))[1].items()}
+    check(read() == (0, 0, 0), "the plain MTP pass launched a kernel")
+    flipped = int(np.any([(np.sort(np.where(r["keep"], r["ids"], -1), 1)
+                           != np.sort(np.where(p["keep"], p["ids"], -1), 1)).any(1)
+                          for r, p in zip(routes, prec.host())], axis=0).sum())
+    for k in metrics:
+        check(abs(metrics[k] - plain_metrics[k]) <= BF16_RTOL * max(abs(plain_metrics[k]), 1.0),
+              f"MTP metric {k}: K3 {metrics[k]} against plain attention {plain_metrics[k]}")
+    # its gradients on the kernels' routes, a group of leaves at a time
+    rows = []
+    for group in MTP_GROUPS:
+        names = [n for n, _ in named if (n == "/" + group if group else
+                                          all(n != "/" + g for g in MTP_GROUPS if g))]
+        with pinned_routes(ids):
+            _, pgrads = with_plain_attention(lambda: loss_and_grads([dict(named)[n] for n in names]))
+        torch.cuda.synchronize()
+        check(read() == (0, 0, 0), "the plain MTP pass launched a kernel")
+        for name, pg in zip(names, pgrads):
+            axis = 0 if "/experts/" in name else None  # [256, ...] past the stack: held expert by expert
+            rows.append(dict(leaf=name, **chunked_quantiles(torch, grads[name], pg, axis)))
+        del pgrads
+    worst = max(rows, key=lambda r: max(r["median"], r["p99"]) / max(r["max_abs_grad"], 1e-30))
+    share = max(worst["median"], worst["p99"]) / max(worst["max_abs_grad"], 1e-30)
+    print(f"  vs plain attention: metrics " + ", ".join(f"{k} {plain_metrics[k]:.5g}" for k in metrics)
+          + f" (its own routes: tokens whose kept experts differ {flipped} of {MTP_TOKENS}); gradients with the "
+          f"kernels' routes ({len(MTP_GROUPS)} passes, one a group of leaves), leaf by leaf, largest median / p99 "
+          f"|diff| over the leaf's largest |gradient| {share:.3g} at {worst['leaf']} (median {worst['median']:.3g}, "
+          f"p99 {worst['p99']:.3g}, largest |g| {worst['max_abs_grad']:.3g}; limit {BF16_RTOL})")
+    check(share <= BF16_RTOL, f"the MTP pass's gradients drift from plain attention's at {worst}")
+    del params, grads, named, rec, prec, ids
+    settle(torch, "after the MTP pass")
+    return dict(params_b=n_params / 1e9, tokens=MTP_TOKENS, metrics=metrics, plain_metrics=plain_metrics,
+                k3_launches=got[2], peak_gb=peak_gb, flipped_tokens=flipped, worst_leaf=worst, worst_share=share,
+                leaves_held=len(rows), adamw="not run: the moments do not fit")
+
+
 def print_conv_holds(rows: list, label: str) -> None:
     """One line for a set of ``hold_conv_grad`` rows: how many, how many with
     a K1 dgrad, and the largest share of the limit, where."""
@@ -3895,6 +4745,9 @@ def plain_kernels():
 
 
 def main() -> int:
+    # phase 16 holds several full-width train states at once: segments that
+    # grow keep the allocator's cache from splintering the card's 80 GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -4475,6 +5328,9 @@ def main() -> int:
     # -- 15. vision training through configs.steps' cls_224 cells -------------
     train_report, train_launches = phase_train(torch)
 
+    # -- 16. LM and diffusion training through configs.steps' train cells -----
+    lmd_report, lmd_launches = phase_lm_diffusion_train(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -4515,7 +5371,8 @@ def main() -> int:
               launches + sum(v["launches"]["conv2d"] for v in spatial.values())
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
               + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]
-              + train_launches["conv2d"] + train_launches["conv2d_backward"]),
+              + train_launches["conv2d"] + train_launches["conv2d_backward"] + lmd_launches["conv2d"]
+              + lmd_launches["conv2d_backward"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
@@ -4523,17 +5380,28 @@ def main() -> int:
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
-              + diff_launches["flash_attention"] + train_launches["flash_attention"]),
+              + diff_launches["flash_attention"] + train_launches["flash_attention"]
+              + lmd_launches["flash_attention"]),
     ]
     # phase 15's backward: K1's launches in it, and per float32 step at batch
     # 4 the device ms of its parts; K3's plain backward at ViT's shape
-    kernels[0]["backward"] = dict(launches=train_launches["conv2d_backward"], **{
-        name: {part: train_report[name]["float32_step"]["device_ms_by_part"][part] for part in BACKWARD_RANGES[:3]}
-        for name in TRAIN_ARCHS})
+    kernels[0]["backward"] = dict(launches=train_launches["conv2d_backward"] + lmd_launches["conv2d_backward"], **{
+        name: {part: rep[name]["float32_step"]["device_ms_by_part"][part] for part in BACKWARD_RANGES[:3]}
+        for rep, names in ((train_report, TRAIN_ARCHS), (lmd_report, ("unet-sd15",))) for name in names})
     k3_grad = train_report["vit-l16"]["k3_grad"]
     kernels[2]["backward"] = dict(per_step=k3_grad["per_step"], device_us=k3_grad["backward_device_us"],
                                   forward_device_us=k3_grad["forward_device_us"],
                                   vit_step_ms=train_report["vit-l16"]["float32_step"]["device_ms_by_part"]["K3 backward"])
+    # phase 16: K3's plain backward a call at the LM's T = 4096 (causal GQA)
+    # and the U-Net's T = 16384, with its bound and SDPA's forward + backward
+    for row in lmd_report["k3_fn"]:
+        if row["t"] in (4096, 16384):
+            kernels[2]["backward"][row["label"]] = dict(
+                device_us=row["backward_device_us"], bound_us=row["backward"]["bound_ms"] * 1e3,
+                bound_by=row["backward"]["bound_by"], ffma_bound_us=row["backward"]["ffma_bound_ms"] * 1e3,
+                forward_device_us=row["forward_device_us"], sdpa_fwd_bwd_device_us=row["sdpa_fwd_bwd_device_us"])
+    kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] + [r["o"]["max_abs_err"] for r in lmd_report["k3_fn"]
+                                                                  if "o" in r])
     # K1's depthwise branch on its own: ConvNeXt-B's and EfficientNet-B7's
     # float32 forwards at batch 4 (every vision hold, bf16 too, in its error)
     dw_main = [r for r in vision_main if r["groups"] > 1]
@@ -4625,7 +5493,7 @@ def main() -> int:
         "vision_conv_cases": vision_conv_rows, "vision_attention_cases": vision_attn_rows,
         "vision_per_forward": vision_per_forward, "diffusion": diff_report,
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
-        "diffusion_per_forward": diffusion_per_forward, "train": train_report,
+        "diffusion_per_forward": diffusion_per_forward, "train": train_report, "lm_diffusion_train": lmd_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -4667,7 +5535,15 @@ def main() -> int:
                 "and every step of the fault-injected pair, replays included), K1's forward and backward (its input gradients at "
                 "stride 1) launches alike; conv2d's backward entry counts the backward ones and gives the "
                 "backward's device ms by part in one profiled float32 step at batch 4 of each model, "
-                "flash_attention's the device us of K3's plain backward at ViT's shape.",
+                "flash_attention's the device us of K3's plain backward at ViT's shape.  Phase 16 adds to the "
+                "launches those of its LM and diffusion training (K3's Function holds are not counted; a "
+                "checkpointed layer's kernels launch twice a step, forward and recompute): Qwen3-4B's float32 "
+                "steps at 4 layers (remat on, off, the control) and its profiled step, the U-Net's and DiT's "
+                "float32 steps at batch 4, their bfloat16 probe, timed and profiled steps (Qwen3-4B at 36 layers, "
+                "the diffusion pair at train_256), the train_1024 probe and fitted steps, and DeepSeek-V3's MTP "
+                "pass; conv2d's backward entry adds the U-Net's parts, flash_attention's backward entry the plain "
+                "backward a call at T = 4096 causal and T = 16384 beside its bound and SDPA's forward + backward; "
+                "flash_attention's max_abs_err covers the o of phase 16's Function holds.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

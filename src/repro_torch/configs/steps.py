@@ -3,15 +3,16 @@ function + the shapes and types of its inputs.
 
 JAX's builder returns abstract pytrees (``jax.eval_shape``) for its dry-run;
 the port has no dry-run, so its bundle holds ``(shape, dtype)`` pairs, taken
-from an init on the ``meta`` device.  The LM ``prefill`` and ``decode`` kinds,
-the vision ``serve`` and ``train`` kinds and the diffusion ``gen`` kind (a
-DDIM sampler over the backbone) are ported; LM and diffusion training raise
-(``ROADMAP.md`` queues them).
+from an init on the ``meta`` device.  Every kind of every family is built:
+LM ``train``, ``prefill`` and ``decode``, vision ``train`` and ``serve``,
+diffusion ``train`` and ``gen`` (a DDIM sampler over the backbone).
 
 A train step is a plain function ``step((params, opt, n), **batch) ->
-((params, opt, n + 1), {"loss": loss})``: the model's ``loss_fn``, the
-gradients of every parameter leaf by ``torch.autograd.grad`` (a leaf the
-loss does not reach gets zeros, as JAX's gradient gives it), then
+((params, opt, n + 1), metrics)`` (the LM's metrics are its ``loss_fn``'s:
+``ce``, ``load_balance``, ``mtp`` where the config has the head, ``total``;
+the others' ``{"loss": loss}``): the model's loss, the gradients of every
+parameter leaf by ``torch.autograd.grad`` (a leaf the loss does not reach
+gets zeros, as JAX's gradient gives it), then
 :func:`~repro_torch.optim.adamw_update` at ``warmup_cosine(n)``.  It returns
 new tensors and leaves its input state intact.
 """
@@ -42,6 +43,7 @@ class StepBundle:
     state: Any  # the parameters (train: (params, opt, n)) as a tree of (shape, dtype)
     inputs: dict[str, Any]  # name -> (shape, dtype), or a tree of them (a KV or latent cache)
     kind: str
+    cfg: Any  # the model config the step runs (the cell's resolution applied): its parameters' shapes
 
 
 def _spec(t: torch.Tensor) -> tuple[tuple[int, ...], torch.dtype]:
@@ -78,6 +80,20 @@ def _grads(loss_of: Callable, params) -> tuple[torch.Tensor, Any, Any]:
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
+def _lm_train(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
+    opt_cfg = _opt_cfg_for(arch)
+
+    def step(state, tokens, labels):
+        params, opt, n = state
+        _, metrics, grads = _grads(lambda p: lm.loss_fn(p, cfg, tokens, labels), params)
+        params, opt = adamw_update(grads, opt, params, opt_cfg, warmup_cosine(n))
+        return (params, opt, n + 1), {k: v.detach() for k, v in metrics.items()}
+
+    b, s = cell.meta["global_batch"], cell.meta["seq_len"]
+    return StepBundle(fn=step, state=abstract_state(arch, cfg, dtype, opt_cfg),
+                      inputs={"tokens": ((b, s), torch.int32), "labels": ((b, s), torch.int32)}, cfg=cfg, kind="train")
+
+
 def _lm_prefill(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
     def step(params, tokens):
         logits, _ = lm.forward(params, cfg, tokens)
@@ -85,7 +101,7 @@ def _lm_prefill(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
 
     b, s = cell.meta["global_batch"], cell.meta["seq_len"]
     return StepBundle(fn=step, state=abstract_params(arch, cfg, dtype),
-                      inputs={"tokens": ((b, s), torch.int32)}, kind="prefill")
+                      inputs={"tokens": ((b, s), torch.int32)}, cfg=cfg, kind="prefill")
 
 
 def _lm_decode(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
@@ -97,7 +113,7 @@ def _lm_decode(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
     cache = tree_map(_spec, lm.init_cache(cfg, b, s, dtype, device="meta"))
     return StepBundle(fn=step, state=abstract_params(arch, cfg, dtype),
                       inputs={"cache": cache, "tokens": ((b, 1), torch.int32), "index": ((), torch.int32)},
-                      kind="decode")
+                      cfg=cfg, kind="decode")
 
 
 def _adapt_vision_cfg(arch: Arch, cfg, img_res: int):
@@ -122,7 +138,7 @@ def _vision_train(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
 
     b, r = cell.meta["batch"], cell.meta["img_res"]
     return StepBundle(fn=step, state=abstract_state(arch, cfg, dtype, opt_cfg),
-                      inputs={"images": ((b, r, r, 3), dtype), "labels": ((b,), torch.int32)}, kind="train")
+                      inputs={"images": ((b, r, r, 3), dtype), "labels": ((b,), torch.int32)}, cfg=cfg, kind="train")
 
 
 def _vision_serve(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
@@ -133,7 +149,7 @@ def _vision_serve(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
 
     b, r = cell.meta["batch"], cell.meta["img_res"]
     return StepBundle(fn=step, state=abstract_params(arch, cfg, dtype),
-                      inputs={"images": ((b, r, r, 3), dtype)}, kind="serve")
+                      inputs={"images": ((b, r, r, 3), dtype)}, cfg=cfg, kind="serve")
 
 
 def _diff_cfg(arch: Arch, cfg, img_res: int):
@@ -150,6 +166,36 @@ def _diffusion_apply(arch: Arch, cfg, params, lat, t, cond):
     if arch.module is dit:
         return dit.apply(params, cfg, lat, t, cond)[..., : cfg.latent_ch]
     return unet.apply(params, cfg, lat, t, cond)
+
+
+def _diffusion_train(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
+    cfg = _diff_cfg(arch, cfg, cell.meta["img_res"])
+    opt_cfg = _opt_cfg_for(arch)
+    n_steps = cell.meta.get("steps", 1000)
+
+    def loss_fn(params, latents, t, cond, noise):
+        # cosine-ish alpha schedule in float32, cast to the latents' type;
+        # eps-prediction MSE (the DDPM objective) in float32, as JAX's
+        a = torch.cos((0.5 * math.pi) * (t.float() / n_steps)) ** 2
+        a = a[:, None, None, None].to(latents.dtype)
+        x_t = torch.sqrt(a) * latents + torch.sqrt(1.0 - a) * noise
+        pred = _diffusion_apply(arch, cfg, params, x_t, t, cond)
+        return torch.mean(torch.square(pred.float() - noise.float())), None
+
+    def step(state, latents, t, cond, noise):
+        params, opt, n = state
+        # the stream's float32 latents, noise and text context in the parameters' type
+        latents, noise = latents.to(dtype), noise.to(dtype)
+        if cond.is_floating_point():
+            cond = cond.to(dtype)
+        loss, _, grads = _grads(lambda p: loss_fn(p, latents, t, cond, noise), params)
+        params, opt = adamw_update(grads, opt, params, opt_cfg, warmup_cosine(n))
+        return (params, opt, n + 1), {"loss": loss}
+
+    b, lr = cell.meta["batch"], cfg.latent_res
+    lat = ((b, lr, lr, cfg.latent_ch), dtype)
+    inputs = {"latents": lat, "t": ((b,), torch.int32), **_diffusion_cond_specs(arch, cfg, b, dtype), "noise": lat}
+    return StepBundle(fn=step, state=abstract_state(arch, cfg, dtype, opt_cfg), inputs=inputs, cfg=cfg, kind="train")
 
 
 def ddim_timesteps(n_train: int, n_steps: int) -> list[int]:
@@ -193,14 +239,16 @@ def _diffusion_gen(arch: Arch, cfg, cell: Cell, dtype) -> StepBundle:
     lr = cfg.latent_res
     cond = _diffusion_cond_specs(arch, cfg, b, dtype)
     return StepBundle(fn=sample, state=abstract_params(arch, cfg, dtype),
-                      inputs={"latents": ((b, lr, lr, cfg.latent_ch), dtype), **cond}, kind="gen")
+                      inputs={"latents": ((b, lr, lr, cfg.latent_ch), dtype), **cond}, cfg=cfg, kind="gen")
 
 
 _BUILDERS = {
+    ("lm", "train"): _lm_train,
     ("lm", "prefill"): _lm_prefill,
     ("lm", "decode"): _lm_decode,
     ("vision", "train"): _vision_train,
     ("vision", "serve"): _vision_serve,
+    ("diffusion", "train"): _diffusion_train,
     ("diffusion", "gen"): _diffusion_gen,
 }
 
@@ -210,8 +258,10 @@ def build(arch: Arch, cell_name: str, *, smoke: bool = False, dtype=None) -> Ste
     if cell.skip:
         raise ValueError(f"{arch.name}/{cell_name} is skipped: {cell.skip}")
     if (arch.family, cell.kind) not in _BUILDERS:
-        raise NotImplementedError(f"{arch.name}/{cell_name}: the {arch.family} {cell.kind} step is not "
-                                  f"ported to repro_torch yet (queued in ROADMAP.md)")
+        # JAX's ``build`` has none either: VGG-16, the paper's model, is served
+        # through run_plan and launch/serve.py (ROADMAP.md)
+        raise NotImplementedError(f"{arch.name}/{cell_name}: configs.steps has no {arch.family} {cell.kind} step, "
+                                  f"as JAX's has none (served through run_plan; ROADMAP.md)")
     cfg = arch.smoke_cfg if smoke else arch.cfg
     if smoke:
         cell = _shrink(cell)
@@ -220,15 +270,16 @@ def build(arch: Arch, cell_name: str, *, smoke: bool = False, dtype=None) -> Ste
     return _BUILDERS[(arch.family, cell.kind)](arch, cfg, cell, dtype)
 
 
-def realize(arch: Arch, bundle: StepBundle, gen: torch.Generator, *, smoke: bool = True) -> tuple[Any, dict]:
+def realize(arch: Arch, bundle: StepBundle, gen: torch.Generator) -> tuple[Any, dict]:
     """Real (state, inputs) for a bundle on ``gen``'s device: parameters
-    from the arch's init (a train bundle adds zero AdamW moments and step
-    0), random inputs -- integers below 8 (under every smoke config's
-    classes and vocabulary), 0 for a scalar, floats N(0, 1) -- and zeros for
-    a tree of inputs (a cache)."""
-    cfg = arch.smoke_cfg if smoke else arch.cfg
+    from the arch's init at the bundle's config (JAX's takes the arch's,
+    whose DiT position table, sized for 256 x 256, does not fit train_1024's
+    4096 tokens), a train bundle adding zero AdamW moments and step 0;
+    random inputs -- integers below 8 (under every smoke config's classes
+    and vocabulary), 0 for a scalar, floats N(0, 1) -- and zeros for a tree
+    of inputs (a cache)."""
     dtype = _spec_leaves(bundle.state)[0][1]  # the parameters' type: a train state leads with them
-    params = arch.module.init(gen, cfg, dtype)
+    params = arch.module.init(gen, bundle.cfg, dtype)
     state = params
     if bundle.kind == "train":
         state = (params, adamw_init(params, _opt_cfg_for(arch)), torch.zeros((), dtype=torch.int32, device=gen.device))

@@ -216,11 +216,15 @@ def conv2d_backward(dy: torch.Tensor, x: torch.Tensor, weights: torch.Tensor, st
     operands go to it as float32 copies with TF32 on, which holds their
     values exactly: cuDNN's own bfloat16 weight gradient rounds its partial
     sums, up to 24x the bfloat16 tolerance off at EfficientNet-B7's 1x1
-    convs on the H100), db is dy summed in float32:
-    JAX takes all of these from XLA, outside any Pallas kernel.  Each part
-    runs in a ``torch.profiler.record_function`` range of its name, so a
-    profile of a step tells them apart: "K1 dgrad", "conv dgrad (library)",
-    "conv wgrad (library)"."""
+    convs on the H100), except a dense float32 dW: that is k^2 matrix
+    products (:func:`_wgrad_taps`), since cuDNN's deterministic choice for
+    3x3 stride-1 convs, a Winograd transform, is 1.6-3.3x the float32
+    rounding scale off (2^-20 x the sum of |terms|) at the U-Net's widths
+    on the H100.  db is dy summed in float32.  JAX takes all of these from
+    XLA, outside any Pallas kernel.  Each part runs in a
+    ``torch.profiler.record_function`` range of its name, so a profile of a
+    step tells them apart: "K1 dgrad", "conv dgrad (library)", "conv wgrad
+    (library)"."""
     need_x, need_w, need_b = needs
     k = weights.shape[0]
     dy = dy if dy.stride(3) == 1 else dy.contiguous()
@@ -243,11 +247,33 @@ def conv2d_backward(dy: torch.Tensor, x: torch.Tensor, weights: torch.Tensor, st
 
     if need_x and not k1_dgrad:
         dx = library("conv dgrad (library)", [True, False, False], 0, [0, 2, 3, 1])
-    if need_w:
+    if need_w and groups == 1 and dy.dtype == torch.float32:
+        with torch.profiler.record_function("conv wgrad (library)"):
+            dw = _wgrad_taps(dy, x, k, stride, padding)
+    elif need_w:
         dw = library("conv wgrad (library)", [False, True, False], 1, [2, 3, 1, 0])
     if need_b:
         db = dy.float().sum(dim=(0, 1, 2)).to(dy.dtype)
     return dx, dw, db
+
+
+def _wgrad_taps(dy: torch.Tensor, x: torch.Tensor, k: int, stride: int, padding: int) -> torch.Tensor:
+    """A dense float32 conv's weight gradient [k, k, Cin, Cout] as one
+    matrix product a tap (cuBLAS, deterministic, TF32 off): the tap's window
+    of the padded input, [N*Ho*Wo, Cin], transposed, times dy [N*Ho*Wo,
+    Cout]."""
+    n, ho, wo, cout = dy.shape
+    cin = x.shape[3]
+    xp = torch.nn.functional.pad(x, (0, 0, padding, padding, padding, padding)) if padding else x
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        d = dy.reshape(-1, cout)
+        taps = [xp[:, ky:ky + (ho - 1) * stride + 1:stride, kx:kx + (wo - 1) * stride + 1:stride].reshape(-1, cin)
+                .t() @ d for ky in range(k) for kx in range(k)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return torch.stack(taps).reshape(k, k, cin, cout)
 
 
 class Conv2dFunction(torch.autograd.Function):

@@ -97,6 +97,21 @@ def stack_layers(init_one, gen: torch.Generator, n: int, device=None) -> Params:
     return stacked
 
 
+def checkpointed(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) where
+    ``remat`` is set and autograd records the call (grad enabled, a tensor
+    of ``args`` requiring grad): its activations are dropped after the
+    forward and recomputed in the backward, JAX's ``jax.checkpoint`` over a
+    scanned layer.  So a kernel in ``fn`` launches twice a train step, and a
+    call that records nothing (serving) runs as it is."""
+    if remat and torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(args)
+                                                 if isinstance(t, torch.Tensor)):
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def layer(stack: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree (:func:`stack_layers`), as views."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}

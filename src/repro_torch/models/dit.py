@@ -7,9 +7,10 @@ is a k = s = 2 conv (K1); each block's attention goes through the
 flash-attention kernel (K3, not causal, scale 1/sqrt(D), D = 72 at
 DiT-XL/2's widths) where JAX writes two einsums; the products stay ``x @ w``.
 The blocks keep JAX's stacked layout (every leaf ``[n_layers, ...]``) and run
-as a Python loop over per-layer views where JAX scans under remat: an eager
-forward needs neither.  A sampler is ``steps`` forwards of this backbone
-(``configs.steps._diffusion_gen``).
+as a Python loop over per-layer views where JAX scans, each block under
+activation checkpointing where ``cfg.remat`` is set and autograd records the
+forward (JAX's ``jax.checkpoint`` over the scan's body).  A sampler is
+``steps`` forwards of this backbone (``configs.steps._diffusion_gen``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.attention import flash_attention
-from .common import Params, conv_params, dense_params, layer, stack_layers, trunc_normal
+from .common import Params, checkpointed, conv_params, dense_params, layer, stack_layers, trunc_normal
 from .layers import conv2d, dense, gelu, standardize
 
 __all__ = ["DiTConfig", "init", "apply", "timestep_embedding"]
@@ -37,7 +38,7 @@ class DiTConfig:
     latent_ch: int = 4
     num_classes: int = 1000
     learn_sigma: bool = True
-    remat: bool = True  # JAX's training option, kept so configs compare field by field
+    remat: bool = True  # recompute each block's activations in the backward (training)
 
     @property
     def latent_res(self) -> int:
@@ -129,7 +130,7 @@ def apply(params: Params, cfg: DiTConfig, x_latent: torch.Tensor, t: torch.Tenso
     temb = dense(gelu(dense(t_emb, params["t_mlp1"])), params["t_mlp2"])
     c = (temb + params["label_embed"][y.long()]).to(x.dtype)
     for i in range(cfg.n_layers):
-        x = _block_apply(layer(params["blocks"], i), x, c, cfg.n_heads)
+        x = checkpointed(cfg.remat, _block_apply, layer(params["blocks"], i), x, c, cfg.n_heads)
     mod = dense(gelu(c), params["final_ada"])
     sh, sc = mod.chunk(2, dim=-1)
     x = _modulate(_ln(x), sh, sc)

@@ -5,17 +5,20 @@
 * moonshot-v1-16b-a3b -- MoE 64e top-6, GQA 16/16
 * deepseek-v3-671b    -- MLA + MoE (1 shared + 256 routed top-8) + MTP
 
-Prefill (:func:`forward`, tokens -> logits) and KV-cache decode
-(:func:`init_cache`, :func:`decode_step`).  The layer stacks keep JAX's
+Prefill (:func:`forward`, tokens -> logits), KV-cache decode
+(:func:`init_cache`, :func:`decode_step`) and the training loss
+(:func:`loss_fn`: cross-entropy, the MoE load balance and DeepSeek-V3's MTP
+loss).  The layer stacks keep JAX's
 stacked layout (every leaf ``[L, ...]``): ``first_k_dense`` leading dense
 layers, then the MoE layers (:mod:`.moe`), so a JAX parameter tree converts
 by ``params_from_jax`` alone; each stack runs as a Python loop over
-per-layer views where JAX scans.  Every attention call goes through
+per-layer views where JAX scans, each layer under activation checkpointing
+where ``cfg.remat`` is set and autograd records the forward (JAX's
+``jax.checkpoint`` over the scan's body).  Every attention call goes through
 :func:`~repro_torch.models.attention.gqa_apply` or, for MLA,
 :func:`~repro_torch.models.attention.mla_apply`, so to the flash-attention
-kernel on the card.  :func:`init` builds DeepSeek's MTP head (``mtp``) so
-that JAX's tree converts whole; only training reads it, and training is not
-ported (``ROADMAP.md``): ``forward`` and ``decode_step`` ignore it, as JAX's.
+kernel on the card.  DeepSeek's MTP head (``mtp``) is read by
+:func:`loss_fn` only; ``forward`` and ``decode_step`` ignore it, as JAX's.
 """
 from __future__ import annotations
 
@@ -25,11 +28,11 @@ import torch
 
 from .. import resolve_device
 from .attention import GQAConfig, MLAConfig, gqa_apply, gqa_init, mla_apply, mla_init
-from .common import Params, dense_params, layer, norm_params, stack_layers, trunc_normal
-from .layers import dense, rmsnorm, silu
+from .common import Params, checkpointed, dense_params, layer, norm_params, stack_layers, trunc_normal
+from .layers import dense, rmsnorm, silu, softmax_xent
 from .moe import MoEConfig, moe_apply, moe_init
 
-__all__ = ["LMConfig", "init", "forward", "decode_step", "init_cache"]
+__all__ = ["LMConfig", "init", "forward", "loss_fn", "decode_step", "init_cache"]
 
 
 @dataclass(frozen=True)
@@ -161,12 +164,15 @@ def _block_apply(p: Params, cfg: LMConfig, moe_layer: bool, x, positions, cache=
 
 
 def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
-    # JAX scans the stack under remat (recompute in the backward pass) and
-    # pins the residual's sharding; an eager forward on one card needs
-    # neither, so the loop just walks the layers, summing the MoE layers'
-    # load-balance losses in JAX's order.
+    # JAX scans the stack, each layer under remat where cfg.remat is set, and
+    # pins the residual's sharding (one card has none to pin): the loop walks
+    # the layers, each checkpointed as JAX's (only where autograd records
+    # it), summing the MoE layers' load-balance losses in JAX's order.
+    def block(p, x):
+        return _block_apply(p, cfg, moe_layer, x, positions)
+
     for i in range(n):
-        x, lb_l = _block_apply(layer(p_stack, i), cfg, moe_layer, x, positions)
+        x, lb_l = checkpointed(cfg.remat, block, layer(p_stack, i), x)
         if lb_l is not None:
             lb = lb + lb_l
     return x, lb
@@ -175,7 +181,7 @@ def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
 def trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens [B, T] -> (pre-head hidden [B, T, D], load_balance_loss)."""
     b, t = tokens.shape
-    x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, t, -1)
+    x = _embed(params, tokens)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     lb = torch.zeros((), device=x.device)
     for key, _, n, moe_layer in _stacks(cfg):
@@ -189,6 +195,43 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor) -> tuple[torch.
     x = rmsnorm(x, params["final_norm"])
     logits = dense(x, params["lm_head"])
     return logits, lb
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    b, t = tokens.shape
+    return params["embed"].index_select(0, tokens.reshape(-1)).reshape(b, t, -1)
+
+
+def loss_fn(params: Params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            lb_coef: float = 0.01, mtp_coef: float = 0.3) -> tuple[torch.Tensor, dict]:
+    """tokens, labels [B, T] -> (loss, metrics): the float32 cross-entropy of
+    the next token (``ce``), the MoE layers' load balance (``load_balance``,
+    times ``lb_coef`` in the loss), DeepSeek-V3's MTP loss (``mtp``, times
+    ``mtp_coef``) where the config and the tree have the head, and the sum
+    (``total``), as JAX's.  The MTP module (depth 1) predicts token t + 2
+    from the trunk's state at t and the embedding of label t (token t + 1):
+    ``rmsnorm(h) | rmsnorm(embed[labels])`` -> ``proj`` -> one block (an MoE
+    block where the config has MoE; its load balance is not counted) -> the
+    shared final norm and ``lm_head``, scored against ``labels`` shifted left
+    by one."""
+    h, lb = trunk(params, cfg, tokens)
+    logits = dense(rmsnorm(h, params["final_norm"]), params["lm_head"])
+    loss = softmax_xent(logits, labels)
+    metrics = {"ce": loss, "load_balance": lb}
+    if cfg.mtp_depth and "mtp" in params:
+        b, t = tokens.shape
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        mtp = layer(params["mtp"], 0)
+        merged = dense(torch.cat([rmsnorm(h, mtp["norm_h"]), rmsnorm(_embed(params, labels), mtp["norm_e"])], -1),
+                       mtp["proj"])
+        h2, _ = _block_apply(mtp["block"], cfg, bool(cfg.moe), merged, positions)
+        logits2 = dense(rmsnorm(h2, params["final_norm"]), params["lm_head"])
+        mtp_loss = softmax_xent(logits2[:, :-1], labels[:, 1:])
+        metrics["mtp"] = mtp_loss
+        loss = loss + mtp_coef * mtp_loss
+    loss = loss + lb_coef * lb
+    metrics["total"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

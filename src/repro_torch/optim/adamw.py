@@ -18,6 +18,10 @@ import torch
 from ..models.common import Params, tree_leaves, tree_map, tree_unflatten
 
 
+# elements of a leaf's slice in one pass of the update (256 MB of float32)
+CHUNK = 1 << 26
+
+
 @dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -64,13 +68,27 @@ def adamw_update(grads: Params, state: Params, params: Params, cfg: AdamWConfig,
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=c32.device), c32)
     lr = cfg.lr * lr_scale
 
-    def upd(g, mu, nu, p):
+    def upd_slice(g, mu, nu, p):
         g = g.float() * clip
         mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g
         nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g.square()
         step = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
         return (p.float() - lr * step).to(p.dtype), mu32.to(mu.dtype), nu32.to(nu.dtype)
+
+    def upd(g, mu, nu, p):
+        # elementwise, so a large leaf (a stacked [L, ...] one, an
+        # embedding) goes a slice of its leading axis at a time into its new
+        # leaves: its float32 temporaries stay near CHUNK elements, and the
+        # bits are the same
+        if p.dim() == 0 or p.numel() <= CHUNK:
+            return upd_slice(g, mu, nu, p)
+        out = (torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu))
+        rows = max(1, CHUNK // p[0].numel())
+        for i in range(0, p.shape[0], rows):
+            for o, v in zip(out, upd_slice(*(t[i:i + rows] for t in (g, mu, nu, p)))):
+                o[i:i + rows] = v
+        return out
 
     out = []  # in params' order, the other trees' leaves found by key (JAX's trees sort dict keys)
     tree_map(lambda p, g, mu, nu: out.append(upd(g, mu, nu, p)), params, grads, state["mu"], state["nu"])

@@ -19,8 +19,8 @@ __all__ = ["make_trainer", "train_smoke"]
 DEFAULT_CELLS = {"lm": "train_4k", "vision": "cls_224", "diffusion": "train_256"}
 
 
-def _stream_for(arch, cfg, bundle):
-    ins = bundle.inputs
+def _stream_for(bundle):
+    cfg, ins = bundle.cfg, bundle.inputs
     if "tokens" in ins:
         b, s = ins["tokens"][0]
         return TokenStream(vocab=cfg.vocab, batch=b, seq_len=s)
@@ -53,10 +53,9 @@ def make_trainer(
     dev = resolve_device(device)
     arch = get(arch_name)
     bundle = build(arch, cell, smoke=smoke)
-    cfg = arch.smoke_cfg if smoke else arch.cfg
     if state is None:
-        state, _ = realize(arch, bundle, torch.Generator(device=dev).manual_seed(0), smoke=smoke)
-    stream = _stream_for(arch, cfg, bundle)
+        state, _ = realize(arch, bundle, torch.Generator(device=dev).manual_seed(0))
+    stream = _stream_for(bundle)
 
     def step_fn(state, **batch):
         return bundle.fn(state, **device_batch(batch, dev))

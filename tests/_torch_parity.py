@@ -85,3 +85,43 @@ def perturb_vision(tree, seed):
         return a
 
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def warm_jax_state(params, opt_cfg):
+    """A JAX train state past warmup from ``params``: step and AdamW count
+    1000 (bias corrections ~1, learning-rate scale 1), every second moment
+    1e-4, so a step moves each parameter by about lr x 10 x its clipped
+    gradient and the updates are held, not only the parameters."""
+    from repro.optim import adamw as jadamw
+
+    opt = jadamw.adamw_init(params, opt_cfg)
+    nu = jax.tree_util.tree_map(lambda t: jnp.full_like(t, 1e-4), opt["nu"])
+    return params, dict(opt, nu=nu, count=jnp.int32(1000)), jnp.int32(1000)
+
+
+def diffusion_param_values(init, cfg, seed=0):
+    """The tree of JAX's ``init(key, cfg)`` (shapes from ``jax.eval_shape``)
+    filled with seeded numpy values of each leaf's role -- weights N(0, 1 /
+    fan-in), a stacked layer's leading axis not counted, biases 0.1 N(0, 1),
+    scales 1 + 0.1 N(0, 1), other leaves 0.02 N(0, 1) (DiT's adaLN-zero
+    weights non-zero, so no block is the identity) --, rounded to bfloat16
+    values so float32 and bfloat16 cases start from the same numbers."""
+    import math
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        keys = [str(getattr(k, "key", "")) for k in path]
+        z = rng.standard_normal(a.shape, dtype=np.float32)
+        if keys[-1] == "w":
+            z = z / np.float32(math.sqrt(math.prod(a.shape[1:-1] if "blocks" in keys else a.shape[:-1])))
+        elif keys[-1] == "b":
+            z = np.float32(0.1) * z
+        elif keys[-1] == "scale":
+            z = 1 + np.float32(0.1) * z
+        else:
+            z = np.float32(0.02) * z
+        return np.asarray(jnp.asarray(z).astype(jnp.bfloat16).astype(jnp.float32))
+
+    shapes = jax.eval_shape(lambda k: init(k, cfg), jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(leaf, shapes)

@@ -8,7 +8,9 @@ Tolerances: 2e-5 for float32 (the kernel and the plain version sum the same
 products in another order; TF32 is off for the plain version's matmuls) and
 2e-2 for bfloat16 (both round one float32 sum), as tests/test_kernels.py.
 """
+import importlib.util
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +29,15 @@ from repro_torch.parallel import weighted_spatial_inputs
 from repro_torch.spatial import features_spatial, merge_padded_shards, run_plan, spatial_alignment
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module: its checks' helpers (it
+    runs nothing on import)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 # (N, H, W, Cin, Cout, k, stride, pad, groups, row-slice view)
 CASES = [
@@ -786,3 +797,67 @@ def test_flash_attention_function_grads_match_plain_autograd_on_card(card):
             assert torch.equal(a, c)
         for gt, wt in zip(runs[0], want):
             torch.testing.assert_close(gt, wt, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hkv,d,dv", [(1, 4096, 32, 8, 128, 128), (1, 512, 128, 128, 192, 128)],
+                         ids=["qwen3-gqa-t4096", "mla-192-128"])
+def test_flash_attention_function_at_lm_train_shapes_on_card(card, b, t, h, hkv, d, dv):
+    """K3's autograd Function at the LM train cells' shapes, causal, float32:
+    Qwen3-4B's [1, 32, 4096, 128] with 8 KV heads (``gqa_flash``: dk and dv
+    summed over each KV head's 4 query heads) and DeepSeek-V3's MLA widths
+    (192, 128) over 128 heads at 512 tokens.  o, dq, dk and dv against the
+    plain version's autograd on the card within 2e-5 x (1 + |g|) plus 2^-20
+    x the sum of the absolute terms (``attention_abs_sums``: 4096-term sums
+    cancel); one K3 launch."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32)).to(card)
+    k = torch.from_numpy(rng.standard_normal((b, t, hkv, d), dtype=np.float32)).to(card)
+    v = torch.from_numpy(rng.standard_normal((b, t, hkv, dv), dtype=np.float32)).to(card)
+    do = torch.from_numpy(rng.standard_normal((b, t, h, dv), dtype=np.float32)).to(card)
+    g = h // hkv
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+    ref = attention_ref(qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), causal=True).transpose(1, 2)
+    want = [ref.detach(), *torch.autograd.grad(ref, leaves, do)]
+    del ref
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = flash_attention.launches
+    out = gqa_flash(*leaves, causal=True)
+    got = [out.detach(), *torch.autograd.grad(out, leaves, do)]
+    assert flash_attention.launches == before + 1
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sums = chip_smoke().attention_abs_sums(torch, qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
+                                           do.transpose(1, 2))
+    o_s, dq_s, dk_s, dv_s = (x.transpose(1, 2) for x in sums)
+    fold = lambda x: x.reshape(b, t, hkv, g, -1).sum(3)  # noqa: E731 -- a KV head's query heads
+    for name, gt, wt, sm in zip(("o", "dq", "dk", "dv"), got, want, (o_s, dq_s, fold(dk_s), fold(dv_s))):
+        limit = 2e-5 * (1 + wt.abs()) + 2.0 ** -20 * sm
+        assert bool(((gt - wt).abs() <= limit).all()), (name, ((gt - wt).abs() / limit).max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout", [(4, 16, 1280, 1280), (4, 32, 320, 320), (4, 8, 1280, 1280)],
+                         ids=["unet-l2", "unet-l0", "unet-mid"])
+def test_conv2d_function_weight_gradient_is_within_float32_rounding_on_card(card, n, h, cin, cout):
+    """K1's Function's weight gradient at the U-Net's 3x3 stride-1 widths,
+    float32, against the same gradient in float64: within 2^-20 x the sum of
+    the absolute terms.  (cuDNN's deterministic weight gradient, a Winograd
+    transform for these convs, missed this by 1.6-3.3x on the H100.)"""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((n, h, h, cin), generator=g, device=card)
+    w = (2.0 / (9 * cin)) ** 0.5 * torch.randn((3, 3, cin, cout), generator=g, device=card)
+    dy = torch.randn((n, h, h, cout), generator=g, device=card)
+    wl = w.clone().requires_grad_()
+    got = torch.autograd.grad(conv2d_cuda(x.requires_grad_(), wl, None, padding=1), wl, dy)[0]
+
+    def dw64(x, dy):
+        wd = w.double().permute(3, 2, 0, 1).requires_grad_()
+        y = F.conv2d(x.double().permute(0, 3, 1, 2), wd, padding=1)
+        return torch.autograd.grad(y, wd, dy.double().permute(0, 3, 1, 2))[0].permute(2, 3, 1, 0)
+
+    want, sums = dw64(x, dy), dw64(x.abs(), dy.abs())
+    err = (got.double() - want).abs()
+    assert bool((err <= 2.0 ** -20 * sums).all()), (err / (2.0 ** -20 * sums)).max().item()

@@ -461,5 +461,10 @@ def test_spatial2d_variant_serves_the_unet_with_attn_f32_off(name, monkeypatch):
 @pytest.mark.parametrize("cell", ["train_256", "train_1024"])
 @pytest.mark.parametrize("name", DIFFUSION)
 def test_diffusion_train_cells_raise(name, cell):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build(get(name), cell, smoke=True)
+    """The train cells, which raised before diffusion training was ported,
+    build JAX's train bundle: inputs (latents, t, cond, noise) of JAX's
+    shapes and types (the step: ``tests/test_torch_diffusion_train.py``)."""
+    b, jb = build(get(name), cell, smoke=True), jsteps.build(jget(name), cell, smoke=True)
+    assert b.kind == jb.kind == "train" and list(b.inputs) == list(jb.inputs) == ["latents", "t", "cond", "noise"]
+    jdt = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.int32): torch.int32}
+    assert b.inputs == {k: (tuple(s.shape), jdt[jnp.dtype(s.dtype)]) for k, s in jb.inputs.items()}

@@ -182,3 +182,35 @@ def test_sampling_every_diffusion_arch_loads_nothing_of_jax():
     assert out["sampled"] == {f"{a}/{c}": [[2, 8, 8, 4], True] for a in ("unet-sd15", "dit-xl2")
                               for c in ("gen_fast", "gen_1024")}
     assert out["bad"] == []
+
+
+TRAIN_LM_AND_DIFFUSION = """
+import json, sys
+import torch
+from repro_torch.configs import get
+from repro_torch.configs.steps import build, realize
+
+done = {}
+for name, cell in (("deepseek-v3-671b", "train_4k"), ("unet-sd15", "train_256")):
+    arch = get(name)
+    b = build(arch, cell, smoke=True)
+    state, inputs = realize(arch, b, torch.Generator().manual_seed(0))
+    new, metrics = b.fn(state, **inputs)
+    done[name] = [sorted(metrics), int(new[2]), all(bool(torch.isfinite(v)) for v in metrics.values())]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+print(json.dumps({"trained": done, "bad": bad}))
+"""
+
+
+def test_lm_and_diffusion_train_steps_load_nothing_of_jax():
+    """One smoke train step of an LM (DeepSeek-V3: MLA, MoE and the MTP
+    loss) and of a diffusion model (the U-Net) through ``configs.steps`` in
+    a port-only process: no ``jax`` and no ``repro`` module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", TRAIN_LM_AND_DIFFUSION], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["trained"] == {"deepseek-v3-671b": [["ce", "load_balance", "mtp", "total"], 1, True],
+                              "unet-sd15": [["loss"], 1, True]}
+    assert out["bad"] == []

@@ -315,11 +315,12 @@ def test_configs_match_jax(name):
 
 def test_registry_holds_the_ported_archs_only():
     """The LMs and, since the diffusion pair was ported, every JAX arch; a
-    diffusion train bundle still raises, naming ROADMAP.md."""
+    diffusion train bundle builds, as JAX's (its step:
+    ``tests/test_torch_diffusion_train.py``)."""
     assert set(ARCHS) <= set(list_archs())
     assert list_archs() == jlist_archs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build(get("unet-sd15"), "train_256", smoke=True)
+    b = build(get("unet-sd15"), "train_256", smoke=True)
+    assert b.kind == jsteps.build(jget("unet-sd15"), "train_256", smoke=True).kind == "train"
 
 
 def _check_bundles(name, cell, smoke):
@@ -398,7 +399,10 @@ def test_moe_mla_and_mtp_raise(jname):
 
 
 def test_train_step_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build(get("qwen3-4b"), "train_4k", smoke=True)
+    """The train_4k cell builds a train bundle of JAX's inputs (its step:
+    ``tests/test_torch_lm_train.py``); the skipped long_500k cell still
+    raises."""
+    b = build(get("qwen3-4b"), "train_4k", smoke=True)
+    assert b.kind == "train" and b.inputs == {"tokens": ((2, 64), torch.int32), "labels": ((2, 64), torch.int32)}
     with pytest.raises(ValueError, match="skipped"):
         build(get("qwen3-4b"), "long_500k")

@@ -352,7 +352,7 @@ def test_train_step_leaves_its_input_state_intact():
     arch = get("vit-l16")
     bundle = build(arch, "cls_224", smoke=True)
     assert bundle.kind == "train"
-    state, inputs = realize(arch, bundle, torch.Generator().manual_seed(1), smoke=True)
+    state, inputs = realize(arch, bundle, torch.Generator().manual_seed(1))
     before = [t.clone() for t in tree_leaves(state)]
     new, metrics = bundle.fn(state, **inputs)
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(state)))

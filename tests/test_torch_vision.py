@@ -330,13 +330,12 @@ def test_configs_match_jax(name):
 
 def test_vision_cells_and_registry_match_jax():
     """The vision cells, and the registry: every JAX arch since the diffusion
-    pair was ported, whose train cells still raise."""
+    pair was ported, whose train cells build train bundles."""
     assert {k: dataclasses.asdict(c) for k, c in vision_cells().items()} == \
         {k: dataclasses.asdict(c) for k, c in jvision_cells().items()}
     assert list_archs() == jlist_archs()
     for name in ("unet-sd15", "dit-xl2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build(get(name), "train_256", smoke=True)
+        assert build(get(name), "train_256", smoke=True).kind == "train"
 
 
 _JDT = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16}
@@ -379,7 +378,7 @@ def test_vision_train_and_unported_kinds_raise():
         assert sorted(map(str, _spec_leaves(b.state))) == sorted(map(str, jspec))
         assert b.inputs == {"images": ((256, 224, 224, 3), torch.bfloat16), "labels": ((256,), torch.int32)}
         sb = build(a, "cls_224", smoke=True)
-        state, inputs = realize(a, sb, torch.Generator().manual_seed(0), smoke=True)
+        state, inputs = realize(a, sb, torch.Generator().manual_seed(0))
         params, opt, n = state
         assert int(n) == 0 and n.dtype == torch.int32 and int(opt["count"]) == 0
         assert [tuple(t.shape) for t in tree_leaves(opt["mu"])] == [tuple(t.shape) for t in tree_leaves(params)]
