@@ -300,6 +300,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    gradient held to the same pass with plain attention (``mtp_pass``),
    route aware.
 
+17. drives the script twins (``examples/*_torch.py``, ``tools/*_torch.py``)
+   through their functions in-process at full width (``phase_scripts``):
+   (a) quickstart at VGG-16 224 x 224, width 1.0, batch 1 -- ``run_plan``
+   through K1 lossless against the single-device forward; (b) serve_halp at
+   VGG-16's full config -- latency curve at b = 1, 2, 4, 8, the admitted
+   batch (>= 1), 48 requests all completed, p50 / p99, req/s, per-ES
+   GFLOP/s (one window, under the call recorder), the first served batch's
+   logits (recomputed through its plan) within 2e-5 x (1 + |y|) of the
+   single-device forward and its class ids the single-device argmax; (c)
+   replan_channel at full-width VGG-16, its link rates times its
+   ``link_scale`` (28: a row crosses a link in the demo's time) -- section 3
+   served through K1, section 4 lossless; (d)
+   train_fault_tolerant on full-width ViT-L/16 (cls_224, bf16) through phase
+   15's ``cell_trainer`` at ``SCRIPTS_TRAIN_BATCH``, ``SCRIPTS_TRAIN_STEPS``
+   steps with faults at ``SCRIPTS_FAULTS_AT`` and a checkpoint every
+   ``SCRIPTS_CKPT_EVERY`` -- the chaos run's final state bit-identical to the
+   uninterrupted run's, K1's and K3's Functions held at its signatures;
+   (e) precompute_plans_torch --smoke into a temporary store, check_torch
+   --store --benchmarks exiting 0, one K2 launch at each geometry its kernel
+   pass probed, and a restarted controller serving all 12 lattice points
+   with 0 optimizer calls, each plan lossless through K1.  Every K1 call
+   signature of (a)-(c) is held to the plain version; each part's K1 / K3
+   launches are counted against its forwards and steps.  It prints one JSON
+   line ``{"phase17": ...}`` before the kernels line.
+
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -1694,6 +1719,35 @@ def sweep_trace_inputs():
     return classes, OffloadChannel(rate_bps=100e6, sigma_s=2e-3), processes
 
 
+def probe_k2(torch, calls: dict, gen) -> list[dict]:
+    """One K2 launch at every geometry of ``calls`` (``plan_kernel_calls``:
+    geometry -> operand shapes, None where the probe refused it) that the
+    probe accepts, on seeded inputs, held to the probe's output shape and to
+    the plain version within TOL; fatal otherwise.  Returns one row a launch."""
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+
+    probed = []
+    for (k, s, p, groups, cin, cout, hs, w), shapes in sorted(calls.items()):
+        if shapes is None:  # not a K2 geometry (check_plan_kernels agreed with the predicate)
+            continue
+        kw = dict(stride=s, padding=p, groups=groups)
+        want = shapes["out"]
+        x, top, bot, wt = (None if shapes[n] is None else torch.randn(shapes[n], generator=gen, device="cuda")
+                           for n in ("x", "top", "bottom", "weights"))
+        wt *= math.sqrt(2.0 / (k * k * shapes["weights"][2]))
+        before = halo_conv2d_cuda.launches
+        y = halo_conv2d_cuda(x, top, bot, wt, **kw)
+        ref = halo_conv2d_ref(x, top, bot, wt, None, **kw)
+        torch.cuda.synchronize()
+        check(halo_conv2d_cuda.launches == before + 1, f"K2 did not launch at {shapes}")
+        check(tuple(y.shape) == want, f"K2 gave {tuple(y.shape)}, the probe {want}")
+        err = (y - ref).abs().max().item()
+        check(bool(((y - ref).abs() <= TOL["float32"] * (1 + ref.abs())).all()),
+              f"K2 disagrees with its plain version at {shapes} (max err {err})")
+        probed.append(dict(geometry=[k, s, p, groups, cin, cout, hs, w], shape=list(want), max_abs_err=err))
+    return probed
+
+
 def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, dict]:
     """Phase 10: the plan analysers and deadline-aware serving (paper §V.D)
     over full-width VGG-16 under ``plan_halp(overlap_rows=4)``, with phase
@@ -1708,7 +1762,7 @@ def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, di
     from repro_torch.core import (OffloadChannel, Segment, plan_even, plan_halp, rate_fluctuation,
                                   service_reliability)
     from repro_torch.kernels.conv2d import conv2d_cuda
-    from repro_torch.kernels.halo_conv import halo_conv2d_cuda, halo_conv2d_ref
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda
     from repro_torch.models import vgg
     from repro_torch.models.common import tree_map
     from repro_torch.runtime import (BatchingEngine, ServeConfig, ServeLoopConfig, choose_batch_size,
@@ -1752,26 +1806,7 @@ def phase_serving(torch, params=None, images=None, plain=None) -> tuple[dict, di
         calls.update(deployed)
     # one K2 launch at every geometry the probe accepts, held to the probe's
     # shape and to the plain version
-    pgen = torch.Generator(device="cuda").manual_seed(10)
-    probed = []
-    for (k, s, p, groups, cin, cout, hs, w), shapes in sorted(calls.items()):
-        if shapes is None:  # not a K2 geometry (check_plan_kernels agreed with the predicate)
-            continue
-        kw = dict(stride=s, padding=p, groups=groups)
-        want = shapes["out"]
-        x, top, bot, wt = (None if shapes[n] is None else torch.randn(shapes[n], generator=pgen, device="cuda")
-                           for n in ("x", "top", "bottom", "weights"))
-        wt *= math.sqrt(2.0 / (k * k * shapes["weights"][2]))
-        before = halo_conv2d_cuda.launches
-        y = halo_conv2d_cuda(x, top, bot, wt, **kw)
-        ref = halo_conv2d_ref(x, top, bot, wt, None, **kw)
-        torch.cuda.synchronize()
-        check(halo_conv2d_cuda.launches == before + 1, f"K2 did not launch at {shapes}")
-        check(tuple(y.shape) == want, f"K2 gave {tuple(y.shape)}, the probe {want}")
-        err = (y - ref).abs().max().item()
-        check(bool(((y - ref).abs() <= TOL["float32"] * (1 + ref.abs())).all()),
-              f"K2 disagrees with its plain version at {shapes} (max err {err})")
-        probed.append(dict(geometry=[k, s, p, groups, cin, cout, hs, w], shape=list(want), max_abs_err=err))
+    probed = probe_k2(torch, calls, torch.Generator(device="cuda").manual_seed(10))
     probe_launches = halo_conv2d_cuda.launches
     print(f"  K2 launched once at each of the {len(probed)} of {len(calls)} geometries the probe accepts "
           f"({probe_launches} launches); "
@@ -4744,6 +4779,294 @@ def plain_kernels():
     return model_kernels(conv2d_ref, attention_plain)
 
 
+# Phase 17 (``phase_scripts``): the script twins, called in-process at full
+# width.  (d) runs
+# train_fault_tolerant_torch on full-width ViT-L/16 (bf16, cls_224) at
+# SCRIPTS_TRAIN_BATCH images (phase 15's fit: the cell's 256 does not fit
+# 80 GB), cut to SCRIPTS_TRAIN_STEPS steps with faults at SCRIPTS_FAULTS_AT
+# and a checkpoint every SCRIPTS_CKPT_EVERY steps.  (e) walks
+# precompute_plans_torch's --smoke lattices (3 x 3 halo, 3 scheme points).
+SCRIPTS_TRAIN_BATCH, SCRIPTS_TRAIN_STEPS, SCRIPTS_FAULTS_AT, SCRIPTS_CKPT_EVERY = 128, 12, (5, 10), 4
+SMOKE_LINK_SHIFTS, SMOKE_COMPUTE_SHIFTS = [-1, 0, 1], [-2, -1, 0]
+
+
+def plan_k1_calls(plan, batch: int) -> int:
+    """K1 launches of one ``run_plan`` forward of a HALP or mixed-scheme plan."""
+    from repro_torch.core import SchemePlan
+
+    return sum((scheme_calls(plan, batch)[0] if isinstance(plan, SchemePlan) else conv_shapes(plan, batch)).values())
+
+
+def phase_scripts(torch) -> tuple[dict, dict, list, list]:
+    """Phase 17: the script twins (``examples/*_torch.py``, ``tools/*_torch.py``)
+    driven through their ``run`` / ``main`` functions at full width on the
+    card, TF32 off: (a) quickstart at VGG-16 (224, width 1.0, batch 1),
+    section 3 lossless; (b) serve_halp at VGG-16's full config (the curve,
+    the admitted batch, 48 requests), the first served batch's logits
+    recomputed through its plan and held to the single-device forward, and
+    its served class ids to the single-device argmax; (c) replan_channel at
+    full-width VGG-16 (its links x ``link_scale``), section 3 served,
+    section 4 lossless; (d) train_fault_tolerant on
+    ViT-L/16 through phase 15's ``cell_trainer``, the chaos run's final state
+    bit-identical to the uninterrupted run's, K1's and K3's Functions held at
+    its signatures in bfloat16; (e) precompute_plans_torch --smoke into a
+    temporary store, check_torch --store --benchmarks exiting 0, one K2
+    launch at each geometry its kernel pass probed, and a restarted
+    controller serving every lattice point with 0 optimizer calls, each plan
+    lossless through ``run_plan``.  Every K1 call the serving parts made is
+    held to its plain version at its signature afterwards.  Returns the
+    report, the launches of the twins' runs (holds excluded), and the K1 and
+    K2 hold rows."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    sys.path[:0] = [str(ROOT / "examples"), str(ROOT / "tools")]
+    import check_torch
+    import precompute_plans_torch
+    import quickstart_torch
+    import replan_channel_torch
+    import serve_halp_torch
+    import train_fault_tolerant_torch
+
+    from repro_torch.analysis.kernel_check import plan_kernel_calls
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import PlanStore, ReplanController, plan_halp, plan_halp_topology, vgg16_geom
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda
+    from repro_torch.models import vgg
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.spatial import run_plan
+
+    phase_t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"phase 17 on {smi}: the script twins at full width")
+    launches = {"conv2d": 0, "conv2d_backward": 0, "halo_conv2d": 0, "flash_attention": 0}
+    report: dict = {"card": smi}
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.backward_launches = halo_conv2d_cuda.launches = 0
+        flash_attention.launches = 0
+
+    def read() -> tuple[int, int, int]:
+        got = conv2d_cuda.launches, conv2d_cuda.backward_launches, flash_attention.launches
+        launches["conv2d"] += got[0]
+        launches["conv2d_backward"] += got[1]
+        launches["flash_attention"] += got[2]
+        return got
+
+    def lossless(y, single, what: str) -> float:
+        check(bool(torch.isfinite(y).all()) and y.shape == single.shape, f"{what}: non-finite or misshapen output")
+        share = ((y - single).abs() / (TOL["float32"] * (1 + single.abs()))).max().item()
+        check(share <= 1, f"{what} is not lossless against the single-device forward ({share:.3f} of the limit)")
+        return share
+
+    with recording_calls() as rec:
+        # (a) quickstart at full-width VGG-16
+        t0 = time.perf_counter()
+        zero()
+        qs = quickstart_torch.run("cuda", vgg.FULL)
+        got = read()
+        plan = plan_halp(vgg.FULL.geom(), overlap_rows=4)
+        want = sum(g.kind == "conv" for g in plan.net.layers) + plan_k1_calls(plan, 1)
+        check(got[0] == want, f"quickstart launched K1 {got[0]} times, its two forwards make {want} calls")
+        report["quickstart"] = dict(lossless=qs["lossless"], k1_launches=got[0], s=time.perf_counter() - t0)
+        print(f"  (a) quickstart at VGG-16 224 x 224 width 1.0, batch 1: run_plan vs vgg.features max |diff| "
+              f"{qs['lossless']['max_abs_err']:.3g} (largest |y| {qs['lossless']['ref_max_abs']:.3g}); K1 launches "
+              f"{got[0]}; {report['quickstart']['s']:.1f} s")
+
+        # (b) serve_halp at VGG-16's full config
+        t0 = time.perf_counter()
+        cfg = get_arch("vgg16").cfg
+        zero()
+        sv = serve_halp_torch.run(48, 2000.0, "cuda", cfg)
+        got = read()
+        batch = sv["max_batch"]
+        check(batch >= 1, f"serve_halp's admission shed at full width: curve {sv['curve_s']}")
+        stats = sv["stats"]
+        check(stats["completed"] == 48, f"serve_halp completed {stats['completed']} of 48 requests")
+        per_fwd = plan_k1_calls(sv["plan"], 1)
+        calls = len(serve_halp_torch.CURVE_BATCHES) * (serve_halp_torch.CURVE_CALLS + 1) + math.ceil(48 / batch)
+        check(got[0] == per_fwd * calls, f"serve_halp launched K1 {got[0]} times, {calls} forwards make "
+              f"{per_fwd * calls}")
+        # the engine serves class ids: recompute the first batch's logits
+        # through the same plan (K1, not counted) and hold them and the served
+        # ids to the single-device forward
+        first = sv["images"][:batch]
+        single = vgg.apply(sv["params"], cfg, first)
+        share = lossless(vgg.head(sv["params"], run_plan(sv["plan"], sv["params"]["features"], vgg.apply_layer,
+                                                        first)), single, "serve_halp's first served batch")
+        picked = single.gather(1, sv["classes"][:batch, None])[:, 0]
+        slack = 2 * TOL["float32"] * (1 + single.abs().max(dim=-1).values)
+        check(bool((picked >= single.max(dim=-1).values - slack).all()),
+              f"serve_halp served classes {sv['classes'][:batch].tolist()}, the single-device argmax is "
+              f"{single.argmax(dim=-1).tolist()}")
+        report["serve_halp"] = dict(curve_ms={b: t * 1e3 for b, t in sv["curve_s"].items()}, max_batch=batch,
+                                    requests_per_s=sv["requests_per_s"], wall_s=sv["wall_s"], **stats,
+                                    es_gflops={es: r / 1e9 for es, r in sv["es_rates"].items()},
+                                    first_batch_share=share, k1_launches=got[0], s=time.perf_counter() - t0)
+        print(f"  (b) serve_halp at VGG-16's full config: latency curve (ms) "
+              f"{ {b: round(t * 1e3, 3) for b, t in sv['curve_s'].items()} }, admitted max_batch {batch}; "
+              f"48 requests in {sv['wall_s']:.3f} s ({sv['requests_per_s']:.1f} req/s), p50 "
+              f"{stats['p50_latency_s'] * 1e3:.1f} ms, p99 {stats['p99_latency_s'] * 1e3:.1f} ms, deadlines met "
+              f"{stats['deadline_met_frac']:.3f}; per-ES GFLOP/s "
+              f"{ {es: round(r / 1e9, 1) for es, r in sv['es_rates'].items()} } (one window of 48 requests, "
+              f"under the call recorder); first batch's logits within {share:.3f} of the limit, its class ids "
+              f"the single-device argmax; K1 launches {got[0]}")
+        del sv, single
+
+        # (c) replan_channel at full-width VGG-16
+        t0 = time.perf_counter()
+        zero()
+        rc = replan_channel_torch.run("cuda", vgg.FULL)
+        scale = replan_channel_torch.link_scale(vgg.FULL.geom())
+        got = read()
+        served = rc["serving"]
+        check(served["batch0"] >= 1, "replan_channel's admission shed at full width")
+        check(served["stats"]["completed"] == replan_channel_torch.N_SERVED,
+              f"replan_channel served {served['stats']['completed']} requests")
+        want = (plan_k1_calls(served["plan"], 1) * math.ceil(replan_channel_torch.N_SERVED / served["batch0"])
+                + sum(g.kind == "conv" for g in vgg.FULL.geom().layers) + plan_k1_calls(rc["lossless"]["plan"], 1))
+        check(got[0] == want, f"replan_channel launched K1 {got[0]} times, its forwards make {want} calls")
+        st = rc["replay"]["stats"]
+        report["replan_channel"] = dict(
+            link_scale=scale, static_mean_ms=rc["replay"]["static_mean"] * 1e3,
+            adaptive_mean_ms=rc["replay"]["adaptive_mean"] * 1e3, stats=st, batch0=served["batch0"],
+            batch1=served["batch1"], calibration=served["calibration"], served=served["stats"],
+            serve_wall_s=served["wall_s"], lossless_max_abs_err=rc["lossless"]["max_abs_err"],
+            rows=rc["lossless"]["rows"], k1_launches=got[0], s=time.perf_counter() - t0)
+        print(f"  (c) replan_channel at full-width VGG-16, links x{scale:g}: mean makespan static "
+              f"{rc['replay']['static_mean'] * 1e3:.3f} ms, adaptive {rc['replay']['adaptive_mean'] * 1e3:.3f} ms "
+              f"({st['replans']} switches, {st['optimizer_calls']} optimizer calls); "
+              f"admitted batch {served['batch0']} -> {served['batch1']} after the collapse, calibration "
+              f"{served['calibration']:.3f}, {served['stats']['completed']} served in {served['wall_s']:.3f} s; "
+              f"adaptive plan {rc['lossless']['rows']} lossless, max |diff| {rc['lossless']['max_abs_err']:.3g}; "
+              f"K1 launches {got[0]}")
+        del rc
+
+    # every K1 call signature of (a)-(c), held to the plain version (untimed)
+    hgen = torch.Generator(device="cuda").manual_seed(17)
+    k1_holds = [dict(hold_conv(torch, F, hgen, sig, timed=False), calls=c, path="scripts")
+                for sig, c in sorted(rec.convs.items(), key=str)]
+    print(f"  K1 held at the {len(k1_holds)} call signatures of (a)-(c): largest |err| "
+          f"{max(r['max_abs_err'] for r in k1_holds):.3g}")
+    report["k1_signatures"] = len(k1_holds)
+
+    # (d) train_fault_tolerant on full-width ViT-L/16 through phase 15's trainer
+    t0 = time.perf_counter()
+    vit = with_batch(get_arch("vit-l16"), SCRIPTS_TRAIN_BATCH)
+
+    def factory(arch, cell, fault_cfg, fault_hook=None):
+        return cell_trainer(torch, vit, fault_cfg, cell, fault_hook=fault_hook)
+
+    zero()
+    with recording_train_calls() as trec:
+        tr = train_fault_tolerant_torch.run(SCRIPTS_TRAIN_STEPS, "vit-l16", "cuda", SCRIPTS_FAULTS_AT,
+                                            SCRIPTS_CKPT_EVERY, trainer_factory=factory)
+    got = read()
+    ref, chaos = tr["reference"], tr["chaos"]
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(tr["reference_state"]), tree_leaves(tr["chaos_state"])))
+    replays = sum(f - f // SCRIPTS_CKPT_EVERY * SCRIPTS_CKPT_EVERY for f in SCRIPTS_FAULTS_AT)
+    steps_run = 2 * SCRIPTS_TRAIN_STEPS + replays
+    check(tr["ok"] and equal and chaos.losses == ref.losses,
+          "the chaos run's final state is not bit-identical to the uninterrupted run's")
+    check(chaos.failures == chaos.restores == len(SCRIPTS_FAULTS_AT) and tr["injected"] == list(SCRIPTS_FAULTS_AT),
+          f"the chaos run counted {chaos.failures} failures, {chaos.restores} restores, injected {tr['injected']}")
+    check(all(math.isfinite(v) for v in ref.losses), f"a non-finite loss {ref.losses}")
+    want_fwd = VISION_LAUNCHES["vit-l16"]
+    check(got[0] == steps_run * want_fwd[0] and got[2] == steps_run * want_fwd[2],
+          f"the twin's {steps_run} steps launched K1 {got[0]} / K3 {got[2]} times, {want_fwd} a step")
+    grad_rows = [hold_conv_grad(torch, hgen, sig) for sig in sorted(trec.convs, key=str)]
+    attn_rows = [hold_attention_grad(torch, hgen, *shape, dname) for shape, s, dname, causal in sorted(trec.attns)]
+    check(grad_rows and attn_rows and all(r["dtype"] == "bfloat16" and r["shape"][0] == SCRIPTS_TRAIN_BATCH
+                                          for r in grad_rows),
+          f"the twin's steps were not bf16 at batch {SCRIPTS_TRAIN_BATCH}: {sorted(trec.convs, key=str)}")
+    print_conv_holds(grad_rows, f"bfloat16 at batch {SCRIPTS_TRAIN_BATCH}")
+    for row in attn_rows:
+        print(f"  K3's Function held in bfloat16 at [{row['b']}, {row['h']}, {row['t']}, {row['d']}]: max_err "
+              f"{row['max_abs_err']:.3g} (share {row['limit_share']:.3g})")
+    report["train_fault_tolerant"] = dict(
+        arch="vit-l16", cell="cls_224", dtype="bfloat16", batch=SCRIPTS_TRAIN_BATCH, steps=SCRIPTS_TRAIN_STEPS,
+        faults_at=list(SCRIPTS_FAULTS_AT), ckpt_every=SCRIPTS_CKPT_EVERY, failures=chaos.failures,
+        restores=chaos.restores, steps_run=steps_run, bit_identical=equal, losses=ref.losses,
+        ema_step_ms=ref.ema_step_s * 1e3, k1_launches=got[0], k3_launches=got[2],
+        reduced=dict(batch=f"{SCRIPTS_TRAIN_BATCH} of the cell's 256 (phase 15's fit)",
+                     steps=f"{SCRIPTS_TRAIN_STEPS} of the script's 120",
+                     faults=f"{list(SCRIPTS_FAULTS_AT)} for the script's [37, 83]",
+                     ckpt_every=f"{SCRIPTS_CKPT_EVERY} for the script's 20"),
+        s=time.perf_counter() - t0)
+    print(f"  (d) train_fault_tolerant on ViT-L/16 at full width, cls_224, bf16 (reduced: "
+          f"{report['train_fault_tolerant']['reduced']}): losses {ref.losses[0]:.4f} -> {ref.losses[-1]:.4f}, ema "
+          f"step {ref.ema_step_s * 1e3:.1f} ms; chaos run {chaos.failures} failures, {chaos.restores} restores, "
+          f"final state bit-identical: {equal}; {steps_run} steps run, K1 {got[0]}, K3 {got[2]} launches; "
+          f"{report['train_fault_tolerant']['s']:.1f} s")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (e) precompute_plans_torch --smoke, check_torch --store --benchmarks,
+    # then a restarted controller serving every lattice point through K1
+    t0 = time.perf_counter()
+    k2_rows = []
+    with tempfile.TemporaryDirectory() as d:
+        store_path = os.path.join(d, "plans.sqlite")
+        pre = precompute_plans_torch.main(["--store", store_path, "--smoke"])
+        check(pre["base"]["lattice_points"] == len(SMOKE_LINK_SHIFTS) * len(SMOKE_COMPUTE_SHIFTS)
+              and pre["scheme"]["store_entries"] == pre["base"]["lattice_points"] + pre["scheme"]["lattice_points"],
+              f"precompute_plans_torch --smoke filled {pre}")
+        zero()
+        rc_check = check_torch.main(["--store", store_path, "--benchmarks"])
+        check(rc_check == 0, f"check_torch --store --benchmarks exited {rc_check}")
+        check(halo_conv2d_cuda.launches == 0 and conv2d_cuda.launches == 0, "the static checker launched a kernel")
+        # one K2 launch at each geometry check_torch's kernel pass probed
+        topo = precompute_plans_torch.demo_topology()
+        calls = {}
+        for net in (precompute_plans_torch.demo_net(), vgg16_geom()):
+            calls.update(plan_kernel_calls(plan_halp_topology(net, topo)))
+        zero()
+        k2_rows = probe_k2(torch, calls, hgen)
+        launches["halo_conv2d"] += halo_conv2d_cuda.launches
+        check(k2_rows and halo_conv2d_cuda.launches == len(k2_rows), f"K2 probe launches {halo_conv2d_cuda.launches}")
+        cfg = vgg.VGGConfig(img_res=64, width_mult=0.125, num_classes=10)
+        check(cfg.geom() == precompute_plans_torch.demo_net(), "the store's net is not the thin VGG-16")
+        params = vgg.init(torch.Generator(device="cuda").manual_seed(17), cfg)
+        x = torch.randn((MAX_BATCH, cfg.img_res, cfg.img_res, cfg.in_channels), generator=hgen, device="cuda")
+        single = vgg.features(params, cfg, x)
+        served, shares, optimizer_calls = 0, [], 0
+        with PlanStore(store_path) as store:
+            for config, links, computes in (
+                    (precompute_plans_torch.demo_config(), SMOKE_LINK_SHIFTS, SMOKE_COMPUTE_SHIFTS),
+                    (precompute_plans_torch.demo_scheme_config(), SMOKE_LINK_SHIFTS, [0])):
+                ctl = ReplanController(cfg.geom(), topo, config, store=store)
+                keys = precompute_plans_torch.lattice_keys(ctl, links, computes)
+                for key in keys:
+                    plan = ctl.prime(key).plan
+                    zero()
+                    y = run_plan(plan, params["features"], vgg.apply_layer, x)
+                    got = read()
+                    check(got[0] == plan_k1_calls(plan, MAX_BATCH), f"a stored plan launched K1 {got[0]} times")
+                    shares.append(lossless(y, single, f"the stored plan at {key}"))
+                    served += 1
+                optimizer_calls += ctl.optimizer_calls
+                check(ctl.optimizer_calls == 0 and ctl.cache.store_hits == len(keys),
+                      f"the restarted controller optimised {ctl.optimizer_calls} times, {ctl.cache.store_hits} "
+                      f"store hits for {len(keys)} points")
+        check(served == pre["scheme"]["store_entries"], f"served {served} of {pre['scheme']['store_entries']} points")
+    report["precompute_check"] = dict(
+        lattice_points=served, store_entries=pre["scheme"]["store_entries"], check_exit=rc_check,
+        k2_probe_launches=len(k2_rows), k2_max_abs_err=max(r["max_abs_err"] for r in k2_rows),
+        served_optimizer_calls=optimizer_calls, largest_lossless_share=max(shares), s=time.perf_counter() - t0)
+    print(f"  (e) precompute_plans_torch --smoke: {served} lattice points; check_torch --store --benchmarks exit "
+          f"{rc_check}; K2 launched once at each of {len(k2_rows)} probed geometries (max |err| "
+          f"{report['precompute_check']['k2_max_abs_err']:.3g}); a restarted controller served all {served} with "
+          f"{optimizer_calls} optimizer calls, each plan lossless through K1 (largest share {max(shares):.3g})")
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 17: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    report["launches"] = dict(launches)
+    return report, launches, k1_holds, k2_rows
+
+
 def main() -> int:
     # phase 16 holds several full-width train states at once: segments that
     # grow keep the allocator's cache from splintering the card's 80 GB
@@ -5331,6 +5654,9 @@ def main() -> int:
     # -- 16. LM and diffusion training through configs.steps' train cells -----
     lmd_report, lmd_launches = phase_lm_diffusion_train(torch)
 
+    # -- 17. the script twins at full width ------------------------------------
+    scripts_report, scripts_launches, scripts_k1_holds, scripts_k2_rows = phase_scripts(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -5372,16 +5698,17 @@ def main() -> int:
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
               + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]
               + train_launches["conv2d"] + train_launches["conv2d_backward"] + lmd_launches["conv2d"]
-              + lmd_launches["conv2d_backward"]),
+              + lmd_launches["conv2d_backward"] + scripts_launches["conv2d"] + scripts_launches["conv2d_backward"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
-              sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]),
+              sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]
+              + scripts_launches["halo_conv2d"]),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
               + diff_launches["flash_attention"] + train_launches["flash_attention"]
-              + lmd_launches["flash_attention"]),
+              + lmd_launches["flash_attention"] + scripts_launches["flash_attention"]),
     ]
     # phase 15's backward: K1's launches in it, and per float32 step at batch
     # 4 the device ms of its parts; K3's plain backward at ViT's shape
@@ -5439,8 +5766,11 @@ def main() -> int:
                                                                     if r["dtype"] == "float32"))
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], max(r["max_abs_err"] for r in diff_attn_rows
                                                                     if r["dtype"] == "float32"))
-    # phase 12's holds are untimed: they add to K1's error, not to its times
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in replan_holds))
+    # phase 12's and 17's holds are untimed: they add to K1's and K2's
+    # errors, not to their times
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(r["max_abs_err"] for r in replan_holds),
+                                    max(r["max_abs_err"] for r in scripts_k1_holds))
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], max(r["max_abs_err"] for r in scripts_k2_rows))
     per_path = {path: {key: per_fwd([r for r in main_rows if r["path"] == path], key)
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ffma_bound_ms")}
                 for path in ("run_plan", "weighted-fixup", "vit", "vgg-np", "engines")}
@@ -5494,6 +5824,7 @@ def main() -> int:
         "vision_per_forward": vision_per_forward, "diffusion": diff_report,
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
         "diffusion_per_forward": diffusion_per_forward, "train": train_report, "lm_diffusion_train": lmd_report,
+        "scripts": scripts_report, "scripts_k1_holds": scripts_k1_holds, "scripts_k2_probe": scripts_k2_rows,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -5543,13 +5874,21 @@ def main() -> int:
                 "the diffusion pair at train_256), the train_1024 probe and fitted steps, and DeepSeek-V3's MTP "
                 "pass; conv2d's backward entry adds the U-Net's parts, flash_attention's backward entry the plain "
                 "backward a call at T = 4096 causal and T = 16384 beside its bound and SDPA's forward + backward; "
-                "flash_attention's max_abs_err covers the o of phase 16's Function holds.",
+                "flash_attention's max_abs_err covers the o of phase 16's Function holds.  Phase 17 adds to "
+                "the launches those of the script twins' runs: quickstart's two forwards, serve_halp's latency "
+                "curve and served batches, replan_channel's served batches and lossless forwards, the "
+                "fault-tolerant pair's steps (replays included), one K2 launch per geometry check_torch's "
+                "kernel pass probed, and one forward of every stored plan; conv2d's and halo_conv2d's "
+                "max_abs_err cover its untimed holds.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     check(all(math.isfinite(v) for e in kernels for v in tree_leaves(e) if isinstance(v, float)),
           f"a non-finite number in the kernels line: {kernels}")
+    print(json.dumps({"phase17": {k: scripts_report[k] for k in (
+        "card", "quickstart", "serve_halp", "replan_channel", "train_fault_tolerant", "precompute_check", "launches",
+        "phase_s")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

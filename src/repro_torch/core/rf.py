@@ -1,18 +1,37 @@
-"""Receptive-field arithmetic for segment-based partitioning (paper §II, eqs. 1, 8-9).
+"""Receptive-field arithmetic for segment-based partitioning (paper §II, eqs. 1-4, 8-9).
 
-The port's own copy of the part of ``repro/core/rf.py`` the planners and
-the plan executor need: the layer geometry (convolution, pooling and the
-attention layer of the ViT geometry) and the exact input-row range of a range
-of output rows.  For output rows ``[o_lo, o_hi]`` (1-indexed, inclusive)
-of a layer with kernel ``k``, stride ``s``, padding ``p``:
-``in_lo = (o_lo-1)*s + 1 - p`` and ``in_hi = (o_hi-1)*s + k - p``, clipped to
-the valid input rows (out-of-range rows are the zero padding).
+The port's own copy of ``repro/core/rf.py``: the layer geometry
+(convolution, pooling and the attention layer of the ViT geometry), the
+cumulative receptive-field chain of eqs. (1)-(4) and two range calculators.
+
+* ``input_range_exact`` -- exact sliding-window interval algebra (used by the
+  partitioner and the plan executor).  For output rows ``[o_lo, o_hi]``
+  (1-indexed, inclusive) of a layer with kernel ``k``, stride ``s``, padding
+  ``p``: ``in_lo = (o_lo-1)*s + 1 - p`` and ``in_hi = (o_hi-1)*s + k - p``,
+  clipped to the valid input rows (out-of-range rows are the zero padding).
+* ``input_range_paper`` -- the paper's eqs. (8)-(9) verbatim, driven by the
+  chain of eqs. (2)-(4).  Its end formula uses ``(OE+1)*j``, slightly
+  conservative for strided layers: the exact range lies inside it.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from fractions import Fraction
+from typing import Sequence
 
-__all__ = ["LayerGeom", "out_size", "input_range_exact", "attn", "conv", "pool"]
+__all__ = [
+    "LayerGeom",
+    "RFState",
+    "out_size",
+    "rf_chain",
+    "input_range_exact",
+    "input_range_paper",
+    "propagate_range",
+    "attn",
+    "conv",
+    "pool",
+]
 
 
 @dataclass(frozen=True)
@@ -77,3 +96,82 @@ def input_range_exact(
     lo = (o_lo - 1) * s + 1 - p
     hi = (o_hi - 1) * s + k - p
     return max(lo, 1), min(hi, in_rows)
+
+
+@dataclass(frozen=True)
+class RFState:
+    """Cumulative receptive-field state after a layer (paper eqs. 1-4).
+
+    ``sigma`` is the (possibly fractional) input-row index of the centre of the
+    receptive field of the *first* output row; kept exact as a Fraction.
+    """
+
+    out: int  # O_{g_i}: output rows
+    jump: int  # j_{g_i}: cumulative stride
+    rf: int  # r_{g_i}: receptive-field extent in input rows
+    sigma: Fraction  # σ_{g_i}: centre row of first output's receptive field
+
+    @staticmethod
+    def for_input(in_rows: int) -> "RFState":
+        # identity "layer 0": each input row is its own receptive field.
+        return RFState(out=in_rows, jump=1, rf=1, sigma=Fraction(1))
+
+
+def _advance(state: RFState, g: LayerGeom) -> RFState:
+    """Apply eqs. (1)-(4) for one layer."""
+    o = out_size(state.out, g.k, g.s, g.p)
+    j = state.jump * g.s  # eq. (2)
+    r = state.rf + (g.k - 1) * state.jump  # eq. (3)
+    sigma = state.sigma + (Fraction(g.k - 1, 2) - g.p) * state.jump  # eq. (4)
+    return RFState(out=o, jump=j, rf=r, sigma=sigma)
+
+
+def rf_chain(in_rows: int, layers: Sequence[LayerGeom]) -> list[RFState]:
+    """Cumulative receptive-field states for every layer (index i == after layer i)."""
+    states = []
+    st = RFState.for_input(in_rows)
+    for g in layers:
+        st = _advance(st, g)
+        states.append(st)
+    return states
+
+
+def input_range_paper(
+    o_lo: int, o_hi: int, state: RFState, in_rows: int
+) -> tuple[int, int]:
+    """Paper eqs. (8)-(9) verbatim, with the cumulative state of the layer.
+
+    Maps output rows of layer g_i to rows of the *original input* of the chain
+    whose state is ``state``.  For a single layer pass a chain of length 1.
+    """
+    half = (state.rf - 1) // 2  # floor((r-1)/2)
+    is_ = state.sigma + (o_lo - 1) * state.jump - half  # eq. (8)
+    ie = state.sigma + (o_hi + 1) * state.jump - half  # eq. (9)
+    return max(math.floor(is_), 1), min(math.ceil(ie), in_rows)
+
+
+def propagate_range(
+    layers: Sequence[LayerGeom],
+    in_rows: int,
+    layer_idx: int,
+    o_range: tuple[int, int],
+) -> list[tuple[int, int]]:
+    """Back-propagate an output-row range of layer ``layer_idx`` through the chain.
+
+    Returns one (lo, hi) per level: index 0 is the range on the original input,
+    index i (1-based) is the range on the output of layer i-1 ... ending with
+    ``o_range`` itself at index ``layer_idx + 1``.  Exact algebra (lossless).
+    """
+    sizes = [in_rows]
+    for g in layers:
+        sizes.append(out_size(sizes[-1], g.k, g.s, g.p))
+    lo, hi = o_range
+    if not 1 <= lo <= hi <= sizes[layer_idx + 1]:
+        raise ValueError(f"range {o_range} invalid for layer {layer_idx} (O={sizes[layer_idx + 1]})")
+    ranges = [o_range]
+    for i in range(layer_idx, -1, -1):
+        g = layers[i]
+        lo, hi = input_range_exact(lo, hi, g.k, g.s, g.p, sizes[i])
+        ranges.append((lo, hi))
+    ranges.reverse()
+    return ranges

@@ -13,7 +13,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the script twins, beside the JAX package's scripts
+TWINS = [ROOT / "examples" / f"{name}_torch.py" for name in ("quickstart", "serve_halp", "replan_channel",
+                                                             "train_fault_tolerant")]
+TWINS += [ROOT / "tools" / f"{name}_torch.py" for name in ("check", "precompute_plans")]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 
 
 def _forbidden(module: str) -> bool:
@@ -35,23 +39,31 @@ def test_no_jax_or_repro_import_in_source(path):
 
 
 def test_importing_every_port_module_loads_no_jax():
-    """Import every module of the port in a fresh interpreter, then look at
-    ``sys.modules``: no ``jax`` and no ``repro``/``repro.*`` may be there."""
+    """Import every module of the port and the script twins in a fresh
+    interpreter, then look at ``sys.modules``: no ``jax`` and no
+    ``repro``/``repro.*`` may be there."""
     code = """
 import importlib, json, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path[:0] = ["examples", "tools"]
+twins = [p.split("/")[-1][:-3] for p in sys.argv[1:]]
+for name in twins:
+    importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
-print(json.dumps({"imported": names, "bad": bad}))
+print(json.dumps({"imported": names + twins, "bad": bad}))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", code, *map(str, TWINS)], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in out["imported"]
+    for name in ("quickstart_torch", "serve_halp_torch", "replan_channel_torch", "train_fault_tolerant_torch",
+                 "check_torch", "precompute_plans_torch"):
+        assert name in out["imported"]
     assert "repro_torch.kernels.conv2d.ops" in out["imported"]
     assert "repro_torch.kernels.attention.ops" in out["imported"]
     assert "repro_torch.models.vit_spatial" in out["imported"]

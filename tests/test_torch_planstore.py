@@ -6,10 +6,10 @@ cases of ``tests/test_analysis.py``) is written once over a package ``M``,
 run in both with a store file of its own, and compared by exact equality:
 ``canonical_key`` texts and ``key_hash`` of the same controller keys, store
 and cache counters, ``stats()`` dicts, served results field for field, and
-the key texts that land in the file.  The demo cluster, configs and
-lattice walk are ``tools/precompute_plans.py``'s (``lattice_keys`` reads only
-a controller's active key and nominal topology, so it walks either
-package's).  One case only the port has: a row the JAX package wrote is
+the key texts that land in the file.  The demo cluster and configs are
+``tools/precompute_plans.py``'s; the lattice walk is that tool's for a JAX
+controller and its twin's (``tools/precompute_plans_torch.py``) for the
+port's.  One case only the port has: a row the JAX package wrote is
 refused, counted in ``stale`` and left in the file.
 """
 import dataclasses
@@ -27,7 +27,15 @@ import repro.core as J  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from test_torch_analysis import mutate_part  # noqa: E402
 from test_torch_engines import demo_topology, same, smoke_net  # noqa: E402
-from tools.precompute_plans import lattice_keys  # noqa: E402
+from tools import precompute_plans_torch  # noqa: E402
+from tools.precompute_plans import lattice_keys as jax_lattice_keys  # noqa: E402
+
+
+def lattice_keys(ctl, link_shifts, compute_shifts):
+    """The lattice walk of the package ``ctl`` belongs to: the port's twin
+    for a port controller, the JAX tool for a JAX one."""
+    walk = precompute_plans_torch.lattice_keys if isinstance(ctl, T.ReplanController) else jax_lattice_keys
+    return walk(ctl, link_shifts, compute_shifts)
 
 
 def demo_config(M, **kw):
@@ -47,7 +55,16 @@ def controller(M, store=None, config=None):
 
 
 def precompute(M, path, link_shifts, compute_shifts, config=None):
-    """tools/precompute_plans.py: precompute, in either package (no timing)."""
+    """The lattice walk into ``path``: the port's through
+    ``tools/precompute_plans_torch.py: precompute``, JAX's as
+    ``tools/precompute_plans.py: precompute`` does it (no timing)."""
+    if M is T:
+        out = precompute_plans_torch.precompute(str(path), link_shifts, compute_shifts, net=smoke_net(T),
+                                                topology=demo_topology(T), config=config or demo_config(T))
+        with T.PlanStore(path) as store:
+            keys = store.keys()
+        return dict({k: out[k] for k in ("lattice_points", "optimizer_calls", "already_stored", "store_entries")},
+                    keys=keys)
     with M.PlanStore(path) as store:
         ctl = controller(M, store, config)
         keys = lattice_keys(ctl, link_shifts, compute_shifts)
