@@ -325,6 +325,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches are counted against its forwards and steps.  It prints one JSON
    line ``{"phase17": ...}`` before the kernels line.
 
+18. the parallel modules and the dry run (``phase_parallel``): (a) GPipe
+   (``parallel.pipeline_apply``) over a ``LocalComm`` of 2 stages on the
+   card: full-width ViT-L/16 (224 x 224, seeded weights), 12 blocks a stage,
+   8 microbatches of 4 images, the patch embedding (K1, once a microbatch)
+   and the head outside the pipeline, float32 (TF32 off) and bfloat16 --
+   each microbatch bit-identical to the same 24 blocks run unpipelined, the
+   logits within 2e-5 x (1 + |y|) of ``vit.apply`` at batch 32 (bf16: 2e-2
+   of the largest |logit| of the float32 forward of its rounded weights),
+   216 K3 and 8 K1 launches; pipelined and unpipelined ms (median of 10,
+   CUDA events) beside 1 / (1 - bubble_fraction(2, 8)) = 1.125; (b)
+   ``launch.dryrun.run_cell`` on a 1-device mesh at ViT-L/16 cls_224 (bf16,
+   batch 128), Qwen3-4B prefill_32k at 4 x 512 and UNet-SD1.5 gen_fast,
+   each against the same bundle realised and run on the card: the argument
+   bytes placed (512-byte blocks) equal, the K1 / K3 call signatures and
+   counts equal to those the wrappers record in one step or forward,
+   ViT's step operations equal to ``step_flops_of``; the peak of live bytes
+   beside the card's peak memory as a ratio.  It prints one JSON line
+   ``{"phase18": ...}`` before the kernels line.
+
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -800,12 +819,13 @@ def hold_halo_conv(torch, F, gen, case: dict) -> dict:
                 bf16_bound_ms=out["bfloat16"]["bound_ms"])
 
 
-def attention_pairs(t: int, s: int, causal: bool) -> int:
-    """(query, key) pairs the softmax weighs: T*S, or under the top-left
-    causal mask sum_t min(S, t + 1)."""
-    if not causal:
-        return t * s
-    return sum(min(s, q + 1) for q in range(t))
+def op_cost():
+    """The port's cost accounting (``repro_torch.launch.op_cost``): the one
+    formula of K3's pairs and of a step's operations, which the dry run
+    counts too."""
+    from repro_torch.launch import op_cost as module
+
+    return module
 
 
 def hold_attention(torch, F, gen, case: dict) -> dict:
@@ -858,7 +878,7 @@ def hold_attention(torch, F, gen, case: dict) -> dict:
         t_kernel = time_ms(torch, kernel)
         t_plain = time_ms(torch, lambda: attention_ref(q, kr, vr, causal=causal))
         t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
-        flops = 2.0 * b * h * attention_pairs(t, s, causal) * (d + dv)
+        flops = 2.0 * b * h * op_cost().attention_pairs(t, s, causal) * (d + dv)
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()  # q, k, v in; o out
         ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
         t_bound = max(ops_ms, bytes_ms)
@@ -1111,7 +1131,7 @@ def moe_bounds(cfg, n_params: int, capacity: int, elem_bytes: int) -> dict:
         return cfg.n_layers * per_layer + 2 * tokens * d * cfg.vocab
 
     weight_bytes = (n_params - cfg.vocab * d) * elem_bytes
-    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, capacity, attention_pairs(LM_LEN, LM_LEN, True)),
+    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, capacity, op_cost().attention_pairs(LM_LEN, LM_LEN, True)),
                 decode_flops=flops(LM_BATCH, LM_BATCH, DECODE_STEPS + 1),
                 decode_bytes=weight_bytes + LM_BATCH * d * elem_bytes)
 
@@ -1423,8 +1443,8 @@ def mla_bounds(cfg, n_params: int, capacity: int, elem_bytes: int) -> dict:
         return cfg.n_dense_layers * dense + cfg.n_moe_layers * moe_layer + 2 * tokens * d * cfg.vocab
 
     weight_bytes = (n_params - cfg.vocab * d) * elem_bytes
-    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, LM_BATCH * LM_LEN, attention_pairs(LM_LEN, LM_LEN, True),
-                                    capacity),
+    pairs = op_cost().attention_pairs(LM_LEN, LM_LEN, True)
+    return dict(prefill_flops=flops(LM_BATCH * LM_LEN, LM_BATCH * LM_LEN, pairs, capacity),
                 decode_flops=flops(LM_BATCH, LM_BATCH * (DECODE_STEPS + 1), DECODE_STEPS + 1, LM_BATCH),
                 decode_bytes=weight_bytes + LM_BATCH * d * elem_bytes)
 
@@ -1978,6 +1998,251 @@ PAPER_RATES = (40e9, 60e9, 80e9, 100e9)
 CF_SLACK = {1: 1.05, 4: 1.11}
 SLOW_FACTOR, SLOW_GBPS, FAST_GBPS = 0.35, 10.0, 40.0
 REPLAY_BAND, REPLAY_EPOCHS, REPLAY_SEED = (10e9, 100e9), 200, 31
+
+
+# Phase 18 (``phase_parallel``): (a) GPipe (``parallel.pipeline_apply``)
+# over a LocalComm of PIPE_STAGES stages on the card: full-width ViT-L/16,
+# its 24 blocks cut into stages of 12, PIPE_MICRO microbatches of PIPE_MB
+# images, float32 then bfloat16, timed (median of PIPE_REPS) beside the same
+# blocks run microbatch by microbatch; (b) the dry run (``launch.dryrun``) on
+# a 1-device mesh at DRY_CELLS, each against the same bundle realised and
+# run on the card.
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_REPS = 2, 8, 4, 10
+DRY_CELLS = (("vit-l16", "cls_224", dict(batch=128)), ("qwen3-4b", "prefill_32k", dict(global_batch=4, seq_len=512)),
+             ("unet-sd15", "gen_fast", {}))
+
+
+def median_event_ms(torch, fns, reps: int) -> list[float]:
+    """Each of ``fns``' median time over ``reps`` calls by CUDA events, the
+    functions called in turns (one warm-up call each), so a drift of the
+    card's clocks reaches them alike."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [sorted(ts)[reps // 2] for ts in times]
+
+
+def dry_signatures(rec: dict, kind: str, keep) -> Counter:
+    """A dry-run record's calls of ``kind`` as a Counter, each signature
+    (JSON lists back to tuples) cut to ``keep(sig)``."""
+    out = Counter()
+    for sig, n in rec["kernels"].get(kind, []):
+        out[keep(tuple(tuple(v) if isinstance(v, list) else v for v in sig))] += n
+    return out
+
+
+def phase_parallel(torch) -> tuple[dict, dict]:
+    """Phase 18: the parallel modules and the dry run on the card.  (a)
+    ``pipeline_apply`` at full width: ViT-L/16 (224 x 224, seeded weights)
+    as PIPE_STAGES stages of 12 blocks over ``LocalComm`` on the card,
+    PIPE_MICRO microbatches of PIPE_MB images, the patch embedding (K1, once
+    a microbatch) and the head outside the pipeline, float32 (TF32 off) and
+    bfloat16: each microbatch's output bit-identical to the same 24 blocks
+    run unpipelined on it, the logits within 2e-5 x (1 + |y|) of
+    ``vit.apply`` at the whole batch (bfloat16: 2e-2 of the largest |logit|
+    of the float32 forward of its rounded weights), K3 launched (S + M - 1)
+    x S x 12 times and K1 M times; both timed beside the unpipelined blocks
+    (median of PIPE_REPS by CUDA events, in turns) with 1 / (1 -
+    bubble_fraction).
+    (b) ``dryrun.run_cell`` on a 1-device mesh at DRY_CELLS, then the same
+    bundle realised on the card: the argument bytes the allocator places
+    (each leaf a multiple of 512 bytes) equal to the record's, its K1 / K3
+    signatures and counts equal to those the wrappers record on the card in
+    one step or forward, ViT's step operations equal to phase 15's
+    ``step_flops_of`` count; the peak of live bytes beside the card's peak
+    memory over what was allocated before ``realize`` (what earlier phases
+    left is not the step's), as a ratio (a record).  Returns the report and the launches of
+    its counted runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import vit
+    from repro_torch.models.common import layer, tree_leaves as state_leaves, tree_map
+    from repro_torch.parallel import bubble_fraction, pipeline_apply
+    from repro_torch.spatial import LocalComm
+
+    phase_t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"phase 18 on {smi}: the parallel modules and the dry run")
+    launches = {"conv2d": 0, "conv2d_backward": 0, "flash_attention": 0}
+    report: dict = {"card": smi}
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.backward_launches = flash_attention.launches = 0
+
+    def read() -> tuple[int, int, int]:
+        got = conv2d_cuda.launches, conv2d_cuda.backward_launches, flash_attention.launches
+        for key, n in zip(("conv2d", "conv2d_backward", "flash_attention"), got):
+            launches[key] += n
+        return got
+
+    # (a) GPipe at full width
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cfg = get_arch("vit-l16").cfg
+    per_stage = cfg.n_layers // PIPE_STAGES
+    comm = LocalComm(PIPE_STAGES, "cuda")
+    batch = PIPE_MICRO * PIPE_MB
+    params32 = vit.init(gen, cfg, torch.float32)
+    images32 = torch.randn((batch, cfg.img_res, cfg.img_res, cfg.in_channels), generator=gen, device="cuda")
+    bubble = 1.0 / (1.0 - bubble_fraction(PIPE_STAGES, PIPE_MICRO))
+    want_k3 = (PIPE_STAGES + PIPE_MICRO - 1) * PIPE_STAGES * per_stage
+    rep_a = report["pipeline"] = dict(stages=PIPE_STAGES, micro=PIPE_MICRO, micro_batch=PIPE_MB,
+                                      blocks_per_stage=per_stage, bubble_ratio=bubble)
+
+    def stage_fn(blocks, h):
+        for j in range(per_stage):
+            h = vit.vit_block_apply(layer(blocks, j), h, cfg.n_heads)
+        return h
+
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        params = params32 if dt == torch.float32 else tree_map(lambda t: t.to(dt), params32)
+        images = images32.to(dt)
+        stages = [tree_map(lambda t, i=i: t[i * per_stage:(i + 1) * per_stage], params["blocks"])
+                  for i in range(PIPE_STAGES)]
+        zero()
+        micro = torch.stack([vit.embed(params, cfg, x) for x in images.split(PIPE_MB)])
+        ys = pipeline_apply(stages, micro, stage_fn, comm)
+        logits = vit.head(params, ys.reshape(batch, *ys.shape[2:]))
+        torch.cuda.synchronize()
+        got = read()
+        print(f"  (a) {dname}: ViT-L/16 as {PIPE_STAGES} stages of {per_stage} blocks over LocalComm, "
+              f"{PIPE_MICRO} microbatches of {PIPE_MB}: K1 {got[0]} launches (expected {PIPE_MICRO}), K3 "
+              f"{got[2]} (expected {want_k3})")
+        check(got == (PIPE_MICRO, 0, want_k3), f"the pipelined {dname} forward launched {got}")
+
+        def unpipelined(h):
+            for blocks in stages:
+                h = stage_fn(blocks, h)
+            return h
+
+        zero()
+        same = all(torch.equal(ys[i], unpipelined(micro[i])) for i in range(PIPE_MICRO))
+        read()
+        check(same, f"a {dname} microbatch through the pipeline differs from the same blocks run unpipelined")
+        check(bool(torch.isfinite(logits.float()).all()) and logits.shape == (batch, cfg.num_classes),
+              f"non-finite or misshapen {dname} logits")
+        zero()
+        if dt == torch.float32:
+            ref = vit.apply(params, cfg, images)
+            err = (logits - ref).abs()
+            share = (err / (TOL[dname] * (1 + ref.abs()))).max().item()
+            limit = f"{TOL[dname]} x (1 + |y|)"
+        else:
+            ref = vit.apply(tree_map(lambda t: t.float(), params), cfg, images.float())
+            err = (logits.float() - ref).abs()
+            share = err.max().item() / (TOL[dname] * ref.abs().max().item())
+            limit = f"{TOL[dname]} of the largest |logit| of the float32 forward of its rounded weights"
+        torch.cuda.synchronize()
+        read()
+        check(share <= 1.0, f"the pipelined {dname} logits miss the whole batch's forward: share {share:.3g}")
+        zero()
+        piped_ms, plain_ms = median_event_ms(torch, (lambda: pipeline_apply(stages, micro, stage_fn, comm),
+                                                     lambda: [unpipelined(micro[i]) for i in range(PIPE_MICRO)]),
+                                             PIPE_REPS)
+        read()
+        print(f"  (a) {dname} on {smi}: every microbatch bit-identical to its unpipelined blocks: {same}; logits "
+              f"vs vit.apply at batch {batch}: max |diff| {err.max().item():.3g} (share {share:.3g} of {limit}); "
+              f"pipelined {piped_ms:.3f} ms, unpipelined {plain_ms:.3f} ms (median of {PIPE_REPS} in turns, CUDA events): "
+              f"ratio {piped_ms / plain_ms:.4f} beside 1 / (1 - bubble_fraction) = {bubble:.4f}")
+        rep_a[dname] = dict(k1=got[0], k3=got[2], bit_identical=same, max_abs_err=err.max().item(), share=share,
+                            pipelined_ms=piped_ms, unpipelined_ms=plain_ms, ratio=piped_ms / plain_ms)
+        del params, images, stages, micro, ys, logits, ref, err
+    del params32, images32
+    torch.cuda.empty_cache()
+    rep_a["s"] = time.perf_counter() - t0
+
+    # (b) the dry run against the card
+    one_device = Mesh(("data", "model"), (1, 1))
+    for name, cell, meta in DRY_CELLS:
+        t0 = time.perf_counter()
+        arch = resized(get_arch(name), cell, **meta)
+        rec = dryrun.run_cell(arch, cell, mesh=one_device, verbose=False)
+        check(rec["status"] == "ok", f"the dry run of {name}/{cell}: {rec}")
+        bundle = build(arch, cell)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state, inputs = realize(arch, bundle, gen)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - before
+        exact = sum(t.numel() * t.element_size() for t in state_leaves((state, inputs)))
+        mem = rec["memory"]
+        print(f"  (b) {name}/{cell} {meta}, {bundle.kind}: arguments placed on the card {placed} B (dry run "
+              f"{mem['argument_allocated_bytes']} B at 512-byte blocks), exactly {exact} B (dry run "
+              f"{mem['argument_size_in_bytes']} B); dry-run trace {rec['trace_s']:.2f} s")
+        check(placed == mem["argument_allocated_bytes"] and exact == mem["argument_size_in_bytes"],
+              f"{name}/{cell}: the dry run's argument bytes are not what realize placed on the card")
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        counter = FlopCounterMode(display=False)
+        if bundle.kind == "train":
+            with recording_train_calls() as rc, counter:
+                out = bundle.fn(state, **inputs)
+                torch.cuda.synchronize()
+            k1_key, k3_key = (lambda sig: sig), (lambda sig: sig[:4])
+        elif bundle.kind == "prefill":
+            with torch.no_grad(), recording_lm_calls() as rc:
+                out = bundle.fn(state, **inputs)
+                torch.cuda.synchronize()
+            k1_key, k3_key = (lambda sig: sig), (lambda sig: sig)
+        else:
+            with torch.no_grad(), recording_calls() as rc:
+                out = bundle.fn(state, **inputs)
+                torch.cuda.synchronize()
+            k1_key, k3_key = (lambda sig: sig[:7]), (lambda sig: sig[:3])
+        got = read()
+        peak = torch.cuda.max_memory_allocated() - before  # the step's own: its arguments and what it allocates
+        dry_k1, dry_k3 = dry_signatures(rec, "K1", k1_key), dry_signatures(rec, "K3", k3_key)
+        check(not rec["kernels"].get("K1 dgrad") and not rec["kernels"].get("K2"),
+              f"{name}/{cell}: the dry run counted {sorted(rec['kernels'])}")
+        print(f"  (b) {name}/{cell}: K1 signatures {len(dry_k1)} / {len(rc.convs)} ({sum(dry_k1.values())} / "
+              f"{sum(rc.convs.values())} calls), K3 {len(dry_k3)} / {len(rc.attns)} ({sum(dry_k3.values())} / "
+              f"{sum(rc.attns.values())}), dry run / card; launches K1 {got[0]}, K3 {got[2]}")
+        check(dry_k1 == rc.convs and dry_k3 == rc.attns,
+              f"{name}/{cell}: the dry run's kernel calls {dict(dry_k1)} {dict(dry_k3)} differ from the card's "
+              f"{dict(rc.convs)} {dict(rc.attns)}")
+        check(got[0] == sum(dry_k1.values()) and got[2] == sum(dry_k3.values()) and got[2] > 0,
+              f"{name}/{cell}: the card launched {got}, the dry run counts {sum(dry_k1.values())} K1 and "
+              f"{sum(dry_k3.values())} K3")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in state_leaves(out)), f"{name}/{cell}: non-finite")
+        row = dict(cell=cell, kind=bundle.kind, meta=meta, argument_bytes=mem["argument_size_in_bytes"],
+                   allocated_argument_bytes=placed, k1_calls=sum(dry_k1.values()), k3_calls=sum(dry_k3.values()),
+                   dry_flops=rec["cost"]["flops"], dry_bytes_accessed=rec["cost"]["bytes_accessed"],
+                   peak_live_bytes=rec["peak_live_bytes"], card_peak_bytes=peak,
+                   peak_ratio=rec["peak_live_bytes"] / peak, trace_s=rec["trace_s"])
+        if bundle.kind == "train":
+            card_flops = op_cost().step_flops_of(counter, rc)
+            row["card_step_flops"] = card_flops
+            print(f"  (b) {name}/{cell}: the step's operations, dry run {rec['cost']['flops']:.6e} / phase 15's "
+                  f"step_flops_of on the card {card_flops:.6e}")
+            check(rec["cost"]["flops"] == card_flops, f"{name}/{cell}: the dry run's step operations differ from "
+                                                      f"step_flops_of's")
+        print(f"  (b) {name}/{cell} on {smi}: peak of live bytes {rec['peak_live_bytes'] / 1e9:.3f} GB (dry run, "
+              f"unsharded) / the card's peak memory {peak / 1e9:.3f} GB = {row['peak_ratio']:.4f}; dry-run "
+              f"operations {rec['cost']['flops']:.4e}, eager bytes {rec['cost']['bytes_accessed']:.4e}")
+        row["s"] = time.perf_counter() - t0
+        report[name] = row
+        del state, inputs, out, rc, counter
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 18: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    report["launches"] = dict(launches)
+    return report, launches
 
 
 def nvidia_smi() -> str:
@@ -3410,11 +3675,16 @@ BACKWARD_RANGES = ("K1 dgrad", "conv dgrad (library)", "conv wgrad (library)", "
 def with_batch(arch, batch: int, cell: str = "cls_224"):
     """``arch`` with its ``cell`` at ``batch`` (images, latents or
     sequences)."""
+    key = "global_batch" if "global_batch" in arch.cells[cell].meta else "batch"
+    return resized(arch, cell, **{key: batch})
+
+
+def resized(arch, cell: str, **meta):
+    """``arch`` with these entries of its ``cell``'s meta replaced."""
     from repro_torch.configs.base import Cell
 
     c = arch.cells[cell]
-    key = "global_batch" if "global_batch" in c.meta else "batch"
-    return dataclasses.replace(arch, cells={**arch.cells, cell: Cell(c.name, c.kind, {**c.meta, key: batch})})
+    return dataclasses.replace(arch, cells={**arch.cells, cell: Cell(c.name, c.kind, {**c.meta, **meta})})
 
 
 def cell_trainer(torch, arch, fault_cfg, cell: str = "cls_224", state=None, **kw):
@@ -3527,45 +3797,6 @@ def k1_dgrads(rec) -> int:
     conv whose input needs a gradient (``conv2d_backward``)."""
     return sum(c for (_, w, st, pad, *_, x_grad), c in rec.convs.items()
                if x_grad and st == 1 and pad <= w[0] - 1)
-
-
-def conv_flops(rec, dgrad: bool = False) -> float:
-    """Operations of the recorded K1 calls -- a conv's forward, and as many
-    again for its weight gradient -- or, with ``dgrad``, of the input
-    gradients of those whose input needs one (K1's or the library's: the
-    same products)."""
-    total = 0.0
-    for ((n, h, w, _), (k, _, w_cin, cout), st, pad, *_, x_grad), c in rec.convs.items():
-        if dgrad and not x_grad:
-            continue
-        ho, wo = (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1
-        total += c * 2.0 * k * k * w_cin * cout * n * ho * wo
-    return total
-
-
-def step_flops_of(counter, rec) -> float:
-    """One train step's operations: ``FlopCounterMode``'s count without its
-    conv backward (its weight-gradient formula ignores groups: a depthwise
-    conv's is counted C times over), plus the recorded convs' forward,
-    weight and input gradients and K3's forwards (neither kernel is an
-    operator it sees).  What ran counts: under remat the second forward of
-    each checkpointed layer (its products, and its K3 call, recorded
-    again), and the plain K3 backward's five products over every (query,
-    key) pair, masked or not; K3's forwards at the pairs they weigh (the
-    causal half).  The LM's cross-entropy and AdamW are elementwise, not
-    counted."""
-    library_conv = sum(v for op, v in counter.get_flop_counts()["Global"].items()
-                       if "convolution_backward" in str(op))
-    return counter.get_total_flops() - library_conv + 2 * conv_flops(rec) + conv_flops(rec, dgrad=True) \
-        + attn_flops(rec)
-
-
-def attn_flops(rec) -> float:
-    """Operations of the recorded K3 forwards: 2 x the (query, key) pairs the
-    softmax weighs (``attention_pairs``: under the causal mask, the half
-    computed) x (D + DV); a record without DV has DV = D."""
-    return sum(c * 2.0 * b * h * attention_pairs(t, s, causal) * (d + (dv[0] if dv else d))
-               for ((b, h, t, d), s, _, causal, *dv), c in rec.attns.items())
 
 
 def hold_conv_grad(torch, gen, sig: tuple) -> dict:
@@ -3825,7 +4056,7 @@ def phase_train(torch) -> tuple[dict, dict]:
                 torch.cuda.synchronize()
             read()
             peaks[pb] = torch.cuda.max_memory_allocated()
-            flops[pb] = step_flops_of(counter, prec)
+            flops[pb] = op_cost().step_flops_of(counter, prec)
         lo, hi = TRAIN_PROBE_BATCHES
         per_image = (peaks[hi] - peaks[lo]) / (hi - lo)
         fixed = peaks[lo] - per_image * lo
@@ -4015,7 +4246,7 @@ def attention_backward_bound(b, h, hkv, t, s, d, dv, causal) -> dict:
     (q, k, v, o, dO read once, dq, dk, dv written once), at the 3xTF32 peak
     and, beside it, at the CUDA cores' FMA rate (the plain backward runs
     with TF32 off)."""
-    flops = 2.0 * b * h * attention_pairs(t, s, causal) * (3 * d + 2 * dv)
+    flops = 2.0 * b * h * op_cost().attention_pairs(t, s, causal) * (3 * d + 2 * dv)
     nbytes = 4.0 * (2 * b * h * t * d + 2 * b * hkv * s * d + 2 * b * hkv * s * dv + 2 * b * h * t * dv)
     ops_ms, bytes_ms = bound_ms(flops, nbytes, "float32")
     return dict(flops=flops, bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -4293,7 +4524,7 @@ def train_bf16(torch, gen, arch, cell: str, probes: tuple, recorder, unit: str, 
             torch.cuda.synchronize()
         recs.append(rec)
         peaks[pb], update_peaks[pb] = split["grad"], split["update"]
-        flops[pb] = step_flops_of(counter, rec)
+        flops[pb] = op_cost().step_flops_of(counter, rec)
         check(all(math.isfinite(v.item()) for v in metrics.values()), f"{arch.name}: a non-finite probe loss")
         del batch, metrics
     cell_batch = max(arch.cells[cell].meta.get(k, 0) for k in ("batch", "global_batch"))
@@ -5657,6 +5888,9 @@ def main() -> int:
     # -- 17. the script twins at full width ------------------------------------
     scripts_report, scripts_launches, scripts_k1_holds, scripts_k2_rows = phase_scripts(torch)
 
+    # -- 18. the parallel modules and the dry run -----------------------------
+    parallel_report, parallel_launches = phase_parallel(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -5698,7 +5932,8 @@ def main() -> int:
               + got_vit["conv2d"] + np_launches + serving_launches["conv2d"] + engines_launches["conv2d"]
               + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]
               + train_launches["conv2d"] + train_launches["conv2d_backward"] + lmd_launches["conv2d"]
-              + lmd_launches["conv2d_backward"] + scripts_launches["conv2d"] + scripts_launches["conv2d_backward"]),
+              + lmd_launches["conv2d_backward"] + scripts_launches["conv2d"] + scripts_launches["conv2d_backward"]
+              + parallel_launches["conv2d"] + parallel_launches["conv2d_backward"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]
@@ -5708,7 +5943,8 @@ def main() -> int:
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
               + diff_launches["flash_attention"] + train_launches["flash_attention"]
-              + lmd_launches["flash_attention"] + scripts_launches["flash_attention"]),
+              + lmd_launches["flash_attention"] + scripts_launches["flash_attention"]
+              + parallel_launches["flash_attention"]),
     ]
     # phase 15's backward: K1's launches in it, and per float32 step at batch
     # 4 the device ms of its parts; K3's plain backward at ViT's shape
@@ -5825,6 +6061,7 @@ def main() -> int:
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
         "diffusion_per_forward": diffusion_per_forward, "train": train_report, "lm_diffusion_train": lmd_report,
         "scripts": scripts_report, "scripts_k1_holds": scripts_k1_holds, "scripts_k2_probe": scripts_k2_rows,
+        "parallel": parallel_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -5879,7 +6116,10 @@ def main() -> int:
                 "curve and served batches, replan_channel's served batches and lossless forwards, the "
                 "fault-tolerant pair's steps (replays included), one K2 launch per geometry check_torch's "
                 "kernel pass probed, and one forward of every stored plan; conv2d's and halo_conv2d's "
-                "max_abs_err cover its untimed holds.",
+                "max_abs_err cover its untimed holds.  Phase 18 adds to the launches those of its pipelined "
+                "ViT-L/16 forwards (float32 and bfloat16: 8 K1, 216 K3 each), of the unpipelined blocks and "
+                "whole-batch forwards it holds them to, of its timed runs, and of the three bundles it runs on "
+                "the card beside the dry run.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5889,6 +6129,7 @@ def main() -> int:
     print(json.dumps({"phase17": {k: scripts_report[k] for k in (
         "card", "quickstart", "serve_halp", "replan_channel", "train_fault_tolerant", "precompute_check", "launches",
         "phase_s")}}))
+    print(json.dumps({"phase18": parallel_report}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

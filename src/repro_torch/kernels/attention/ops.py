@@ -67,8 +67,8 @@ def _check(fn: str, q, k, v) -> None:
     """Raise on operands the kernel does not take ([B,H,T,D] q, [B,Hkv,S,D]
     k, [B,Hkv,S,DV] v, (D, DV) one of ``HEAD_DIMS``); checked alike on both
     devices, so a CPU call shows what the card would refuse."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} takes CPU or CUDA tensors, got {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{fn} takes CPU, CUDA or meta tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{fn} needs 4-d q, k, v, got {q.dim()}, {k.dim()}, {v.dim()}")
     b, h, t, d = q.shape
@@ -141,13 +141,15 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
 
 def _attend(q, k, v, causal: bool) -> torch.Tensor:
     """Attention on checked [B, H, T, D] operands whose KV heads divide H:
-    the plain version on the CPU (KV heads repeated), else the kernel."""
+    the plain version on the CPU (KV heads repeated), an empty output of
+    the kernel's shape on ``meta`` (the dry run: shapes only), else the
+    kernel."""
     if q.device.type == "cpu":
         g = q.shape[1] // k.shape[1]
         if g > 1:
             k, v = (x.repeat_interleave(g, dim=1) for x in (k, v))
         return attention_ref(q, k, v, causal=causal)
-    if q.numel() == 0:  # nothing to compute: no launch, no count
+    if q.numel() == 0 or q.device.type == "meta":  # nothing to compute: no launch, no count
         return _output(q, v.shape[3])
     return _launch(q, k, v, causal)
 

@@ -181,14 +181,16 @@ def _count_forward(launched: bool, groups: int) -> None:
 
 def _conv(x, weights, bias, stride: int, padding: int, groups: int) -> tuple[torch.Tensor, bool]:
     """(the conv, whether the kernel launched): the plain version for a CPU
-    tensor, the kernel for a CUDA one (not counted here)."""
+    tensor, an empty output of the kernel's shape for a ``meta`` one (the
+    dry run: shapes only, after the kernel's argument checks), the kernel
+    for a CUDA one (not counted here)."""
     ho, wo = _check_args(x, weights, bias, stride, padding, groups)
     if x.device.type == "cpu":
         return conv2d_ref(x, weights, bias, stride=stride, padding=padding, groups=groups), False
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d_cuda takes CPU or CUDA tensors, got {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"conv2d_cuda takes CPU, CUDA or meta tensors, got {x.device}")
     y = torch.empty((x.shape[0], ho, wo, weights.shape[-1]), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
+    if y.numel() == 0 or x.device.type == "meta":
         return y, False
     launch(_lib(), x, weights, bias, y, stride, padding, groups,
            torch.cuda.current_stream(x.device).cuda_stream)

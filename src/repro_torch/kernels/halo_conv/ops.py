@@ -123,20 +123,32 @@ def halo_conv2d_cuda(
     as ``halo_conv2d`` does; the checks run alike on both devices."""
     lo, hi, ho, wo = _check_args(x_shard, top_halo, bot_halo, weights, bias,
                                  stride, padding, groups, lo, hi)
+    y, launched = _halo(x_shard, top_halo, bot_halo, weights, bias, stride, padding, groups, lo, hi, ho, wo)
+    if launched:
+        halo_conv2d_cuda.launches += 1
+    return y
+
+
+def _halo(x_shard, top_halo, bot_halo, weights, bias, stride: int, padding: int, groups: int, lo: int, hi: int,
+          ho: int, wo: int) -> tuple[torch.Tensor, bool]:
+    """(the conv, whether the kernel launched) on checked operands: the
+    plain version for CPU tensors, an empty output of the kernel's shape
+    for ``meta`` ones (the dry run: shapes only), the kernel for CUDA ones
+    (not counted here)."""
     b, hs, w, c = x_shard.shape
     if x_shard.device.type == "cpu":
         top = top_halo if top_halo is not None or not lo else x_shard.new_zeros((b, lo, w, c))
         bot = bot_halo if bot_halo is not None or not hi else x_shard.new_zeros((b, hi, w, c))
         return halo_conv2d_ref(x_shard, top, bot, weights, bias,
-                               stride=stride, padding=padding, groups=groups)
+                               stride=stride, padding=padding, groups=groups), False
+    if x_shard.device.type == "meta":
+        return x_shard.new_empty((b, ho, wo, weights.shape[-1])), False
     if x_shard.device.type != "cuda":
-        raise ValueError(f"halo_conv2d_cuda takes CPU or CUDA tensors, got {x_shard.device}")
+        raise ValueError(f"halo_conv2d_cuda takes CPU, CUDA or meta tensors, got {x_shard.device}")
     if not b * ho * wo * weights.shape[-1]:  # nothing to compute: no launch, no count
-        return x_shard.new_empty((b, ho, wo, weights.shape[-1]))
-    y = launch(_lib(), x_shard, top_halo, bot_halo, weights, bias, stride, padding, groups,
-               lo, hi, ho, wo, torch.cuda.current_stream(x_shard.device).cuda_stream)
-    halo_conv2d_cuda.launches += 1
-    return y
+        return x_shard.new_empty((b, ho, wo, weights.shape[-1])), False
+    return launch(_lib(), x_shard, top_halo, bot_halo, weights, bias, stride, padding, groups,
+                  lo, hi, ho, wo, torch.cuda.current_stream(x_shard.device).cuda_stream), True
 
 
 def probe(
@@ -155,8 +167,8 @@ def probe(
     """The output shape ``(B, Ho, Wo, Cout)`` that :func:`halo_conv2d_cuda`
     returns for operands of these shapes, from the shapes alone: the
     wrapper's own argument check run on ``meta`` tensors, so it raises
-    exactly where the wrapper raises.  Takes ``meta`` tensors only (the
-    wrapper refuses them), and launches nothing."""
+    exactly where the wrapper raises.  Takes ``meta`` tensors only, and
+    launches nothing."""
     if x_shard.device.type != "meta":
         raise ValueError(f"probe takes meta tensors, got {x_shard.device}")
     _, _, ho, wo = _check_args(x_shard, top_halo, bot_halo, weights, bias,

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel import hints
 from .common import Params, _normal, dense_params
 from .layers import dense, silu
 
@@ -115,13 +116,14 @@ def moe_apply(p: Params, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tensor,
     # gather tokens into [E, C, D] slots; dropped (token, choice) pairs all go
     # to one dummy row, past the table, so every kept slot has exactly one
     # writer (the dummy row's among its duplicates is undefined on the card,
-    # and it is discarded).  JAX pins the tokens' and the slots' shardings
-    # here for expert parallelism; on one card there is nothing to pin.
+    # and it is discarded).  The hints name the dispatch boundary, as JAX's:
+    # tokens batch-sharded in, slots expert-sharded out.
+    x = hints.constrain(x, "moe_tokens")
     dummy = e * capacity
     slot = torch.where(keep, flat_e * capacity + pos, dummy).reshape(-1)  # [T*k]
     token_idx = torch.arange(tkn, device=x.device).repeat_interleave(k)
     xs = x.new_zeros((e * capacity + 1, d)).index_copy_(0, slot, x.index_select(0, token_idx))
-    xs = xs[:-1].reshape(e, capacity, d)
+    xs = hints.constrain(xs[:-1].reshape(e, capacity, d), "moe_slots")
 
     w = p["experts"]
     h = torch.bmm(xs, w["w1"])
@@ -133,7 +135,8 @@ def moe_apply(p: Params, cfg: MoEConfig, x: torch.Tensor) -> tuple[torch.Tensor,
     # reduction of a 16-bit type
     y_pad = torch.cat([y_e, y_e.new_zeros((1, d))], dim=0)
     picked = y_pad.index_select(0, slot).reshape(tkn, k, d)
-    y = (picked * (gates * keep)[..., None]).sum(dim=1, dtype=torch.float32).to(x.dtype)
+    y = hints.constrain((picked * (gates * keep)[..., None]).sum(dim=1, dtype=torch.float32).to(x.dtype),
+                        "moe_tokens")
 
     if cfg.n_shared:
         s = p["shared"]

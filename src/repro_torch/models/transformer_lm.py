@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import resolve_device
+from ..parallel import hints
 from .attention import GQAConfig, MLAConfig, gqa_apply, gqa_init, mla_apply, mla_init
 from .common import Params, checkpointed, dense_params, layer, norm_params, stack_layers, trunc_normal
 from .layers import dense, rmsnorm, silu, softmax_xent
@@ -165,14 +166,15 @@ def _block_apply(p: Params, cfg: LMConfig, moe_layer: bool, x, positions, cache=
 
 def _scan_stack(p_stack, n, cfg, moe_layer, x, positions, lb):
     # JAX scans the stack, each layer under remat where cfg.remat is set, and
-    # pins the residual's sharding (one card has none to pin): the loop walks
-    # the layers, each checkpointed as JAX's (only where autograd records
-    # it), summing the MoE layers' load-balance losses in JAX's order.
+    # names the residual's sharding after each block (``lm_residual``): the
+    # loop walks the layers, each checkpointed as JAX's (only where autograd
+    # records it), summing the MoE layers' load-balance losses in JAX's order.
     def block(p, x):
         return _block_apply(p, cfg, moe_layer, x, positions)
 
     for i in range(n):
         x, lb_l = checkpointed(cfg.remat, block, layer(p_stack, i), x)
+        x = hints.constrain(x, "lm_residual")
         if lb_l is not None:
             lb = lb + lb_l
     return x, lb

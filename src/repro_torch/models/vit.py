@@ -18,7 +18,7 @@ from ..kernels.attention import flash_attention
 from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
 from .layers import conv2d, dense, gelu, layernorm, softmax_xent
 
-__all__ = ["ViTConfig", "init", "apply", "loss_fn", "vit_block_init", "vit_block_apply"]
+__all__ = ["ViTConfig", "init", "embed", "head", "apply", "loss_fn", "vit_block_init", "vit_block_apply"]
 
 
 @dataclass(frozen=True)
@@ -82,17 +82,29 @@ def init(gen: torch.Generator, cfg: ViTConfig, dtype=torch.float32, device=None)
     }
 
 
-def apply(params: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] -> logits [B, classes]."""
+def embed(params: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] -> tokens [B, N, D]: the patch embedding (K1), the
+    cls token and the position table."""
     b = x.shape[0]
     x = conv2d(x, params["patch_embed"], stride=cfg.patch, padding="VALID")
     x = x.reshape(b, -1, cfg.d_model)
     x = torch.cat([params["cls"].expand(b, 1, cfg.d_model), x], dim=1)
-    x = x + params["pos"]
-    for i in range(cfg.n_layers):
-        x = vit_block_apply(layer(params["blocks"], i), x, cfg.n_heads)
+    return x + params["pos"]
+
+
+def head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The encoder's tokens [B, N, D] -> logits [B, classes]: the final
+    norm, then the cls token's classifier."""
     x = layernorm(x, params["ln"])
     return dense(x[:, 0], params["head"])
+
+
+def apply(params: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] -> logits [B, classes]."""
+    x = embed(params, cfg, x)
+    for i in range(cfg.n_layers):
+        x = vit_block_apply(layer(params["blocks"], i), x, cfg.n_heads)
+    return head(params, x)
 
 
 def loss_fn(params: Params, cfg: ViTConfig, images: torch.Tensor, labels: torch.Tensor):

@@ -3,9 +3,13 @@
 A variant is a set of small, orthogonal overrides consulted by the step
 builders; one is active per process, selected with :func:`set_variant` or
 the ``REPRO_VARIANT`` environment variable.  The port keeps the JAX
-package's table field for field; of its knobs the port's step builders read
+package's table field for field.  The sharding rules
+(:mod:`.sharding`) read ``lm_fsdp_small``, ``embed_vocab_shard``,
+``replicate_lm_head``, ``gather_experts`` and ``diffusion_spatial2d``; the
+dry run (``launch.dryrun``) installs the ``lm_residual`` hint under
+``seq_shard_activations`` / ``constrain_residual``; the step builders read
 ``diffusion_spatial2d`` (``configs.steps._diffusion_gen``: the U-Net serves
-with ``attn_f32=False``).  The sharding knobs have no reader here yet.
+with ``attn_f32=False``).
 """
 from __future__ import annotations
 

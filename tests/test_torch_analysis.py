@@ -332,12 +332,19 @@ def test_probe_matches_the_wrapper_on_the_cpu():
                        torch.empty((5, 5, 8, 8), device="meta"), stride=1, padding=0)
     with pytest.raises(ValueError, match="takes meta tensors"):  # the probe takes shapes only
         halo_ops.probe(torch.zeros((1, 4, 4, 2)), None, None, torch.zeros((1, 1, 2, 2)), padding=0)
-    with pytest.raises(ValueError, match="takes CPU or CUDA tensors"):  # the wrappers refuse meta
-        halo_ops.halo_conv2d_cuda(torch.empty((1, 4, 4, 2), device="meta"), None, None,
+    # the wrappers' meta route (the dry run's): the probe's shape, no launch counted
+    before = halo_ops.halo_conv2d_cuda.launches, tlayers.conv2d_cuda.launches
+    y = halo_ops.halo_conv2d_cuda(torch.empty((1, 4, 4, 2), device="meta"), None, None,
                                   torch.empty((1, 1, 2, 2), device="meta"), padding=0)
-    with pytest.raises(ValueError, match="takes CPU or CUDA tensors"):
-        tlayers.conv2d_cuda(torch.empty((1, 4, 4, 2), device="meta"), torch.empty((1, 1, 2, 2), device="meta"),
+    assert y.device.type == "meta" and tuple(y.shape) == halo_ops.probe(
+        torch.empty((1, 4, 4, 2), device="meta"), None, None, torch.empty((1, 1, 2, 2), device="meta"), padding=0)
+    y = tlayers.conv2d_cuda(torch.empty((1, 4, 4, 2), device="meta"), torch.empty((1, 1, 2, 2), device="meta"),
                             padding=0)
+    assert y.device.type == "meta" and tuple(y.shape) == (1, 4, 4, 2)
+    assert (halo_ops.halo_conv2d_cuda.launches, tlayers.conv2d_cuda.launches) == before
+    with pytest.raises(ValueError, match="non-positive output width"):  # and it refuses what the probe refuses
+        halo_ops.halo_conv2d_cuda(x, None, torch.empty((1, 4, 3, 8), device="meta"),
+                                  torch.empty((5, 5, 8, 8), device="meta"), stride=1, padding=0)
 
 
 # ---------------------------------------------------------------------------
