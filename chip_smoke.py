@@ -344,6 +344,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside the card's peak memory as a ratio.  It prints one JSON line
    ``{"phase18": ...}`` before the kernels line.
 
+19. the kernels' sharding rules (``phase_collectives``): on a (2, 4)
+   ("data", "model") mesh emulated on the card, ``launch.dryrun.run_cell``
+   (the collective pass, meta tensors on the host) logs every kernel call
+   with its operands' placements, then the same bundle runs unsharded on
+   the card with every K1 / K3 call (and ViT's backward calls) replayed on
+   the 8 ranks by ``parallel.kernel_rules.replaying``: each rank's blocks
+   cut by the logged placements, redistributed and halo-exchanged by real
+   device copies over a LocalComm, the local launches (K1, K2 for the halo
+   rule, K3), the outputs assembled by the rule's placements.  Cells:
+   ViT-L/16 cls_224 (bf16, batch 128, forward and backward), Qwen3-4B
+   prefill_32k at 4 x 512, UNet-SD1.5 gen_fast (one DDIM step) under base
+   and spatial2d, ConvNeXt-B serve_b1 (H over data).  Gates: assembled
+   outputs bit-identical where the launch configuration of rank 0's block
+   equals the whole call's, else within 2e-2 of the largest |y|, each
+   output of a call on its own (ViT's patch-embedding dW reported by
+   name); rank 0's exchanged bytes by kind equal to the dry run's ``kernel_collectives``;
+   8 local launches for each unsharded K1 / K3 forward, 8 K2 launches for
+   each halo-ruled conv.  It prints one JSON line ``{"phase19": ...}``
+   before the kernels line.
+
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -2240,6 +2260,194 @@ def phase_parallel(torch) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     phase_s = time.perf_counter() - phase_t0
     print(f"  phase 18: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    report["launches"] = dict(launches)
+    return report, launches
+
+
+# Phase 19 (``phase_collectives``): the kernels' sharding rules
+# (``parallel.kernel_rules``) held on the card.  Each cell's step runs once
+# as DTensors on COLL_MESH (``launch.dryrun.run_cell``, meta tensors on the
+# CPU: the rules' calls and collectives), then once unsharded on the card
+# with every kernel call replayed on the mesh's 8 ranks held on the card
+# (``kernel_rules.replaying``): each rank's blocks cut by the logged
+# placements, redistributed and halo-exchanged by real device copies over a
+# LocalComm, the local launches, the outputs assembled.  Cells: name, cell,
+# variant, the cell's meta at the size taken, and whether its backward runs.
+COLL_MESH = (("data", "model"), (2, 4))
+COLL_CELLS = (("vit-l16", "cls_224", "base", dict(batch=128), True),
+              ("qwen3-4b", "prefill_32k", "base", dict(global_batch=4, seq_len=512), False),
+              ("unet-sd15", "gen_fast", "base", dict(steps=1), False),
+              ("unet-sd15", "gen_fast", "spatial2d", dict(steps=1), False),
+              ("convnext-b", "serve_b1", "base", {}, False))
+
+
+def same_config(torch, call, operands, blocks) -> bool:
+    """Whether the kernel takes the same launch configuration for rank 0's
+    blocks as for the whole operands (K1 and K3 forwards on the card)."""
+    from repro_torch.kernels.attention.ops import launch_config as k3_config
+    from repro_torch.kernels.conv2d.ops import launch_config as k1_config
+
+    if call.kernel == "K1" and call.route == "K1":
+        stride, padding, groups, _ = call.statics
+        x, w = operands[:2]
+        xl, wl = blocks[:2]
+        return k1_config(x, w, stride=stride, padding=padding, groups=groups) == \
+            k1_config(xl, wl, stride=stride, padding=padding, groups=xl.shape[3] if groups > 1 else 1)
+    if call.kernel == "K3":
+        causal = call.statics[0]
+        return k3_config(*operands, causal=causal)["block"] == k3_config(*blocks, causal=causal)["block"]
+    return False
+
+
+def phase_collectives(torch) -> tuple[dict, dict]:
+    """Phase 19: the kernels' sharding rules on the card, at COLL_CELLS on a
+    (2, 4) ("data", "model") mesh emulated on one H100 (COLL_MESH).  For
+    every kernel call of one forward (ViT-L/16: one train step, so also its
+    backward), the 8 ranks' outputs assembled by the rule's output
+    placements (Partial ones summed over their group) must be bit-identical
+    to the unsharded launch where the kernel takes the same launch
+    configuration for rank 0's blocks as for the whole operands, and
+    otherwise within 2e-2 of the largest |y| (bfloat16, every cell's type),
+    each output of a call against its own largest |y|; ViT's patch-embedding
+    dW (Partial over the data group) is gated so on its own and reported by
+    name.
+    Rank 0's result bytes of the exchanges the emulation performed, by
+    kind, must equal the dry run's ``kernel_collectives``; each unsharded K1
+    or K3 forward must become 8 local launches, a halo-ruled K1 call 8 K2
+    launches.  Returns the report and the launches of its counted runs."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.halo_conv import halo_conv2d_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.common import tree_leaves as state_leaves
+    from repro_torch.parallel import kernel_rules, variants
+
+    phase_t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"phase 19 on {smi}: the kernels' sharding rules on a {COLL_MESH[1]} mesh emulated on the card")
+    mesh = Mesh(*COLL_MESH)
+    sizes = mesh.sizes
+    ranks = mesh.size
+    launches = {"conv2d": 0, "conv2d_backward": 0, "halo_conv2d": 0, "flash_attention": 0}
+    report: dict = {"card": smi, "mesh": dict(zip(*COLL_MESH))}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def zero():
+        conv2d_cuda.launches = conv2d_cuda.backward_launches = halo_conv2d_cuda.launches = 0
+        flash_attention.launches = 0
+
+    def read() -> dict:
+        got = dict(conv2d=conv2d_cuda.launches, conv2d_backward=conv2d_cuda.backward_launches,
+                   halo_conv2d=halo_conv2d_cuda.launches, flash_attention=flash_attention.launches)
+        for key, n in got.items():
+            launches[key] += n
+        return got
+
+    for name, cell, variant, meta, backward in COLL_CELLS:
+        t0 = time.perf_counter()
+        label = f"{name}/{cell}/{variant}"
+        arch = resized(get_arch(name), cell, **meta)
+        calls: list = []
+        rec = dryrun.run_cell(arch, cell, mesh=mesh, variant=variant, calls=calls, verbose=False)
+        check(rec["status"] == "ok", f"the dry run of {label}: {rec}")
+        check(not torch.distributed.is_initialized(), f"the dry run of {label} left a process group open")
+        dry = Counter()
+        for per in rec["kernel_collectives"].values():
+            for kind, v in per.items():
+                if kind != "calls":
+                    dry[kind] += v[1]
+        previous = variants.get_variant().name
+        variants.set_variant(variant)
+        try:
+            bundle = build(arch, cell)
+            state, inputs = realize(arch, bundle, gen)
+            rows = []
+
+            def hold(r):
+                """Each output of the call gated on its own: its error, its
+                largest |y|, its share of the bf16 limit."""
+                call = r["call"]
+                errs, shares, equal = {}, {}, True
+                for out, g, w in zip(kernel_rules.OUTPUTS[call.kernel], r["got"], r["want"]):
+                    if w is None:
+                        continue
+                    check(g.shape == w.shape, f"{label} {call.signature()} {out}: assembled {tuple(g.shape)} != "
+                                              f"{tuple(w.shape)}")
+                    d = (g.float() - w.float()).abs().max().item()
+                    scale = w.float().abs().max().item()
+                    errs[out] = d
+                    shares[out] = d / (TOL["bfloat16"] * scale) if scale else float(d > 0)
+                    equal = equal and torch.equal(g, w)
+                    check(shares[out] <= 1.0, f"{label} {call.signature()} {out}: assembled output misses the "
+                                              f"unsharded launch: max |diff| {d:.3g}, share {shares[out]:.3g} of "
+                                              f"2e-2 x its largest |y| {scale:.3g}")
+                same = same_config(torch, call, r["operands"], r["blocks"]) if r.get("blocks") else False
+                rows.append(dict(kernel=call.kernel, route=call.route, signature=call.signature(),
+                                 max_abs_err=max(errs.values()), share=max(shares.values()), errs=errs, shares=shares,
+                                 bit_identical=equal, same_config=same, moved=r["moved"]))
+                check(equal or not same, f"{label} {call.signature()}: the same launch configuration but not "
+                                         f"bit-identical (max |diff| {errs})")
+                r["got"] = r["want"] = r["operands"] = r["blocks"] = None
+
+            zero()
+            with kernel_rules.replaying(calls, sizes, hold):
+                if backward:
+                    out = bundle.fn(state, **inputs)
+                else:
+                    with torch.no_grad():
+                        out = bundle.fn(state, **inputs)
+                torch.cuda.synchronize()
+            got = read()
+        finally:
+            variants.set_variant(previous)
+        check(all(bool(torch.isfinite(t.float()).all()) for t in state_leaves(out) if t.is_floating_point()),
+              f"{label}: non-finite output")
+        moved = Counter()
+        for row in rows:
+            for kind, v in row["moved"].items():
+                moved[kind] += v[1]
+        by_kernel = Counter(row["kernel"] for row in rows)
+        k2_calls = sum(row["route"] == "K2" for row in rows if row["kernel"] == "K1")
+        k1_calls = by_kernel["K1"] - k2_calls
+        # the unsharded step's own forwards, and ranks local launches for each replayed one
+        want = dict(conv2d=(ranks + 1) * k1_calls + k2_calls, halo_conv2d=ranks * k2_calls,
+                    flash_attention=(ranks + 1) * by_kernel["K3"])
+        gathered = sorted({row["signature"] for row in rows if row["route"] == "gathered"})
+        identical = sum(row["bit_identical"] for row in rows)
+        worst = max(rows, key=lambda row: row["share"])
+        row = dict(cell=cell, variant=variant, meta=meta, calls=dict(by_kernel), k2_calls=k2_calls,
+                   launches=got, expected_launches=want, moved=dict(moved), dry_kernel_collectives=dict(dry),
+                   collectives=rec["collectives"], replicated_ops=rec["replicated_ops"], gathered=gathered,
+                   bit_identical=identical, same_config=sum(row["same_config"] for row in rows),
+                   max_share=worst["share"], worst=worst["signature"], collective_trace_s=rec["collective_trace_s"])
+        dws = [r for r in rows if r["kernel"] == "K1 backward" and "dw" in r["shares"]]
+        if backward:
+            check(dws, f"{label}: no K1 backward with dW was replayed")
+            # ViT's one conv is the patch embedding: its dW, Partial over the data group, summed
+            row["patch_embed_dw"] = dict(max_abs_err=max(r["errs"]["dw"] for r in dws),
+                                         share=max(r["shares"]["dw"] for r in dws))
+            print(f"  {label} on {smi}: the patch embedding's dW summed over the data group against the unsharded "
+                  f"dW: max |diff| {row['patch_embed_dw']['max_abs_err']:.3g}, share "
+                  f"{row['patch_embed_dw']['share']:.3g} of 2e-2 x its largest |dW|")
+        print(f"  {label} {meta} on {smi}: {dict(by_kernel)} calls replayed on {ranks} ranks, {k2_calls} through the "
+              f"halo rule (K2); launches {got} (expected {want}); {identical} / {len(rows)} bit-identical "
+              f"({row['same_config']} at the same launch configuration), largest share of the bf16 limit "
+              f"{worst['share']:.3g} ({worst['signature']}); rank 0's exchanges {dict(moved)} B, dry run's "
+              f"kernel_collectives {dict(dry)} B; the step's collectives {rec['collectives']}; halo rule gathered "
+              f"{len(gathered)} conv signatures; dry run {rec['trace_s']:.2f} + {rec['collective_trace_s']:.2f} s")
+        check(dict(moved) == dict(dry), f"{label}: the emulation moved {dict(moved)} B, the dry run counts {dict(dry)}")
+        check(all(got[k] == v for k, v in want.items()), f"{label}: launches {got}, expected {want}")
+        row["s"] = time.perf_counter() - t0
+        report[label] = row
+        del state, inputs, out, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 19 on {smi}: {phase_s:.1f} s")
     report["phase_s"] = phase_s
     report["launches"] = dict(launches)
     return report, launches
@@ -5891,6 +6099,9 @@ def main() -> int:
     # -- 18. the parallel modules and the dry run -----------------------------
     parallel_report, parallel_launches = phase_parallel(torch)
 
+    # -- 19. the kernels' sharding rules on a mesh emulated on the card ---------
+    coll_report, coll_launches = phase_collectives(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -5933,18 +6144,19 @@ def main() -> int:
               + replan_launches["conv2d"] + vision_launches["conv2d"] + diff_launches["conv2d"]
               + train_launches["conv2d"] + train_launches["conv2d_backward"] + lmd_launches["conv2d"]
               + lmd_launches["conv2d_backward"] + scripts_launches["conv2d"] + scripts_launches["conv2d_backward"]
-              + parallel_launches["conv2d"] + parallel_launches["conv2d_backward"]),
+              + parallel_launches["conv2d"] + parallel_launches["conv2d_backward"] + coll_launches["conv2d"]
+              + coll_launches["conv2d_backward"]),
         entry("halo_conv2d", "src/repro_torch/kernels/halo_conv/halo_conv.cu",
               "src/repro/kernels/halo_conv/halo_conv.py:30", halo_main,
               sum(v["launches"]["halo_conv2d"] for v in spatial.values()) + serving_launches["halo_conv2d"]
-              + scripts_launches["halo_conv2d"]),
+              + scripts_launches["halo_conv2d"] + coll_launches["halo_conv2d"]),
         entry("flash_attention", "src/repro_torch/kernels/attention/attention.cu",
               "src/repro/kernels/attention/attention.py:20", attn_main,
               got_vit["flash_attention"] + lm_launches + decode_launches + moe_launches
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
               + diff_launches["flash_attention"] + train_launches["flash_attention"]
               + lmd_launches["flash_attention"] + scripts_launches["flash_attention"]
-              + parallel_launches["flash_attention"]),
+              + parallel_launches["flash_attention"] + coll_launches["flash_attention"]),
     ]
     # phase 15's backward: K1's launches in it, and per float32 step at batch
     # 4 the device ms of its parts; K3's plain backward at ViT's shape
@@ -6061,7 +6273,7 @@ def main() -> int:
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
         "diffusion_per_forward": diffusion_per_forward, "train": train_report, "lm_diffusion_train": lmd_report,
         "scripts": scripts_report, "scripts_k1_holds": scripts_k1_holds, "scripts_k2_probe": scripts_k2_rows,
-        "parallel": parallel_report,
+        "parallel": parallel_report, "collectives": coll_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -6119,7 +6331,10 @@ def main() -> int:
                 "max_abs_err cover its untimed holds.  Phase 18 adds to the launches those of its pipelined "
                 "ViT-L/16 forwards (float32 and bfloat16: 8 K1, 216 K3 each), of the unpipelined blocks and "
                 "whole-batch forwards it holds them to, of its timed runs, and of the three bundles it runs on "
-                "the card beside the dry run.",
+                "the card beside the dry run.  Phase 19 adds the launches of its "
+                "unsharded runs (ViT-L/16's train step, Qwen3-4B's prefill, the U-Net's forward under base and "
+                "spatial2d, ConvNeXt-B's serve_b1 forward) and of their replays on the 8 emulated ranks: 8 K1, K2 "
+                "or K3 launches for each unsharded call.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6130,6 +6345,7 @@ def main() -> int:
         "card", "quickstart", "serve_halp", "replan_channel", "train_fault_tolerant", "precompute_check", "launches",
         "phase_s")}}))
     print(json.dumps({"phase18": parallel_report}))
+    print(json.dumps({"phase19": coll_report}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -22,7 +22,8 @@ tensors in the dry run, or on real ones):
   the step runs (its arguments included), a storage counted from the
   operator that made it until the last tensor on it is gone.
 
-The collective half of ``HLOCost`` has no twin yet (ROADMAP.md).
+The collective half of ``HLOCost`` is :mod:`.collectives`, which the dry
+run's collective pass fills (``dryrun.collective_pass``).
 :func:`step_flops_of` is the same count from a ``FlopCounterMode`` and a
 record of the kernels' calls, which ``chip_smoke.py`` takes on the card.
 """

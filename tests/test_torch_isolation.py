@@ -16,7 +16,7 @@ PORT = ROOT / "src" / "repro_torch"
 # the script twins, beside the JAX package's scripts
 TWINS = [ROOT / "examples" / f"{name}_torch.py" for name in ("quickstart", "serve_halp", "replan_channel",
                                                              "train_fault_tolerant")]
-TWINS += [ROOT / "tools" / f"{name}_torch.py" for name in ("check", "precompute_plans")]
+TWINS += [ROOT / "tools" / f"{name}_torch.py" for name in ("check", "precompute_plans", "measure_coverage")]
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 
 
