@@ -238,38 +238,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bfloat16 forwards at batch 4 timed and profiled (device ms by family),
    peak device memory.  Phase 2 prints the registers and spills of K3's
    second library (``attention_diffusion.cu``: D = 40, 72, 80, 160).
-15. trains the vision family through ``configs.steps``' cls_224 cells
-   (``phase_train``): ViT-L/16 and EfficientNet-B7 at full width, seeded
-   random weights, with TF32 off: (a) K1 and its autograd Function held
-   against the plain version and autograd through it in float32 on the
-   same values at every K1 signature of a batch-4 step of each (the output,
-   dx where the input needs one, dW, db within 2e-5 x (1 + |g|) plus
-   ``SUM_RTOL`` x the sum of |terms|), and K3's Function at ViT's
-   [4, 16, 197, 64], with K3's forward and plain backward device us; (b)
-   one float32 step of each at batch 4 from a warm state (``warm_state``)
-   held to the same step through the plain versions: the loss within
-   ``DEPTH_RTOL``, and leaf by leaf each new first moment (the clipped
-   gradient / 10) and each update within ``TRAIN_LEAF_RTOL`` of that leaf's
-   own largest (``leaf_shares``), a control step with one K1 call's output
-   gradient scaled by ``TRAIN_CONTROL`` breaking that hold; K1's forward
-   launches, its backward ones (each stride-1 conv whose input needs a
-   gradient) and K3's counted against the recorded calls and phase 13's
-   ``VISION_LAUNCHES``; one such step profiled with the backward's parts
-   apart ("K1 dgrad", the library's dgrad and wgrad, "K3 backward"); (c)
-   ``TRAIN_STEPS`` bfloat16 steps of each through the fault-tolerant
-   trainer (``cell_trainer``: ``runtime.train.make_trainer``'s parts) at
-   the cell's batch of 256 or, where a fit of two probe steps' peak memory
-   says it does not fit, the largest power of two that does (printed as
-   reduced): step ms, images/s, peak memory, TFLOP/s (the step's
-   operations: ``FlopCounterMode``'s, the convs' counted from their shapes,
-   K3's forward; ``step_flops_of``) fed to a ``ComputeRateEstimator`` by the
-   trainer's ``compute_observer``, one step profiled by part and its K1 and
-   K3 signatures held as in (a) in bfloat16 at that batch, every loss
-   finite; (d) ViT-L/16 cut to ``FAULT_LAYERS`` layers, bfloat16 at batch
-   256: ``FAULT_STEPS`` steps checkpointed every ``FAULT_EVERY`` with
-   faults injected at ``FAULT_AT``, every final leaf ``torch.equal`` to an
-   uninterrupted run's, failures and restores both exactly
-   ``len(FAULT_AT)``.
+15. trains the vision family through ``configs.steps``' cls_224 and
+   cls_384 cells (``phase_train``): ViT-L/16, Swin-B, ConvNeXt-B and
+   EfficientNet-B7 at full width, seeded random weights, TF32 off, each
+   rematerialised as JAX's ``jax.checkpoint`` runs it (ViT every block,
+   Swin-B the pairs of its depth-18 stage, ConvNeXt-B the blocks of its
+   depth-27 stage): (a) K1 and its autograd Function held against the
+   plain version and autograd through it in float32 on the same values at
+   every K1 signature of a batch-4 step of each cell (the output, dx where
+   the input needs one, dW, db within 2e-5 x (1 + |g|) plus ``SUM_RTOL`` x
+   the sum of |terms|), and K3's Function at ViT's [4, 16, 197, 64] and
+   [4, 16, 577, 64], with K3's forward and plain backward device us; (b)
+   one float32 step of each at cls_224 and batch 4 from a warm state
+   (``warm_state``) held to the same step through the plain versions: the
+   loss within ``DEPTH_RTOL``, and leaf by leaf each new first moment (the
+   clipped gradient / 10) and each update within ``TRAIN_LEAF_RTOL`` of
+   that leaf's own largest (``leaf_shares``), a control step with one K1
+   call's output gradient scaled by ``TRAIN_CONTROL`` breaking that hold,
+   the same step with remat off bit-identical; K1's launches (forward and
+   recompute), its backward ones (each stride-1 conv whose input needs a
+   gradient, once) and K3's counted against the recorded calls, phase 13's
+   ``VISION_LAUNCHES`` plus ``REMAT_LAUNCHES``; one such step profiled
+   with the backward's parts apart ("K1 dgrad", the library's dgrad and
+   wgrad, "K3 backward"); (c) for each cell ``TRAIN_STEPS`` bfloat16 steps
+   through the fault-tolerant trainer (``cell_trainer``:
+   ``runtime.train.make_trainer``'s parts) at the cell's batch (256 /
+   64) or, where a fit of two probe steps' peak memory up to the update
+   (``split_peaks``) and the trainer's entry state says it does not fit,
+   the largest power of two that does (printed as reduced, with the fit's
+   predicted peak beside the measured one): step ms, images/s, TFLOP/s
+   (``step_flops_of``: ``FlopCounterMode``'s count, the convs from their
+   shapes, K3's forwards, the recompute as it ran) fed to a
+   ``ComputeRateEstimator`` by the trainer's ``compute_observer``, one
+   step profiled by part, at cls_224 its K1 and K3 signatures held as in
+   (a) in bfloat16 at that batch; (d) ViT-L/16 cut to ``FAULT_LAYERS``
+   layers, bfloat16 at batch 256: ``FAULT_STEPS`` steps checkpointed every
+   ``FAULT_EVERY`` with faults injected at ``FAULT_AT``, every final leaf
+   ``torch.equal`` to an uninterrupted run's, failures and restores both
+   exactly ``len(FAULT_AT)``.
 16. trains the LM and diffusion families through ``configs.steps``' train
    cells (``phase_lm_diffusion_train``), TF32 off, seeded random weights:
    (a) K3's autograd Function held against the plain version's autograd in
@@ -363,6 +369,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8 local launches for each unsharded K1 / K3 forward, 8 K2 launches for
    each halo-ruled conv.  It prints one JSON line ``{"phase19": ...}``
    before the kernels line.
+
+20. the LM cells at their own length (``phase_lm_long``): Qwen3-4B (36
+   layers) and CodeQwen1.5-7B (32 layers, MHA) at full width in bfloat16,
+   seeded weights: K3 at one layer's prefill call [1, 32, 32768, 128]
+   causal held to its plain version (one head at a time) in float32
+   and bfloat16 and timed beside SDPA and its bound, Qwen3-4B's also at
+   the cell's 32 sequences (past 2^31 elements a tensor, the last sequence
+   held); ``prefill_32k`` at the cell's 32 sequences or the largest power
+   of two two probe prefills (the model cut to ``LONG_CHECK_LAYERS``
+   layers) fit, timed, its logits' last ``LONG_TAIL`` positions at the cut
+   held to the float32 forward of its bf16-rounded weights at phase 7's
+   bf16 limit (1.25 x plain attention's own bf16 gap, or 2e-2 of the
+   largest |logit|); ``decode_32k`` over a 32,768-slot cache of seeded
+   values at the cell's 128 or the largest power of two whose cache and
+   weights fit, its K3 call (T = 1 over 32,768 keys) held to its plain
+   version on every sequence in float32 and bfloat16, ``LONG_DECODE_STEPS``
+   steps at index 32,767 at all layers, ms a step beside the bytes bound,
+   then the same steps at the cut held as the prefill on the first and the
+   last sequence; K3's block shape at both printed.  Every phase prints its
+   seconds, and the script its total, before the last two lines.
 
 The last two lines of standard output are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the per-shape table is also written to
@@ -957,16 +983,17 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def with_plain_attention(fn):
-    """``fn()`` with the LM's attention through K3's plain version on the
-    same device (the KV heads repeated), then K3 restored."""
-    from repro_torch.kernels.attention import attention_ref, gqa_flash
+    """``fn()`` with the LM's attention through K3's plain version
+    (``attention_plain``) on the same device, the KV heads repeated, then K3
+    restored."""
+    from repro_torch.kernels.attention import gqa_flash
     from repro_torch.models import attention as lm_attention
 
     def plain_gqa(q, k, v, *, causal):
         g = q.shape[2] // k.shape[2]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        return attention_ref(qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
-                             causal=causal).transpose(1, 2)
+        kr, vr = kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
+        return attention_plain(qt, kr, vr, causal=causal).transpose(1, 2)
 
     lm_attention.gqa_flash = plain_gqa
     try:
@@ -2453,6 +2480,400 @@ def phase_collectives(torch) -> tuple[dict, dict]:
     return report, launches
 
 
+# Phase 20 (``phase_lm_long``): the LM cells at their own length, 32,768
+# tokens, bfloat16 at full width (seeded random weights): Qwen3-4B (36
+# layers, 32 query / 8 KV heads) and CodeQwen1.5-7B (32 layers, 32 / 32).
+# (a) K3 held at one layer's prefill call [1, H, 32768, 128] causal against
+# its plain version (``attention_plain``, one head at a time: the whole
+# [T, T] logits are 137 GB a head set), float32 and bfloat16, timed beside SDPA; Qwen3-4B's
+# also at the cell's batch of 32 (q 4.3e9 elements, past 2^31), its last
+# sequence held.  (b) prefill_32k: two probe prefills of the model cut to
+# LONG_CHECK_LAYERS layers (LONG_PROBES sequences; no gradient, so a
+# sequence's transients do not grow with depth and the cut's weights are
+# views of the whole model's) fit the batch: the cell's 32 or the largest
+# power of two under TRAIN_MEM_SHARE of the card; the first probe's logits
+# at the last LONG_TAIL positions held to the float32 forward of the cut's
+# bf16-rounded weights at phase 7's bf16 limit (``bf16_hold``: the larger of
+# BF16_RTOL x its largest |logit| and 1.25 x plain attention's own bf16
+# gap); then one prefill at all layers at that batch, timed, its peak beside
+# the fit's.  (c) decode_32k: a 32,768-slot cache of seeded values at the
+# cell's batch of 128 or the largest power of two whose cache and weights
+# fit, LONG_DECODE_STEPS steps at index 32,767 (K3 at T = 1 over 32,768
+# keys) at all layers, timed beside the bytes bound (the cache and the
+# weights read), each beside the same step with plain attention (a record:
+# in bfloat16 the two part by ~5 % of the largest |logit| over 36 random
+# layers, as plain attention itself parts from float32); then the same
+# steps at the cut, over the cache's first layers, each held as the prefill
+# on the first and the last sequence.  Before the timing, the step's K3
+# call held to its plain version on every sequence, float32 and bfloat16.
+LONG_ARCHS = ("qwen3-4b", "codeqwen1.5-7b")
+LONG_LEN, LONG_PROBES, LONG_CHECK_LAYERS, LONG_TAIL, LONG_DECODE_STEPS = 32768, (1, 2), 4, 1024, 3
+LONG_WIDE = {"qwen3-4b": 32}  # K3 held at this many sequences too (the cell's batch)
+
+
+def hold_long_attention(torch, F, gen, b: int, h: int, hkv: int, t: int, d: int, hold_b: int | None = None,
+                        dtypes=("float32", "bfloat16"), timed: bool = True) -> dict:
+    """K3 at one LM layer's causal prefill call [b, h (hkv KV heads), t, d],
+    the model's layout ([B, T, H*D] buffers seen through strides), through
+    ``gqa_flash``, against ``attention_plain`` on the same values within TOL x
+    (1 + |y|): every sequence, or only sequence ``hold_b``.  Timed
+    (``timed``): K3's and SDPA's device us a call (on the repeated KV heads)
+    beside the bound.  The launch count is left as it was."""
+    from repro_torch.kernels.attention import flash_attention, gqa_flash
+    from repro_torch.kernels.attention.ops import launch_config
+
+    count = flash_attention.launches
+    g = h // hkv
+    out = {}
+    for dname in dtypes:
+        dt = getattr(torch, dname)
+        q, k, v = (torch.randn((b, t, n * d), generator=gen, device=gen.device).to(dt).view(b, t, n, d)
+                   for n in (h, hkv, hkv))
+
+        def kernel():
+            return gqa_flash(q, k, v, causal=True)
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        config = launch_config(qt, kt, vt, causal=True)
+        got = kernel().transpose(1, 2)
+        sl = slice(None) if hold_b is None else slice(hold_b, hold_b + 1)
+        kr, vr = (x[sl].repeat_interleave(g, dim=1) for x in (kt, vt))
+        want = attention_plain(qt[sl], kr, vr, causal=True)
+        torch.cuda.synchronize()
+        diff = (got[sl].float() - want.float()).abs()
+        err = diff.max().item()
+        ok = bool((diff <= TOL[dname] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got[sl]).all())
+        del diff, want
+        row = dict(b=b, h=h, hkv=hkv, t=t, d=d, dtype=dname, held=f"sequence {hold_b}" if hold_b is not None else "all",
+                   q_elements=q.numel(), max_abs_err=err, **config)
+        if timed:
+            kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+            pairs = op_cost().attention_pairs(t, t, True)
+            flops = 2.0 * b * h * pairs * 2 * d
+            nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+            ops_ms, bytes_ms = bound_ms(flops, nbytes, dname)
+            us, src = device_or_event_us(torch, kernel, reps=3)
+            lib_us, lib_src = device_or_event_us(
+                torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True), reps=3)
+            row.update(device_ms=us / 1e3, source=src, library_device_ms=lib_us / 1e3, library_source=lib_src,
+                       library_backend=sdpa_backend(
+                           torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)),
+                       bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       tflops=flops / us / 1e6)
+            del kr, vr
+        print(f"  K3 {dname:8s} [{b}, {h} ({hkv} KV), {t}, {d}] causal ({q.numel():.3e} elements a tensor; "
+              f"{config['block']}, {config['blocks']} blocks), held at {row['held']}: max_err {err:.3g}"
+              + (f"; device {row['device_ms']:.3f} ms a call ({row['tflops']:.1f} TFLOP/s; {row['source']}), SDPA "
+                 f"{row['library_device_ms']:.3f} ms ({row['library_backend']}), bound {row['bound_ms']:.3f} ms "
+                 f"({row['bound_by']})" if timed else ""))
+        check(ok, f"K3 disagrees with its plain version at {row}")
+        out[dname] = row
+        del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
+    flash_attention.launches = count
+    return out
+
+
+def cut_layers(params, n: int):
+    """The LM's parameters with each layer stack cut to its first ``n``
+    layers, as views."""
+    from repro_torch.models.common import tree_map
+
+    return {key: tree_map(lambda t: t[:n], val) if key.endswith("_layers") else val for key, val in params.items()}
+
+
+def seeded_cache(cfg, batch: int, slots: int, gen):
+    """A bfloat16 KV cache of ``slots`` slots for ``batch`` sequences on the
+    generator's device, every value N(0, 1) from ``gen``."""
+    import torch
+
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.common import tree_leaves
+
+    cache = lm.init_cache(cfg, batch, slots, torch.bfloat16, device=gen.device)
+    for leaf in tree_leaves(cache):
+        leaf.normal_(generator=gen)
+    return cache
+
+
+def lm_tail(params, cfg, tokens, n: int):
+    """The LM's logits at the last ``n`` positions alone: ``forward``'s trunk,
+    then its final norm and head on those rows (a float32 reference whose
+    whole logits would take 20 GB)."""
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.layers import dense, rmsnorm
+
+    x, _ = lm.trunk(params, cfg, tokens)
+    return dense(rmsnorm(x[:, -n:], params["final_norm"]), params["lm_head"])
+
+
+def bf16_hold(label: str, got, plain, ref) -> dict:
+    """Phase 7's bfloat16 hold: ``got`` (through K3) against ``ref``, the
+    float32 forward of the same bf16-rounded weights with plain attention,
+    within the larger of BF16_RTOL x its largest |logit| and 1.25 x the gap
+    of ``plain`` (the same bfloat16 forward with plain attention) to it."""
+    got, plain, ref = (x.float() for x in (got, plain, ref))
+    scale = ref.abs().max().item()
+    err, gap = (got - ref).abs().max().item(), (plain - ref).abs().max().item()
+    limit = max(BF16_RTOL * scale, 1.25 * gap)
+    row = dict(max_abs_err=err, plain_max_abs_err=gap, max_abs_logit=scale, limit=limit,
+               vs_plain=(got - plain).abs().max().item())
+    print(f"  {label}: vs the float32 forward of the bf16-rounded weights max |diff| {err:.4g} (the plain attention's "
+          f"bf16 {gap:.4g}; limit {limit:.4g} = the larger of {BF16_RTOL} x max |logit| {scale:.4g} and 1.25 x the "
+          f"plain gap); vs the plain attention's bf16 {row['vs_plain']:.4g}")
+    check(err <= limit and bool(got.isfinite().all()), f"{label}: K3's bf16 logits drift from the float32 forward")
+    return row
+
+
+def phase_lm_long(torch) -> tuple[dict, dict]:
+    """Phase 20: Qwen3-4B and CodeQwen1.5-7B at full width through
+    ``configs.steps``' prefill_32k and decode_32k cells at 32,768 tokens,
+    bfloat16: (a) K3 at one layer's call held to its plain version
+    (``hold_long_attention``), timed beside SDPA; (b) the prefill at the
+    batch two cut probes fit, timed, the logits of a LONG_CHECK_LAYERS-layer
+    cut held to the float32 forward of its rounded weights (``bf16_hold``);
+    (c) decode steps at index 32,767 over a seeded cache at the batch that
+    fits, timed beside the bytes bound, and the same steps at the cut held
+    so.  Returns the report and the launches of its counted runs."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.configs.steps import build
+    from repro_torch.kernels.attention import flash_attention, gqa_flash
+    from repro_torch.kernels.attention.ops import launch_config
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    phase_t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"phase 20 on {smi}: the LM cells at 32,768 tokens")
+    launches = {"flash_attention": 0}
+    report: dict = {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    room = TRAIN_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    for name in LONG_ARCHS:
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        cfg = arch.cfg
+        rep = report[name] = {"resident_gb": settle(torch, f"before {name}")}
+        t_len = arch.cells["prefill_32k"].meta["seq_len"]
+        check(t_len == arch.cells["decode_32k"].meta["seq_len"] == LONG_LEN,
+              f"{name}'s LM cells are not {LONG_LEN} tokens")
+        params = lm.init(gen, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        weights = nbytes(params)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"{name}: {n_params / 1e9:.4f} B parameters ({weights / 1e9:.2f} GB bfloat16), {cfg.n_layers} layers, "
+              f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of {cfg.d_head}, vocabulary {cfg.vocab}")
+        rep.update(n_params=n_params, layers=cfg.n_layers, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+
+        # (a) K3 at one layer's call
+        rep["k3_prefill"] = hold_long_attention(torch, F, gen, 1, cfg.n_heads, cfg.n_kv_heads, t_len, cfg.d_head)
+        if name in LONG_WIDE:
+            wide = LONG_WIDE[name]
+            rep["k3_prefill_wide"] = hold_long_attention(torch, F, gen, wide, cfg.n_heads, cfg.n_kv_heads, t_len,
+                                                         cfg.d_head, hold_b=wide - 1, dtypes=("bfloat16",),
+                                                         timed=False)["bfloat16"]
+
+        # (b) prefill: the probes at LONG_CHECK_LAYERS layers, the hold, the fit
+        cut_cfg = dataclasses.replace(cfg, n_layers=LONG_CHECK_LAYERS)
+        cut_params = cut_layers(params, LONG_CHECK_LAYERS)
+        ref_params = tree_map(lambda t: t.float(), cut_params)  # the holds' float32 reference
+        cut_fn = build(resized(dataclasses.replace(arch, cfg=cut_cfg), "prefill_32k", global_batch=1),
+                       "prefill_32k").fn
+        peaks = {}
+        for pb in LONG_PROBES:
+            tokens = torch.randint(0, cfg.vocab, (pb, t_len), generator=gen, device=gen.device, dtype=torch.int32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            with torch.no_grad():
+                logits = cut_fn(cut_params, tokens)
+                torch.cuda.synchronize()
+            peaks[pb] = torch.cuda.max_memory_allocated()
+            n = flash_attention.launches
+            launches["flash_attention"] += n
+            check(n == LONG_CHECK_LAYERS and tuple(logits.shape) == (pb, t_len, cfg.vocab),
+                  f"{name}'s cut prefill launched K3 {n} times, logits {tuple(logits.shape)}")
+            if pb == LONG_PROBES[0]:  # the hold, before the next probe's peak
+                tail = logits[:, -LONG_TAIL:].clone()
+                del logits
+                with torch.no_grad():
+                    plain_tail = with_plain_attention(lambda: cut_fn(cut_params, tokens)[:, -LONG_TAIL:].clone())
+                    ref_tail = with_plain_attention(lambda: lm_tail(ref_params, cut_cfg, tokens, LONG_TAIL))
+                rep["prefill_hold"] = bf16_hold(
+                    f"{name} cut to {LONG_CHECK_LAYERS} layers, {pb} x {t_len} tokens, the logits of the last "
+                    f"{LONG_TAIL} positions", tail, plain_tail, ref_tail)
+                del tail, plain_tail, ref_tail
+            else:
+                del logits
+            del tokens
+            torch.cuda.empty_cache()
+        lo, hi = LONG_PROBES
+        per = (peaks[hi] - peaks[lo]) / (hi - lo)
+        fixed = peaks[lo] - per * lo
+        cell_batch = arch.cells["prefill_32k"].meta["global_batch"]
+        batch = cell_batch
+        while batch > 1 and fixed + per * batch > room:
+            batch //= 2
+        print(f"  {name} prefill_32k: peak memory {', '.join(f'{peaks[p] / 1e9:.2f} GB at {p}' for p in LONG_PROBES)}"
+              f" sequences (cut): {per / 1e9:.3f} GB a sequence -> batch {batch}"
+              + (f" (reduced from the cell's {cell_batch}: {(fixed + per * cell_batch) / 1e9:.1f} GB predicted, over "
+                 f"{TRAIN_MEM_SHARE} of the card)" if batch < cell_batch else " (the cell's)"))
+        prefill = build(resized(arch, "prefill_32k", global_batch=batch), "prefill_32k")
+        tokens = torch.randint(0, cfg.vocab, (batch, t_len), generator=gen, device=gen.device, dtype=torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            start.record()
+            logits = prefill.fn(params, tokens)
+            end.record()
+            end.synchronize()
+        prefill_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        n = flash_attention.launches
+        launches["flash_attention"] += n
+        finite = all(bool(torch.isfinite(logits[i, r:r + 4096]).all())
+                     for i in range(batch) for r in range(0, t_len, 4096))
+        print(f"  {name} prefill_32k at {batch} x {t_len} tokens, all {cfg.n_layers} layers: {prefill_ms:.1f} ms, "
+              f"{batch * t_len / prefill_ms * 1e3:.1f} tokens/s; K3 launches {n}; peak memory {peak / 1e9:.2f} GB (the "
+              f"fit predicted {(fixed + per * batch) / 1e9:.2f}); logits {tuple(logits.shape)} finite: {finite}")
+        check(n == cfg.n_layers and tuple(logits.shape) == (batch, t_len, cfg.vocab) and finite,
+              f"{name}'s prefill: K3 {n} launches, logits {tuple(logits.shape)}, finite {finite}")
+        rep["prefill"] = dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch, seq_len=t_len,
+                              probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}, per_sequence_gb=per / 1e9,
+                              predicted_peak_gb=(fixed + per * batch) / 1e9, peak_gb=peak / 1e9, ms=prefill_ms,
+                              tokens_per_s=batch * t_len / prefill_ms * 1e3, launches=n)
+        del logits, tokens
+        torch.cuda.empty_cache()
+
+        # (c) decode: a seeded 32,768-slot cache, steps at index 32,767
+        per_seq = nbytes(lm.init_cache(cfg, 1, t_len, torch.bfloat16, device="meta"))
+        cell_batch = arch.cells["decode_32k"].meta["global_batch"]
+        batch = cell_batch
+        while batch > 1 and weights + per_seq * batch > room:
+            batch //= 2
+        decode = build(resized(arch, "decode_32k", global_batch=batch), "decode_32k")
+        cache = seeded_cache(cfg, batch, t_len, gen)
+        index = t_len - 1
+        kv = cache["dense"]
+        q1 = torch.randn((batch, 1, cfg.n_heads, cfg.d_head), generator=gen, device=gen.device).to(torch.bfloat16)
+        k_view, v_view = kv["k"][0], kv["v"][0]
+        config = launch_config(q1.transpose(1, 2), k_view.transpose(1, 2), v_view.transpose(1, 2), causal=False)
+        g = cfg.n_heads // cfg.n_kv_heads
+        # the call held to its plain version on every sequence, in float32
+        # (the cache widened) and in bfloat16 (the cache's own views)
+        decode_err = {}
+        for dname in ("float32", "bfloat16"):
+            qd, kd, vd = (x.to(getattr(torch, dname)) for x in (q1, k_view, v_view))
+            got = gqa_flash(qd, kd, vd, causal=False).transpose(1, 2)
+            ok, err = bool(torch.isfinite(got).all()), 0.0
+            for i in range(batch):
+                kr, vr = (x[i:i + 1].transpose(1, 2).repeat_interleave(g, dim=1) for x in (kd, vd))
+                want = attention_plain(qd[i:i + 1].transpose(1, 2), kr, vr).float()
+                diff = (got[i:i + 1].float() - want).abs()
+                err = max(err, diff.max().item())
+                ok = ok and bool((diff <= TOL[dname] * (1 + want.abs())).all())
+            decode_err[dname] = err
+            print(f"  {name} K3 {dname:8s} decode [{batch}, {cfg.n_heads} ({cfg.n_kv_heads} KV), 1, {cfg.d_head}] "
+                  f"over {t_len} keys, held at every sequence: max_err {err:.3g}")
+            check(ok, f"{name}: K3's {dname} decode call over {t_len} keys disagrees with its plain version "
+                      f"(max_err {err:.3g})")
+            del qd, kd, vd, got, kr, vr, want, diff
+        torch.cuda.empty_cache()
+        k3_us, k3_src = device_or_event_us(torch, lambda: gqa_flash(q1, k_view, v_view, causal=False), reps=5)
+        kr, vr = (x.transpose(1, 2).repeat_interleave(g, dim=1) for x in (k_view, v_view))
+        lib_us, lib_src = device_or_event_us(
+            torch, lambda: F.scaled_dot_product_attention(q1.transpose(1, 2), kr, vr), reps=5)
+        del kr, vr
+        k3_bytes = (q1.numel() * 2 + k_view.numel() + v_view.numel()) * 2
+        k3_flops = 2.0 * batch * cfg.n_heads * t_len * 2 * cfg.d_head
+        k3_ops_ms, k3_bytes_ms = bound_ms(k3_flops, k3_bytes, "bfloat16")
+        print(f"  {name} decode_32k: cache {per_seq / 1e9:.3f} GB a sequence -> batch {batch}"
+              + (f" (reduced from the cell's {cell_batch}: cache and weights "
+                 f"{(weights + per_seq * cell_batch) / 1e9:.0f} GB, over {TRAIN_MEM_SHARE} of the card)"
+                 if batch < cell_batch else " (the cell's)")
+              + f"; K3 at T = 1 over {t_len} keys [{batch}, {cfg.n_heads} ({cfg.n_kv_heads} KV), 1, {cfg.d_head}] "
+                f"({config['block']}, {config['blocks']} blocks): device {k3_us / 1e3:.4f} ms a call ({k3_src}), SDPA "
+                f"{lib_us / 1e3:.4f} ms, bound {max(k3_ops_ms, k3_bytes_ms):.4f} ms (bytes)")
+        # the steps at all layers: timed, each beside the same step with plain attention
+        flash_attention.launches = 0
+        gaps, times = [], []
+        for i in range(LONG_DECODE_STEPS):
+            tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=gen.device, dtype=torch.int32)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                step_logits, cache = decode.fn(params, cache, tok, index)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                check(tuple(step_logits.shape) == (batch, cfg.vocab)
+                      and bool(torch.isfinite(step_logits.float()).all()),
+                      f"{name}'s decode step: logits {tuple(step_logits.shape)}")
+                plain_logits, cache = with_plain_attention(lambda: decode.fn(params, cache, tok, index))
+            gaps.append((step_logits.float() - plain_logits.float()).abs().max().item())
+            del step_logits, plain_logits
+        n = flash_attention.launches
+        launches["flash_attention"] += n
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = sorted(times)[len(times) // 2]
+        read_bytes = nbytes(cache) + weights
+        print(f"  {name} decode_32k at batch {batch}, index {index}: {LONG_DECODE_STEPS} steps, median "
+              f"{step_ms:.3f} ms "
+              f"(all {', '.join(f'{v:.2f}' for v in times)}), {batch / step_ms * 1e3:.1f} tokens/s; bytes bound "
+              f"{read_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms ({read_bytes / 1e9:.2f} GB of cache and weights at 3.35 "
+              f"TB/s); K3 launches {n}; vs the same step with plain attention, all {cfg.n_layers} layers in bf16: "
+              f"max |diff| {', '.join(f'{e:.4g}' for e in gaps)} (a record; held below at {LONG_CHECK_LAYERS} layers)")
+        check(n == cfg.n_layers * LONG_DECODE_STEPS, f"{name}'s decode steps launched K3 {n} times")
+        # the hold: the same steps at the cut, over the cache's first layers
+        # (views), against plain attention's and the float32 reference's on
+        # the first and the last sequence (their cache in float32, a copy)
+        cut_decode = build(resized(dataclasses.replace(arch, cfg=cut_cfg), "decode_32k", global_batch=batch),
+                           "decode_32k").fn
+        seqs = sorted({0, batch - 1})
+        cut_cache = {"dense": {key: val[:LONG_CHECK_LAYERS] for key, val in kv.items()}}
+        ref_cache = {"dense": {key: val[:LONG_CHECK_LAYERS, seqs].float() for key, val in kv.items()}}
+        holds = []
+        for i in range(LONG_DECODE_STEPS):
+            tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=gen.device, dtype=torch.int32)
+            with torch.no_grad():
+                got, cut_cache = cut_decode(cut_params, cut_cache, tok, index)
+                plain_logits, cut_cache = with_plain_attention(lambda: cut_decode(cut_params, cut_cache, tok, index))
+                ref, ref_cache = with_plain_attention(lambda: cut_decode(ref_params, ref_cache, tok[seqs], index))
+            holds.append(bf16_hold(f"{name} decode step {i} at index {index}, cut to {LONG_CHECK_LAYERS} layers, "
+                                   f"sequences {seqs}", got[seqs], plain_logits[seqs], ref))
+            del got, plain_logits, ref
+        check(flash_attention.launches - n == LONG_CHECK_LAYERS * LONG_DECODE_STEPS,
+              f"{name}'s cut decode steps launched K3 {flash_attention.launches - n} times")
+        launches["flash_attention"] += flash_attention.launches - n
+        rep["decode"] = dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch, cache_slots=t_len,
+                             index=index, cache_gb_per_sequence=per_seq / 1e9, steps=LONG_DECODE_STEPS,
+                             step_ms=step_ms, step_ms_all=times, tokens_per_s=batch / step_ms * 1e3,
+                             bytes_bound_ms=read_bytes / PEAK_BYTES_PER_S * 1e3, read_gb=read_bytes / 1e9,
+                             vs_plain_all_layers=gaps, holds=holds, launches=n, peak_gb=peak / 1e9,
+                             k3=dict(device_ms=k3_us / 1e3, source=k3_src, library_device_ms=lib_us / 1e3,
+                                     library_source=lib_src, bound_ms=max(k3_ops_ms, k3_bytes_ms),
+                                     bound_by="operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
+                                     max_abs_err=decode_err, **config))
+        del cache, params, cut_params, ref_params, cut_cache, ref_cache, q1, k_view, v_view, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["phase_s"] = time.perf_counter() - t0
+        print(f"  {name}: {rep['phase_s']:.1f} s")
+    phase_s = time.perf_counter() - phase_t0
+    print(f"  phase 20: {phase_s:.1f} s")
+    report["phase_s"] = phase_s
+    report["launches"] = dict(launches)
+    return report, launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3106,7 +3527,8 @@ def recording_calls():
 def attention_plain(q, k, v, causal: bool = False):
     """K3's plain version on [B, H, T, D] operands: in one call, or past
     PLAIN_LOGITS_BYTES of float32 logits (gen_1024's U-Net: 4 x 8 x 16384^2
-    x 4 B = 34 GB) one (batch, head) slice at a time."""
+    x 4 B = 34 GB) one (batch, head) slice at a time (a 32,768-token head:
+    4.3 GB of logits, about three times that while masked and softmaxed)."""
     from repro_torch.kernels.attention import attention_ref
 
     b, h, t, _ = q.shape
@@ -3852,18 +4274,33 @@ def phase_diffusion(torch) -> tuple[dict, dict, list, list]:
     return report, launches, conv_rows, attn_rows
 
 
-# Phase 15: vision training through configs.steps' cls_224 cells.  (a) and
-# (b) at TRAIN_CHECK_BATCH images in float32; (c) TRAIN_STEPS timed bfloat16
-# steps at the cell's batch, or the largest power of two whose peak memory,
-# fitted from two probe steps, stays under TRAIN_MEM_SHARE of the card (the
-# probes large enough that activations set the peak: at 8 and 16 images
-# AdamW's float32 temporaries did, and the fit sent ViT-L/16 to 256 images,
-# which ran out of the card's 80 GB), then every K1 and K3 signature of one
-# step at that batch held in bfloat16; (d) ViT-L/16 cut to FAULT_LAYERS
-# layers, FAULT_STEPS steps checkpointed every FAULT_EVERY, faults injected
-# at FAULT_AT.
-TRAIN_ARCHS = ("vit-l16", "efficientnet-b7")
-TRAIN_CHECK_BATCH, TRAIN_STEPS, TRAIN_MEM_SHARE, TRAIN_PROBE_BATCHES = 4, 10, 0.8, (32, 64)
+# Phase 15: vision training through configs.steps' cls_224 and cls_384
+# cells, each model rematerialised as JAX runs it (ViT-L/16: every block;
+# Swin-B: the (regular, shifted) pairs of its depth-18 stage; ConvNeXt-B:
+# the blocks of its depth-27 stage; EfficientNet-B7: none).  (a) and (b) at
+# TRAIN_CHECK_BATCH images in float32 at cls_224, remat on against off; at
+# cls_384 the K1 and K3 signatures of a float32 step at TRAIN_CHECK_BATCH
+# held as in (a); (c) TRAIN_STEPS timed bfloat16 steps of each cell at its
+# batch, or the largest power of two whose peak memory up to the AdamW
+# update (``split_peaks``: AdamW's float32 temporaries, which once set the
+# probes' whole-step peak and sent the fit past the card, are not in it),
+# fitted from two probe steps at TRAIN_PROBE_BATCHES[cell] plus the
+# trainer's entry state, stays under TRAIN_MEM_SHARE of the card, the fit's
+# prediction printed beside the peak measured at that batch; at cls_224
+# every K1 and K3 signature of one step at that batch held in bfloat16; (d)
+# ViT-L/16 cut to FAULT_LAYERS layers, FAULT_STEPS steps checkpointed every
+# FAULT_EVERY, faults injected at FAULT_AT.
+TRAIN_ARCHS = ("vit-l16", "swin-b", "convnext-b", "efficientnet-b7")
+TRAIN_CELLS = ("cls_224", "cls_384")
+TRAIN_CHECK_BATCH, TRAIN_STEPS, TRAIN_MEM_SHARE = 4, 4, 0.8
+TRAIN_PROBE_BATCHES = {"cls_224": (32, 64), "cls_384": (16, 32),
+                       ("efficientnet-b7", "cls_384"): (8, 16)}  # 2.1 GB an image: 32 would not fit
+# the K1 (of them depthwise) and K3 launches remat adds to a train step: the
+# checkpointed blocks' second forward, in the backward
+REMAT_LAUNCHES = {"vit-l16": (0, 0, 24), "swin-b": (0, 0, 0), "convnext-b": (27, 27, 0),
+                  "efficientnet-b7": (0, 0, 0)}
+# the predicted and the measured peak at the fitted batch may part by this share
+FIT_RTOL = 0.1
 FAULT_LAYERS, FAULT_STEPS, FAULT_EVERY, FAULT_AT = 4, 12, 4, (5, 9)
 # (b)'s holds, leaf by leaf: each new first moment (the clipped gradient /
 # 10) and each update against the plain versions' step, relative to that
@@ -3981,30 +4418,51 @@ def warm_state(torch, state, gen):
 def recording_train_calls():
     """Records every K1 and K3 call the vision models make while entered, by
     signature: K1 ``hold_conv``'s and whether its input requires grad (the
-    images do not), K3 q's shape, the key count, dtype and causal."""
+    images do not), K3 q's shape, the key count, dtype and causal; apart,
+    the calls a checkpoint's recompute makes in the backward
+    (``recomputed``, ``recomputed_attns``), and the forward's K1 calls in
+    order (``order``)."""
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda
 
-    rec = types.SimpleNamespace(convs=Counter(), attns=Counter())
+    import torch
+
+    rec = types.SimpleNamespace(convs=Counter(), attns=Counter(), recomputed=Counter(), recomputed_attns=Counter(),
+                                order=[])
 
     def conv(x, w, b=None, *, stride=1, padding=1, groups=1):
-        rec.convs[(tuple(x.shape), tuple(w.shape), stride, padding, groups, b is not None,
-                   str(x.dtype).removeprefix("torch."), x.requires_grad)] += 1
+        sig = (tuple(x.shape), tuple(w.shape), stride, padding, groups, b is not None,
+               str(x.dtype).removeprefix("torch."), x.requires_grad)
+        rec.convs[sig] += 1
+        if in_backward(torch):
+            rec.recomputed[sig] += 1
+        else:
+            rec.order.append(sig)
         return conv2d_cuda(x, w, b, stride=stride, padding=padding, groups=groups)
 
     def attn(q, k, v, *, causal=True):
-        rec.attns[(tuple(q.shape), k.shape[2], str(q.dtype).removeprefix("torch."), causal)] += 1
+        sig = (tuple(q.shape), k.shape[2], str(q.dtype).removeprefix("torch."), causal)
+        rec.attns[sig] += 1
+        if in_backward(torch):
+            rec.recomputed_attns[sig] += 1
         return flash_attention(q, k, v, causal=causal)
 
     with model_kernels(conv, attn):
         yield rec
 
 
+def in_backward(torch) -> bool:
+    """Whether autograd is running a backward pass: a checkpointed block's
+    recompute runs inside one."""
+    return torch._C._current_graph_task_id() != -1
+
+
 def k1_dgrads(rec) -> int:
     """K1 backward launches a step of these convs makes: one for each stride-1
-    conv whose input needs a gradient (``conv2d_backward``)."""
-    return sum(c for (_, w, st, pad, *_, x_grad), c in rec.convs.items()
-               if x_grad and st == 1 and pad <= w[0] - 1)
+    conv whose input needs a gradient (``conv2d_backward``), a recomputed
+    conv's once (its backward runs on the recompute's graph)."""
+    return sum(c - rec.recomputed[sig] for sig, c in rec.convs.items()
+               if sig[-1] and sig[2] == 1 and sig[3] <= sig[1][0] - 1)
 
 
 def hold_conv_grad(torch, gen, sig: tuple) -> dict:
@@ -4120,37 +4578,38 @@ def step_breakdown(torch, step) -> tuple[float, dict]:
 
 
 def phase_train(torch) -> tuple[dict, dict]:
-    """Phase 15: training of ViT-L/16 and EfficientNet-B7 through
-    ``configs.steps``' cls_224 cells (224 x 224, random weights from seeds)
-    on the card: (a) K1's and K3's autograd Functions held against autograd
-    through their plain versions at every K1 signature of one batch-4 step
-    of each and at ViT's K3 shape, float32; (b) one full-width float32 step
-    of each at batch 4 held against the same step through the plain
-    versions (the loss; each leaf's first moment and update), a control
-    step with one wrong gradient breaking that hold, its launches counted;
-    (c) TRAIN_STEPS bfloat16 steps of each through the fault-tolerant
-    trainer, timed, their FLOP/s fed to a ``ComputeRateEstimator`` by the
-    trainer's ``compute_observer``, one step profiled by part and its K1
-    and K3 signatures held as in (a) in bfloat16; (d) a fault-injected run
-    of ViT-L/16 (FAULT_LAYERS layers) equal bit for bit to an uninterrupted
+    """Phase 15: training of ViT-L/16, Swin-B, ConvNeXt-B and EfficientNet-B7
+    through ``configs.steps``' cls_224 and cls_384 cells (random weights
+    from seeds) on the card, remat as JAX has it: (a) K1's and K3's
+    autograd Functions held against autograd through their plain versions
+    at every K1 and K3 signature of one batch-4 float32 step of each cell;
+    (b) one full-width float32 step of each at cls_224 and batch 4 held
+    against the same step through the plain versions (the loss; each leaf's
+    first moment and update), a control step with one wrong gradient
+    breaking that hold, the step with remat off bit-identical, its launches
+    counted (the forward's and the recompute's); (c) TRAIN_STEPS bfloat16
+    steps of each cell through the fault-tolerant trainer, timed, their
+    FLOP/s fed to a ``ComputeRateEstimator`` by the trainer's
+    ``compute_observer``, one step profiled by part, at cls_224 its K1 and
+    K3 signatures held as in (a) in bfloat16; (d) a fault-injected run of
+    ViT-L/16 (FAULT_LAYERS layers) equal bit for bit to an uninterrupted
     one.  Returns the report and the launches of its counted runs."""
     import tempfile
 
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch.configs import get as get_arch
     from repro_torch.configs.steps import build, realize
-    from repro_torch.core import ComputeRateEstimator
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.models.common import tree_leaves
     from repro_torch.runtime import FaultConfig, InjectedFault
 
     phase_t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"phase 15 on {smi}: vision training at {', '.join(TRAIN_CELLS)}")
     gen = torch.Generator(device="cuda").manual_seed(15)
     dev = gen.device
     launches = {"conv2d": 0, "conv2d_backward": 0, "flash_attention": 0}
-    report: dict = {}
+    report: dict = {"card": smi}
 
     def zero():
         conv2d_cuda.launches = conv2d_cuda.depthwise_launches = conv2d_cuda.backward_launches = 0
@@ -4170,6 +4629,8 @@ def phase_train(torch) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         arch = get_arch(name)
         rep = report[name] = {}
+        fwd, extra = VISION_LAUNCHES[name], REMAT_LAUNCHES[name]
+        per_step = tuple(a + b for a, b in zip(fwd, extra))  # K1, K1 depthwise, K3 a train step
 
         # (b) one float32 step at batch 4 through the kernels, counted and recorded
         bundle = build(arch, "cls_224", dtype=torch.float32)
@@ -4183,25 +4644,34 @@ def phase_train(torch) -> tuple[dict, dict]:
             new, metrics = bundle.fn(state, images=images, labels=labels)
             torch.cuda.synchronize()
         got = read()
-        want = (sum(rec.convs.values()), sum(c for sig, c in rec.convs.items() if sig[4] > 1), k1_dgrads(rec),
-                sum(rec.attns.values()))
+        want = step_launches(rec)
         print(f"{name} float32 step at batch {b} (cls_224, {res} x {res}): K1 launches {got[0]} (depthwise {got[1]}) "
-              f"forward, {got[2]} backward; K3 {got[3]}; expected {want}")
-        check(got == want and got[:2] + got[3:] == (*VISION_LAUNCHES[name][:2], VISION_LAUNCHES[name][2]),
-              f"{name}'s step launched {got}, expected {want} (forward as phase 13's {VISION_LAUNCHES[name]})")
-        check(got[0] > 0 and (got[3] > 0 or name != "vit-l16") and (got[2] > 0 or name == "vit-l16"),
+              f"forward and recompute, {got[2]} backward; K3 {got[3]}; expected {want}; of them recomputed under "
+              f"remat: K1 {sum(rec.recomputed.values())}, K3 {sum(rec.recomputed_attns.values())}")
+        check(got == want and (got[0], got[1], got[3]) == per_step,
+              f"{name}'s step launched {got}, expected {want} (phase 13's forward {fwd} plus remat's {extra})")
+        check((sum(rec.recomputed.values()), sum(rec.recomputed_attns.values())) == (extra[0], extra[2]),
+              f"{name}'s step recomputed K1 {sum(rec.recomputed.values())} and K3 "
+              f"{sum(rec.recomputed_attns.values())} times, expected {extra[0]} and {extra[2]}")
+        # (a K1 dgrad wherever a conv's input needs a gradient: not ViT's and
+        # Swin's one conv, on the images)
+        check(got[0] > 0 and (got[3] > 0 or name != "vit-l16") and (got[2] > 0 or fwd[0] == 1),
               f"{name}'s step left a kernel of its path unlaunched: {got}")
         zero()
         with plain_kernels():
             plain, pmetrics = bundle.fn(state, images=images, labels=labels)
             torch.cuda.synchronize()
         check(read() == (0, 0, 0, 0), "the plain step launched a kernel")
-        # the control: the output gradient of the middle K1 call scaled
-        calls, pick = [0], sum(rec.convs.values()) // 2
+        # the control: the output gradient of one K1 call scaled, the middle
+        # of the forward's calls that no checkpoint recomputes (a scaled
+        # output inside a checkpoint is dropped with its graph)
+        calls, pick = [0], control_pick(rec)
 
         def control_conv(*args, **kw):
-            calls[0] += 1
             y = conv2d_cuda(*args, **kw)
+            if in_backward(torch):
+                return y
+            calls[0] += 1
             return apply_scaled(y) if calls[0] - 1 == pick else y
 
         with model_kernels(control_conv, flash_attention):
@@ -4216,124 +4686,62 @@ def phase_train(torch) -> tuple[dict, dict]:
               f"{shares['update'][0]:.3g} ({shares['update'][1]}); limit {TRAIN_LEAF_RTOL}; "
               f"{len(shares['blind'])} blind leaves held at the tree's largest |moment| {shares['blind'][:4]}; "
               f"largest |update| {moved:.3g}")
-        print(f"  the control (K1 call {pick} of {calls[0]}'s output gradient x {TRAIN_CONTROL}): first moment "
-              f"{ctl['mu'][0]:.3g} ({ctl['mu'][1]}), update {ctl['update'][0]:.3g} ({ctl['update'][1]})")
+        print(f"  the control (K1 call {pick} of the forward's {calls[0]}, output gradient x {TRAIN_CONTROL}): "
+              f"first moment {ctl['mu'][0]:.3g} ({ctl['mu'][1]}), update {ctl['update'][0]:.3g} ({ctl['update'][1]})")
         check(abs(loss - ploss) <= DEPTH_RTOL * abs(ploss) and shares["mu"][0] <= TRAIN_LEAF_RTOL
               and shares["update"][0] <= TRAIN_LEAF_RTOL, f"{name}'s float32 step drifts from the plain versions' step")
         check(ctl["mu"][0] > TRAIN_LEAF_RTOL,
               f"{name}: the control step with one wrong gradient passes the hold: it tests nothing")
         check(moved > 0, f"{name}'s step left the parameters where they were: the holds test nothing")
         check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)), f"{name}: non-finite state")
+        del plain, control, pmetrics
+        if getattr(arch.cfg, "remat", False):
+            # the same step with remat off: bit for bit, the forward's launches only
+            off = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, remat=False))
+            zero()
+            unremat = build(off, "cls_224", dtype=torch.float32).fn(state, images=images, labels=labels)
+            torch.cuda.synchronize()
+            got_off = read()
+            same = same_step(torch, f"{name} remat on against off", (new, metrics), unremat, state)
+            print(f"  remat off: K1 {got_off[0]} (depthwise {got_off[1]}) forward, {got_off[2]} backward; K3 "
+                  f"{got_off[3]} (phase 13's forward {fwd})")
+            check(same["bit_identical"], f"{name}: the step with remat on is not bit-identical to remat off")
+            check(got_off == (fwd[0], fwd[1], got[2], fwd[2]), f"{name}'s step with remat off launched {got_off}")
+            rep["remat"] = dict(same, launches_off=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got_off)))
+            del unremat
         zero()
         bwd_ms, bwd_parts = step_breakdown(torch, lambda: bundle.fn(state, images=images, labels=labels))
         read()
         print("  one profiled float32 step, device ms by part: "
               + "; ".join(f"{k} {v:.3f}" for k, v in bwd_parts.items()) + f" (busy {bwd_ms:.3f})")
         rep["float32_step"] = dict(batch=b, launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)),
+                                   recomputed=dict(k1=sum(rec.recomputed.values()),
+                                                   k3=sum(rec.recomputed_attns.values())),
                                    loss=loss, plain_loss=ploss, mu_share=shares["mu"], update_share=shares["update"],
                                    blind_leaves=shares["blind"], limit=TRAIN_LEAF_RTOL,
                                    control=dict(scale=TRAIN_CONTROL, call=pick, mu_share=ctl["mu"],
                                                 update_share=ctl["update"]),
                                    max_abs_update=moved, device_busy_ms=bwd_ms, device_ms_by_part=bwd_parts)
-        del new, plain, control, metrics, pmetrics
+        del new, metrics, state, images, labels
 
-        # (a) the Functions' gradients at every K1 signature of that step, and K3 at ViT's
-        rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(rec.convs.items(), key=str)]
-        rep["k1_grad_rows"] = rows
-        print_conv_holds(rows, "float32")
-        for (shape, s, dname, causal), c in rec.attns.items():
-            row = hold_attention_grad(torch, gen, *shape)
-            rep["k3_grad"] = dict(row, per_step=c)
-            print(f"  K3's Function held at {list(shape)}: max_err {row['max_abs_err']:.3g} (share "
-                  f"{row['limit_share']:.3g}); K3 forward {row['forward_device_us']:.2f} us, its plain backward "
-                  f"{row['backward_device_us']:.2f} us a call, x{c} a step")
-        del state, images, labels
+        print(f"  {name} float32 steps: {time.perf_counter() - t0:.1f} s")
 
-        # (c) timed bfloat16 training through the trainer
-        bundle = build(arch, "cls_224")
-        state, _ = realize(arch, bundle, gen)
-        peaks, flops = {}, {}
-        for pb in TRAIN_PROBE_BATCHES:
-            x = torch.randn((pb, res, res, 3), generator=gen, device=dev).to(torch.bfloat16)
-            y = torch.randint(0, arch.cfg.num_classes, (pb,), generator=gen, device=dev).to(torch.int32)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero()
-            with recording_train_calls() as prec, FlopCounterMode(display=False) as counter:
-                bundle.fn(state, images=x, labels=y)
-                torch.cuda.synchronize()
-            read()
-            peaks[pb] = torch.cuda.max_memory_allocated()
-            flops[pb] = op_cost().step_flops_of(counter, prec)
-        lo, hi = TRAIN_PROBE_BATCHES
-        per_image = (peaks[hi] - peaks[lo]) / (hi - lo)
-        fixed = peaks[lo] - per_image * lo
-        room = TRAIN_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
-        cell_batch = arch.cells["cls_224"].meta["batch"]
-        batch = cell_batch
-        while batch > lo and fixed + per_image * batch > room:
-            batch //= 2
-        step_flops = flops[lo] / lo * batch
-        del state
-        print(f"  bfloat16 peak memory {peaks[lo] / 1e9:.2f} GB at batch {lo}, {peaks[hi] / 1e9:.2f} GB at {hi}: "
-              f"{per_image / 1e9:.3f} GB an image -> batch {batch}"
-              + (f" (reduced from the cell's {cell_batch}: {(fixed + per_image * cell_batch) / 1e9:.1f} GB "
-                 f"predicted, over {TRAIN_MEM_SHARE} of the card)" if batch < cell_batch else " (the cell's)"))
-        est = ComputeRateEstimator({"h100": 1e14}, alpha=0.5)
-        dts = []
+        # (a) the Functions' gradients at every K1 and K3 signature of that step
+        t1 = time.perf_counter()
+        rows, attn_rows = hold_train_signatures(torch, gen, rec, "float32")
+        rep["k1_grad_rows"], rep["k3_grad_rows"] = rows, attn_rows
+        if attn_rows:
+            rep["k3_grad"] = attn_rows[0]
+        print(f"  {name} float32 holds: {time.perf_counter() - t1:.1f} s")
 
-        def observe(es, fl, dt):
-            dts.append(dt)
-            est.observe(es, fl, dt)
-
-        with tempfile.TemporaryDirectory() as d:
-            trainer, state = cell_trainer(torch, with_batch(arch, batch), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
-                                           compute_observer=observe, es_name="h100", step_flops=step_flops)
-            torch.cuda.reset_peak_memory_stats()
-            zero()
-            state, stats = trainer.run(state, TRAIN_STEPS, resume=False)
-            got = read()
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            check(stats.steps == TRAIN_STEPS and stats.failures == 0, f"{name}'s bf16 run: {stats}")
-            check(all(math.isfinite(v) for v in stats.losses), f"{name}: a non-finite bf16 loss {stats.losses}")
-            check(got[0] == TRAIN_STEPS * want[0] and got[2] == TRAIN_STEPS * want[2]
-                  and got[3] == TRAIN_STEPS * want[3], f"{name}'s bf16 steps launched {got}, {TRAIN_STEPS} x {want}")
-            zero()
-            with recording_train_calls() as brec:
-                busy, parts = step_breakdown(torch, lambda: trainer.step_fn(
-                    state, **trainer.stream.batch_at(TRAIN_STEPS)))
-            read()
-        steady = sorted(dts[1:])
-        step_ms = steady[len(steady) // 2] * 1e3
-        tflops = step_flops / (step_ms / 1e3) / 1e12
-        print(f"  {TRAIN_STEPS} bf16 steps at batch {batch} through the trainer: losses "
-              f"{', '.join(f'{v:.4f}' for v in stats.losses)}; median step {step_ms:.3f} ms (first "
-              f"{dts[0] * 1e3:.1f} ms), {batch / step_ms * 1e3:.1f} images/s, {step_flops / 1e12:.3f} TFLOP a step "
-              f"-> {tflops:.1f} TFLOP/s (the estimator's EWMA {est.rate('h100') / 1e12:.1f}); peak memory "
-              f"{peak_gb:.2f} GB")
-        print("  one profiled bf16 step, device ms by part: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items())
-              + f" (busy {busy:.3f}, idle share {1 - busy / step_ms:.3f} of the median step)")
-        del state, trainer
-        torch.cuda.empty_cache()
-        # that step's K1 and K3 signatures, in bfloat16 at the timed batch
-        bf_rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(brec.convs.items(), key=str)]
-        print_conv_holds(bf_rows, f"bfloat16 at batch {batch}")
-        bf_attn = [dict(hold_attention_grad(torch, gen, *shape, dname), per_step=c)
-                   for (shape, s, dname, causal), c in brec.attns.items()]
-        for row in bf_attn:
-            print(f"  K3's Function held in bfloat16 at [{row['b']}, {row['h']}, {row['t']}, {row['d']}]: max_err "
-                  f"{row['max_abs_err']:.3g} (share {row['limit_share']:.3g})")
-        check(bool(bf_rows) and {r["dtype"] for r in bf_rows} == {"bfloat16"} and all(r["shape"][0] == batch
-                                                                                     for r in bf_rows),
-              f"{name}: the timed step's K1 calls were not bf16 at batch {batch}")
-        rep["bfloat16"] = dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch,
-                               probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}, losses=stats.losses,
-                               step_ms=step_ms, step_ms_all=[v * 1e3 for v in dts], images_per_s=batch / step_ms * 1e3,
-                               step_tflop=step_flops / 1e12, tflops=tflops, estimator_tflops=est.rate("h100") / 1e12,
-                               peak_gb=peak_gb, device_busy_ms=busy, device_ms_by_part=parts,
-                               launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)),
-                               k1_grad_rows=bf_rows, k3_grad_rows=bf_attn)
-        torch.cuda.empty_cache()
+        for cell in TRAIN_CELLS:
+            t1 = time.perf_counter()
+            if cell != "cls_224":
+                rep[cell] = dict(float32_step=vision_f32_signatures(torch, gen, arch, cell, read, zero, per_step))
+            rep.setdefault(cell, {}).update(vision_bf16(torch, gen, arch, cell, read, zero, want,
+                                                        hold=cell == "cls_224"))
+            rep[cell]["s"] = time.perf_counter() - t1
+            print(f"  {name} {cell}: {rep[cell]['s']:.1f} s")
         rep["phase_s"] = time.perf_counter() - t0
         print(f"  {name}: {rep['phase_s']:.1f} s")
 
@@ -4358,7 +4766,7 @@ def phase_train(torch) -> tuple[dict, dict]:
             got = read()
             runs.append((state, stats))
             print(f"  {label} run: {stats.steps} steps, {stats.failures} failures, {stats.restores} restores; "
-                  f"K1 {got[0]} forward / {got[2]} backward, K3 {got[3]}")
+                  f"K1 {got[0]} forward / {got[2]} backward, K3 {got[3]} (forward and recompute)")
         (ref, ref_stats), (faulted, stats) = runs
         batch = vit.cells["cls_224"].meta["batch"]
         equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(faulted)))
@@ -4374,10 +4782,181 @@ def phase_train(torch) -> tuple[dict, dict]:
         report["fault"] = dict(layers=FAULT_LAYERS, batch=batch, steps=FAULT_STEPS, ckpt_every=FAULT_EVERY,
                                faults_at=list(FAULT_AT), failures=stats.failures, restores=stats.restores,
                                bit_identical=equal, s=time.perf_counter() - t0)
+        del runs, ref, faulted, state, trainer
     phase_s = time.perf_counter() - phase_t0
     print(f"  phase 15: {phase_s:.1f} s")
     report["phase_s"] = phase_s
     return report, launches
+
+
+def step_launches(rec) -> tuple[int, int, int, int]:
+    """The launches a recorded train step makes: K1 (forward and recompute),
+    of them depthwise, K1's backward ones (``k1_dgrads``) and K3 (forward
+    and recompute)."""
+    return (sum(rec.convs.values()), sum(c for sig, c in rec.convs.items() if sig[4] > 1), k1_dgrads(rec),
+            sum(rec.attns.values()))
+
+
+def control_pick(rec) -> int:
+    """The index, among a recorded step's forward K1 calls (in order), of
+    the middle one whose signature no checkpoint recomputes, a dense one
+    where there is one (ConvNeXt's depthwise outputs reach the loss through
+    a layer scale of 1e-6: a change there hides under the hold's limit)."""
+    free = [i for i, sig in enumerate(rec.order) if sig not in rec.recomputed]
+    dense = [i for i in free if rec.order[i][4] == 1]
+    check(bool(free), "every K1 call of the step is recomputed: the control has no call to scale")
+    return (dense or free)[len(dense or free) // 2]
+
+
+def hold_train_signatures(torch, gen, rec, dname: str) -> tuple[list, list]:
+    """K1's and K3's Functions held (``hold_conv_grad``, ``hold_attention_grad``)
+    at every signature a recorded step made, in ``dname``, and printed;
+    returns (K1 rows, K3 rows), each with its calls a step."""
+    rows = [dict(hold_conv_grad(torch, gen, sig), per_step=c) for sig, c in sorted(rec.convs.items(), key=str)]
+    print_conv_holds(rows, dname)
+    attn_rows = []
+    for (shape, s, _, causal), c in sorted(rec.attns.items()):
+        row = dict(hold_attention_grad(torch, gen, *shape, dname), per_step=c)
+        attn_rows.append(row)
+        times = (f"; K3 forward {row['forward_device_us']:.2f} us, its plain backward "
+                 f"{row['backward_device_us']:.2f} us a call" if "forward_device_us" in row else "")
+        print(f"  K3's Function held in {dname} at {list(shape)}: max_err {row['max_abs_err']:.3g} (share "
+              f"{row['limit_share']:.3g}){times}, x{c} a step")
+    return rows, attn_rows
+
+
+def vision_f32_signatures(torch, gen, arch, cell: str, read, zero, per_step: tuple) -> dict:
+    """One float32 step of ``cell`` at TRAIN_CHECK_BATCH through the kernels,
+    its launches counted (``per_step``: K1, depthwise, K3), then K1's and
+    K3's Functions held at each of its signatures (``hold_train_signatures``)."""
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.models.common import tree_leaves
+
+    bundle = build(arch, cell, dtype=torch.float32)
+    state, _ = realize(arch, bundle, gen)
+    b, res = TRAIN_CHECK_BATCH, arch.cells[cell].meta["img_res"]
+    images = torch.randn((b, res, res, 3), generator=gen, device=gen.device)
+    labels = torch.randint(0, arch.cfg.num_classes, (b,), generator=gen, device=gen.device).to(torch.int32)
+    zero()
+    with recording_train_calls() as rec:
+        new, metrics = bundle.fn(state, images=images, labels=labels)
+        torch.cuda.synchronize()
+    got, want = read(), step_launches(rec)
+    loss = metrics["loss"].item()
+    print(f"{arch.name} float32 step at batch {b} ({cell}, {res} x {res}): K1 launches {got[0]} (depthwise "
+          f"{got[1]}), {got[2]} backward; K3 {got[3]}; expected {want}; loss {loss:.6g}")
+    check(got == want and (got[0], got[1], got[3]) == per_step, f"{arch.name} {cell}: the step launched {got}")
+    check(math.isfinite(loss) and all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+          f"{arch.name} {cell}: non-finite")
+    del state, new, metrics, images, labels
+    rows, attn_rows = hold_train_signatures(torch, gen, rec, "float32")
+    return dict(batch=b, loss=loss, launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)),
+                k1_grad_rows=rows, k3_grad_rows=attn_rows)
+
+
+def vision_bf16(torch, gen, arch, cell: str, read, zero, per_step: tuple, hold: bool) -> dict:
+    """(c) for one cell: bfloat16 at full width, two probe steps (peak memory
+    up to the update, operations), the batch fitted (``fit_batch``, the
+    trainer's entry state beside), TRAIN_STEPS steps through the
+    fault-tolerant trainer timed, the fit's predicted peak beside the one
+    measured there, one more step profiled by part; with ``hold`` that
+    step's K1 and K3 signatures held in bfloat16.  ``per_step``: a step's
+    launches (``step_launches``)."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.steps import build, realize
+    from repro_torch.core import ComputeRateEstimator
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import FaultConfig
+
+    name, dev = arch.name, gen.device
+    res = arch.cells[cell].meta["img_res"]
+    bundle = build(arch, cell)
+    state, _ = realize(arch, bundle, gen)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    probes = TRAIN_PROBE_BATCHES.get((name, cell), TRAIN_PROBE_BATCHES[cell])
+    peaks, flops = {}, {}
+    for pb in probes:
+        x = torch.randn((pb, res, res, 3), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randint(0, arch.cfg.num_classes, (pb,), generator=gen, device=dev).to(torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        with recording_train_calls() as prec, FlopCounterMode(display=False) as counter, split_peaks(torch) as split:
+            bundle.fn(state, images=x, labels=y)
+            torch.cuda.synchronize()
+        read()
+        peaks[pb] = split["grad"]
+        flops[pb] = op_cost().step_flops_of(counter, prec)
+        del x, y
+    cell_batch = arch.cells[cell].meta["batch"]
+    batch, per, fixed = fit_batch(torch, peaks, probes, cell_batch, extra=state_bytes)
+    predicted = fixed + per * batch + state_bytes
+    step_flops = flops[probes[0]] / probes[0] * batch
+    del state
+    at = ", ".join(f"{peaks[p] / 1e9:.2f} GB at batch {p}" for p in probes)
+    print(f"  {name} {cell} bf16: peak memory up to the update {at}: {per / 1e9:.4f} GB an image, the trainer's "
+          f"entry state {state_bytes / 1e9:.2f} GB -> batch {batch}"
+          + (f" (reduced from the cell's {cell_batch}: {(fixed + per * cell_batch + state_bytes) / 1e9:.1f} GB "
+             f"predicted, over {TRAIN_MEM_SHARE} of the card)" if batch < cell_batch else " (the cell's)"))
+    est = ComputeRateEstimator({"h100": 1e14}, alpha=0.5)
+    dts = []
+
+    def observe(es, fl, dt):
+        dts.append(dt)
+        est.observe(es, fl, dt)
+
+    with tempfile.TemporaryDirectory() as d:
+        trainer, state = cell_trainer(torch, with_batch(arch, batch, cell), FaultConfig(ckpt_dir=d, ckpt_every=10 ** 9),
+                                      cell=cell, compute_observer=observe, es_name="h100", step_flops=step_flops)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        with split_peaks(torch) as split, no_final_checkpoint():
+            state, stats = trainer.run(state, TRAIN_STEPS, resume=False)
+        got = read()
+        measured, update_peak = split["grad"], split["update"]
+        check(stats.steps == TRAIN_STEPS and stats.failures == 0, f"{name} {cell}'s bf16 run: {stats}")
+        check(all(math.isfinite(v) for v in stats.losses), f"{name} {cell}: a non-finite bf16 loss {stats.losses}")
+        check(got == tuple(TRAIN_STEPS * n for n in per_step),
+              f"{name} {cell}'s bf16 steps launched {got}, {TRAIN_STEPS} x {per_step}")
+        zero()
+        with recording_train_calls() as brec:
+            busy, parts = step_breakdown(torch, lambda: trainer.step_fn(state, **trainer.stream.batch_at(TRAIN_STEPS)))
+        read()
+        del state, trainer
+    steady = sorted(dts[1:]) or dts
+    step_ms = steady[len(steady) // 2] * 1e3
+    tflops = step_flops / (step_ms / 1e3) / 1e12
+    fit_share = measured / predicted - 1.0
+    print(f"  {TRAIN_STEPS} bf16 steps at batch {batch} through the trainer: losses "
+          f"{', '.join(f'{v:.4f}' for v in stats.losses)}; median of steps 2-{len(dts)} {step_ms:.3f} ms (all "
+          f"{', '.join(f'{v * 1e3:.1f}' for v in dts)}), {batch / step_ms * 1e3:.1f} images/s, {step_flops / 1e12:.3f} "
+          f"TFLOP a step (remat's second forward counted) -> {tflops:.1f} TFLOP/s (the estimator's EWMA "
+          f"{est.rate('h100') / 1e12:.1f}); peak memory up to the update {measured / 1e9:.2f} GB (the fit predicted "
+          f"{predicted / 1e9:.2f}: {fit_share:+.3f}), in the update {update_peak / 1e9:.2f} GB")
+    if abs(fit_share) > FIT_RTOL:
+        print(f"  the fit's prediction misses the measured peak by more than {FIT_RTOL}: move {cell}'s probes")
+    print("  one profiled bf16 step, device ms by part: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f" (busy {busy:.3f}, idle share {1 - busy / step_ms:.3f} of the median step)")
+    out = dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch, probes=list(probes),
+               probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}, per_image_gb=per / 1e9,
+               entry_state_gb=state_bytes / 1e9, predicted_peak_gb=predicted / 1e9, peak_gb=measured / 1e9,
+               update_peak_gb=update_peak / 1e9, fit_share=fit_share, losses=stats.losses, step_ms=step_ms,
+               step_ms_all=[v * 1e3 for v in dts], images_per_s=batch / step_ms * 1e3, step_tflop=step_flops / 1e12,
+               tflops=tflops, estimator_tflops=est.rate("h100") / 1e12, device_busy_ms=busy,
+               device_ms_by_part=parts, launches=dict(zip(("k1", "k1_depthwise", "k1_backward", "k3"), got)))
+    torch.cuda.empty_cache()
+    if hold:  # that step's K1 and K3 signatures, in bfloat16 at the timed batch
+        bf_rows, bf_attn = hold_train_signatures(torch, gen, brec, "bfloat16")
+        check(bool(bf_rows) and {r["dtype"] for r in bf_rows} == {"bfloat16"}
+              and all(r["shape"][0] == batch for r in bf_rows),
+              f"{name}: the timed step's K1 calls were not bf16 at batch {batch}")
+        out.update(k1_grad_rows=bf_rows, k3_grad_rows=bf_attn)
+        torch.cuda.empty_cache()
+    return out
 
 
 # Phase 16 (``phase_lm_diffusion_train``): LM and diffusion training.  (a)
@@ -4390,7 +4969,9 @@ def phase_train(torch) -> tuple[dict, dict]:
 # TRAIN_CHECK_BATCH.  (c) bf16 through the trainer: Qwen3-4B at all its
 # layers (probes LM_PROBE_BATCHES), the diffusion pair at train_256 (probes
 # DIFF_PROBE_BATCHES), TRAIN16_STEPS timed steps each; one train_1024 step of
-# each (probes DIFF_1024_PROBES).  (d) DeepSeek-V3's loss_fn with the MTP
+# each (probes DIFF_1024_PROBES) at the batch they fit, at most
+# TRAIN_1024_BATCH (for time: DiT-XL/2's 32 took 33 s).  (d) DeepSeek-V3's
+# loss_fn with the MTP
 # module at full width, MTP_TOKENS tokens, its gradient held group by group
 # (MTP_GROUPS: each of the MTP block's expert matrices, then the rest) so
 # that one group's plain gradient fits beside the kernels' whole one.
@@ -4402,8 +4983,8 @@ DIFF_FN_SHAPES = (("unet-sd15 self D=40", 4, 8, 8, 1024, 1024, 40, 40, False),
                   ("unet-sd15 cross D=160", 4, 8, 8, 64, 77, 160, 160, False),
                   ("dit-xl2 D=72", 4, 16, 16, 256, 256, 72, 72, False))
 TIMED_ONLY_SHAPES = (("unet-sd15 self D=40 T=16384", 1, 8, 8, 16384, 16384, 40, 40, False),)
-LM_CHECK_LAYERS, LM_TRAIN_LEN, TRAIN16_STEPS = 4, 4096, 6  # the median of steps 2-6: the first is warm-up
-LM_PROBE_BATCHES, DIFF_PROBE_BATCHES, DIFF_1024_PROBES = (1, 2), (16, 32), (1, 2)
+LM_CHECK_LAYERS, LM_TRAIN_LEN, TRAIN16_STEPS = 4, 4096, 3  # the median of steps 2-3: the first is warm-up
+LM_PROBE_BATCHES, DIFF_PROBE_BATCHES, DIFF_1024_PROBES, TRAIN_1024_BATCH = (1, 2), (16, 32), (1, 2), 8
 MTP_TOKENS = 512
 MTP_GROUPS = ("mtp/block/ffn/experts/w1", "mtp/block/ffn/experts/w3", "mtp/block/ffn/experts/w2", None)
 
@@ -4417,7 +4998,7 @@ def recording_lm_calls(attn_wrap=None):
     from repro_torch.kernels.attention import gqa_flash
     from repro_torch.models import attention as lm_attention
 
-    rec = types.SimpleNamespace(convs=Counter(), attns=Counter(), calls=0)
+    rec = types.SimpleNamespace(convs=Counter(), attns=Counter(), recomputed=Counter(), calls=0)  # no K1 calls
 
     def attn(q, k, v, *, causal):
         b, t, h, d = q.shape
@@ -4677,6 +5258,7 @@ def split_peaks(torch):
         out = real(*args, **kw)
         torch.cuda.synchronize()
         peaks["update"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # a next step's "grad" starts here
         return out
 
     steps.adamw_update = update
@@ -4686,9 +5268,10 @@ def split_peaks(torch):
         steps.adamw_update = real
 
 
-def fit_batch(torch, peaks: dict, probes: tuple, cell_batch: int) -> tuple[int, float, float]:
+def fit_batch(torch, peaks: dict, probes: tuple, cell_batch: int, extra: float = 0.0) -> tuple[int, float, float]:
     """The largest power-of-two cut of ``cell_batch`` whose peak memory up to
     the update (``split_peaks``' "grad"), by a line through the probes',
+    plus ``extra`` bytes held beside the step (a trainer's entry state),
     stays within TRAIN_MEM_SHARE of the card (at least the larger probe):
     (batch, bytes an item, fixed bytes).  The update's own peak does not
     grow with the batch, and the probes ran it."""
@@ -4697,7 +5280,7 @@ def fit_batch(torch, peaks: dict, probes: tuple, cell_batch: int) -> tuple[int, 
     fixed = peaks[lo] - per * lo
     room = TRAIN_MEM_SHARE * torch.cuda.get_device_properties(0).total_memory
     batch = cell_batch
-    while batch > hi and fixed + per * batch > room:
+    while batch > hi and fixed + per * batch + extra > room:
         batch //= 2
     return batch, per, fixed
 
@@ -4812,10 +5395,10 @@ def train_bf16(torch, gen, arch, cell: str, probes: tuple, recorder, unit: str, 
                 device_ms_by_part=parts), recs
 
 
-def one_step_at_fit(torch, gen, arch, cell: str, probes: tuple, recorder) -> tuple[dict, list]:
+def one_step_at_fit(torch, gen, arch, cell: str, probes: tuple, recorder, most: int) -> tuple[dict, list]:
     """One bfloat16 step of ``cell`` at the batch two probe steps' peak
-    memory fits (``fit_batch``): ms a step (host clock to a synchronize) and
-    peak memory.  Returns (report, the recordings)."""
+    memory fits (``fit_batch``), at most ``most``: ms a step (host clock to
+    a synchronize) and peak memory.  Returns (report, the recordings)."""
     from repro_torch.configs.steps import build, realize
 
     bundle = build(arch, cell)
@@ -4837,16 +5420,18 @@ def one_step_at_fit(torch, gen, arch, cell: str, probes: tuple, recorder) -> tup
     for pb in probes:
         peaks[pb] = step(pb)[1]["grad"]
     cell_batch = arch.cells[cell].meta["batch"]
-    batch, per, _ = fit_batch(torch, peaks, probes, cell_batch)
+    fit, per, _ = fit_batch(torch, peaks, probes, cell_batch)
+    batch = min(fit, most)
     ms, split, loss = step(batch)
     peak = max(split.values())
-    print(f"  {arch.name} {cell} bf16: one step at batch {batch} (the cell's {cell_batch}; {per / 1e9:.2f} GB an "
+    print(f"  {arch.name} {cell} bf16: one step at batch {batch} (the cell's {cell_batch}"
+          f"{'' if batch == fit else f', the fit {fit}, reduced for time'}; {per / 1e9:.2f} GB an "
           f"item by the probes at {probes}): {ms:.1f} ms, loss {loss:.4f}, peak memory {peak / 1e9:.2f} GB "
           f"({split['grad'] / 1e9:.2f} up to the update)")
     del state
     settle(torch, f"after {arch.name}'s {cell} step")
-    return dict(batch=batch, cell_batch=cell_batch, reduced=batch < cell_batch, ms=ms, peak_gb=peak / 1e9,
-                loss=loss, probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}), recs
+    return dict(batch=batch, cell_batch=cell_batch, fit_batch=fit, reduced=batch < cell_batch, ms=ms,
+                peak_gb=peak / 1e9, loss=loss, probe_peak_gb={k: v / 1e9 for k, v in peaks.items()}), recs
 
 
 def phase_lm_diffusion_train(torch) -> tuple[dict, dict]:
@@ -5040,7 +5625,8 @@ def phase_lm_diffusion_train(torch) -> tuple[dict, dict]:
         check(n[2] == k3 and n[0] == k1 and n[1] == sum(k1_dgrads(r) for r in recs),
               f"{name}'s bf16 steps launched {n}, recorded K1 {k1}, K3 {k3}")
         report[name]["bfloat16"] = rep_c
-        rep_1024, recs = one_step_at_fit(torch, gen, arch, "train_1024", DIFF_1024_PROBES, recording_train_calls)
+        rep_1024, recs = one_step_at_fit(torch, gen, arch, "train_1024", DIFF_1024_PROBES, recording_train_calls,
+                                         TRAIN_1024_BATCH)
         n = read()
         check(n[2] == sum(sum(r.attns.values()) for r in recs) and n[0] == sum(sum(r.convs.values()) for r in recs),
               f"{name}'s train_1024 steps launched {n}")
@@ -5220,10 +5806,10 @@ def plain_kernels():
 
 # Phase 17 (``phase_scripts``): the script twins, called in-process at full
 # width.  (d) runs
-# train_fault_tolerant_torch on full-width ViT-L/16 (bf16, cls_224) at
-# SCRIPTS_TRAIN_BATCH images (phase 15's fit: the cell's 256 does not fit
-# 80 GB), cut to SCRIPTS_TRAIN_STEPS steps with faults at SCRIPTS_FAULTS_AT
-# and a checkpoint every SCRIPTS_CKPT_EVERY steps.  (e) walks
+# train_fault_tolerant_torch on full-width ViT-L/16 (bf16, cls_224, remat)
+# at SCRIPTS_TRAIN_BATCH images (for time: phase 15 trains the cell's 256),
+# cut to SCRIPTS_TRAIN_STEPS steps with faults at SCRIPTS_FAULTS_AT and a
+# checkpoint every SCRIPTS_CKPT_EVERY steps.  (e) walks
 # precompute_plans_torch's --smoke lattices (3 x 3 halo, 3 scheme points).
 SCRIPTS_TRAIN_BATCH, SCRIPTS_TRAIN_STEPS, SCRIPTS_FAULTS_AT, SCRIPTS_CKPT_EVERY = 128, 12, (5, 10), 4
 SMOKE_LINK_SHIFTS, SMOKE_COMPUTE_SHIFTS = [-1, 0, 1], [-2, -1, 0]
@@ -5413,9 +5999,9 @@ def phase_scripts(torch) -> tuple[dict, dict, list, list]:
     check(chaos.failures == chaos.restores == len(SCRIPTS_FAULTS_AT) and tr["injected"] == list(SCRIPTS_FAULTS_AT),
           f"the chaos run counted {chaos.failures} failures, {chaos.restores} restores, injected {tr['injected']}")
     check(all(math.isfinite(v) for v in ref.losses), f"a non-finite loss {ref.losses}")
-    want_fwd = VISION_LAUNCHES["vit-l16"]
-    check(got[0] == steps_run * want_fwd[0] and got[2] == steps_run * want_fwd[2],
-          f"the twin's {steps_run} steps launched K1 {got[0]} / K3 {got[2]} times, {want_fwd} a step")
+    per_step = [a + b for a, b in zip(VISION_LAUNCHES["vit-l16"], REMAT_LAUNCHES["vit-l16"])]  # forward, recompute
+    check(got[0] == steps_run * per_step[0] and got[2] == steps_run * per_step[2],
+          f"the twin's {steps_run} steps launched K1 {got[0]} / K3 {got[2]} times, {per_step} a step")
     grad_rows = [hold_conv_grad(torch, hgen, sig) for sig in sorted(trec.convs, key=str)]
     attn_rows = [hold_attention_grad(torch, hgen, *shape, dname) for shape, s, dname, causal in sorted(trec.attns)]
     check(grad_rows and attn_rows and all(r["dtype"] == "bfloat16" and r["shape"][0] == SCRIPTS_TRAIN_BATCH
@@ -5430,7 +6016,7 @@ def phase_scripts(torch) -> tuple[dict, dict, list, list]:
         faults_at=list(SCRIPTS_FAULTS_AT), ckpt_every=SCRIPTS_CKPT_EVERY, failures=chaos.failures,
         restores=chaos.restores, steps_run=steps_run, bit_identical=equal, losses=ref.losses,
         ema_step_ms=ref.ema_step_s * 1e3, k1_launches=got[0], k3_launches=got[2],
-        reduced=dict(batch=f"{SCRIPTS_TRAIN_BATCH} of the cell's 256 (phase 15's fit)",
+        reduced=dict(batch=f"{SCRIPTS_TRAIN_BATCH} of the cell's 256 (for time; phase 15 trains at the cell's)",
                      steps=f"{SCRIPTS_TRAIN_STEPS} of the script's 120",
                      faults=f"{list(SCRIPTS_FAULTS_AT)} for the script's [37, 83]",
                      ckpt_every=f"{SCRIPTS_CKPT_EVERY} for the script's 20"),
@@ -5510,6 +6096,7 @@ def main() -> int:
     # phase 16 holds several full-width train states at once: segments that
     # grow keep the allocator's cache from splintering the card's 80 GB
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5570,6 +6157,15 @@ def main() -> int:
               f"stores / loads")
 
     # -- 3. the kernel against its plain version, on the card -----------------
+    clock = time.perf_counter()
+
+    def lap(label: str) -> None:
+        """Prints the seconds since the last lap, as the later phases do."""
+        nonlocal clock
+        now = time.perf_counter()
+        print(f"  {label}: {now - clock:.1f} s")
+        clock = now
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = plan_halp(vgg.FULL.geom(), overlap_rows=4)
     path_shapes = conv_shapes(plan, MAX_BATCH)
@@ -5676,6 +6272,8 @@ def main() -> int:
           + "; ".join(f"b={bw} {len(rs)} shapes, split counts {sorted({r['splits'] for r in rs})}, "
                       f"max_err {max(r['max_abs_err'] for r in rs):.3g}" for bw, rs in by_width.items()))
 
+    lap("phase 3")
+
     # -- 3b. the halo conv against its plain version, on the card -------------
     halo_cases = [dict(c, layout=name) for name, calls in layouts.items() for c in calls
                   if c["kernel"] == "halo_conv2d"]
@@ -5687,6 +6285,8 @@ def main() -> int:
     ]
     halo_rows = [hold_halo_conv(torch, F, gen, dict(dict(per_forward=0, layout=None, bottom="view"), **c))
                  for c in halo_cases]
+
+    lap("phase 3b")
 
     # -- 3c. flash attention against its plain version, on the card ----------
     attn_cases = [dict(b=b, h=h, hkv=h, t=t, s=s, d=d, causal=False, per_forward=c, path="vit")
@@ -5719,6 +6319,8 @@ def main() -> int:
     attn_cases += [dict(mla_attn, t=LM_LEN, s=LM_LEN, causal=True, path="mla-prefill"),
                    dict(mla_attn, t=1, s=DECODE_STEPS + 1, causal=False, path="mla-decode")]
     attn_rows = [hold_attention(torch, F, gen, c) for c in attn_cases]
+
+    lap("phase 3c")
 
     # -- 4. the main path: full-width VGG-16 served through the HALP plan -----
     conv2d_cuda.launches = 0
@@ -5762,6 +6364,8 @@ def main() -> int:
 
     fwd_ms, busy_ms, top, fams = steady_and_profiled(torch, lambda: forward(images), "run_plan")
 
+    lap("phase 4")
+
     # -- 5. the spatial engine: full-width VGG-16 over height shards of one
     # card, fused engine, in the weighted and the equal layout ----------------
     spatial = {}
@@ -5804,6 +6408,8 @@ def main() -> int:
                              plain_depth_max_abs=sp_depth, k2_rows_asked=asked, k2_rows_valid=useful,
                              steady_forward_ms=fwd_sp, device_busy_ms=busy_sp, top_device=top_sp,
                              device_ms_by_kernel=fams_sp)
+
+    lap("phase 5")
 
     # -- 6a. full-width ViT-L/16 through the mixed-scheme plan ----------------
     check(vit_plan.assignment == (SCHEME_HALO,) + (SCHEME_HS,) * 24,
@@ -5902,6 +6508,8 @@ def main() -> int:
     check(b_err <= BF16_RTOL * b_scale, "the bfloat16 ViT drifts from the float32 forward")
     vit_ms, vit_busy, vit_top, vit_fams = steady_and_profiled(torch, vit_forward, "vit run_plan")
 
+    lap("phase 6a")
+
     # -- 6b. full-width VGG-16 with every stage non_penetrative ---------------
     def np_forward():
         return vgg.head(params, run_plan(vgg_np_plan, params["features"], vgg.apply_layer, images))
@@ -5920,6 +6528,8 @@ def main() -> int:
     check(bool((np_err <= 2e-5 * (1 + single.abs())).all()), "the VGG non_penetrative plan is not lossless")
     check(np_depth <= DEPTH_RTOL * scale, "VGG-NP drifts from the plain conv at depth")
     np_ms, np_busy, np_top, np_fams = steady_and_profiled(torch, np_forward, "vgg non_penetrative run_plan")
+
+    lap("phase 6b")
 
     # -- 7. full-width Qwen3-4B: prefill and KV-cache decode ------------------
     phase7_t0 = time.perf_counter()
@@ -6102,6 +6712,9 @@ def main() -> int:
     # -- 19. the kernels' sharding rules on a mesh emulated on the card ---------
     coll_report, coll_launches = phase_collectives(torch)
 
+    # -- 20. the LM cells at their own length, 32,768 tokens ------------------
+    long_report, long_launches = phase_lm_long(torch)
+
     # -- result --------------------------------------------------------------
     # each kernel's numbers summed over one forward of every main path that
     # launches it: run_plan (phase 4) and the two spatial layouts (phase 5);
@@ -6156,7 +6769,8 @@ def main() -> int:
               + sum(mla_launches.values()) + vision_launches["flash_attention"]
               + diff_launches["flash_attention"] + train_launches["flash_attention"]
               + lmd_launches["flash_attention"] + scripts_launches["flash_attention"]
-              + parallel_launches["flash_attention"] + coll_launches["flash_attention"]),
+              + parallel_launches["flash_attention"] + coll_launches["flash_attention"]
+              + long_launches["flash_attention"]),
     ]
     # phase 15's backward: K1's launches in it, and per float32 step at batch
     # 4 the device ms of its parts; K3's plain backward at ViT's shape
@@ -6177,6 +6791,20 @@ def main() -> int:
                 forward_device_us=row["forward_device_us"], sdpa_fwd_bwd_device_us=row["sdpa_fwd_bwd_device_us"])
     kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] + [r["o"]["max_abs_err"] for r in lmd_report["k3_fn"]
                                                                   if "o" in r])
+    # phase 20: K3 at 32,768 tokens -- a layer's causal prefill call (one
+    # sequence) and a decode step's call over the 32,768-slot cache -- beside
+    # SDPA and the bound, device ms a call; the float32 holds of both in the
+    # error
+    kernels[2]["long"] = {name: dict(
+        prefill={dname: {key: long_report[name]["k3_prefill"][dname][key] for key in (
+            "b", "h", "hkv", "t", "block", "device_ms", "library_device_ms", "library_backend", "bound_ms", "bound_by",
+            "max_abs_err")} for dname in ("float32", "bfloat16")},
+        decode={"batch": long_report[name]["decode"]["batch"], **long_report[name]["decode"]["k3"]})
+        for name in LONG_ARCHS}
+    kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]]
+                                    + [long_report[name]["k3_prefill"]["float32"]["max_abs_err"] for name in LONG_ARCHS]
+                                    + [long_report[name]["decode"]["k3"]["max_abs_err"]["float32"]
+                                       for name in LONG_ARCHS])
     # K1's depthwise branch on its own: ConvNeXt-B's and EfficientNet-B7's
     # float32 forwards at batch 4 (every vision hold, bf16 too, in its error)
     dw_main = [r for r in vision_main if r["groups"] > 1]
@@ -6273,7 +6901,7 @@ def main() -> int:
         "diffusion_conv_cases": diff_conv_rows, "diffusion_attention_cases": diff_attn_rows,
         "diffusion_per_forward": diffusion_per_forward, "train": train_report, "lm_diffusion_train": lmd_report,
         "scripts": scripts_report, "scripts_k1_holds": scripts_k1_holds, "scripts_k2_probe": scripts_k2_rows,
-        "parallel": parallel_report, "collectives": coll_report,
+        "parallel": parallel_report, "collectives": coll_report, "lm_long": long_report,
         "k3_per_forward": k3_per_path,
         "k1_per_forward": per_path, "kernels": kernels,
         "note": "in kernels, ms, plain_ms, library_ms and bound_ms are float32 sums over one "
@@ -6310,8 +6938,9 @@ def main() -> int:
                 "launches count each model's counted float32 and bfloat16 forwards at batch 4, gen_fast "
                 "(bf16, batch 16, 4 steps) and gen_1024 (bf16, batch 4, 2 of its 50 steps); max_abs_err "
                 "covers its float32 holds at every signature (bf16 errors are in chip_smoke.json).  Phase 15 "
-                "adds to the launches those of its training steps (ViT-L/16 and EfficientNet-B7 at cls_224: "
-                "one float32 step at batch 4, two probe steps and 10 timed and one profiled bf16 steps each; "
+                "adds to the launches those of its training steps (ViT-L/16, Swin-B, ConvNeXt-B and EfficientNet-B7: "
+                "at cls_224 float32 steps at batch 4 (remat on and off), at cls_384 one, at each cell two probe "
+                "steps and 4 timed and one profiled bf16 steps; "
                 "and every step of the fault-injected pair, replays included), K1's forward and backward (its input gradients at "
                 "stride 1) launches alike; conv2d's backward entry counts the backward ones and gives the "
                 "backward's device ms by part in one profiled float32 step at batch 4 of each model, "
@@ -6334,7 +6963,14 @@ def main() -> int:
                 "the card beside the dry run.  Phase 19 adds the launches of its "
                 "unsharded runs (ViT-L/16's train step, Qwen3-4B's prefill, the U-Net's forward under base and "
                 "spatial2d, ConvNeXt-B's serve_b1 forward) and of their replays on the 8 emulated ranks: 8 K1, K2 "
-                "or K3 launches for each unsharded call.",
+                "or K3 launches for each unsharded call.  Since remat in the vision models, a train step of "
+                "ViT-L/16 launches K3 48 times (24 recomputed) and one of ConvNeXt-B K1 67 times (27 depthwise "
+                "recomputed); phase 15 trains all four vision models at cls_224 and cls_384 (counted: their float32 "
+                "steps at batch 4, remat on and off, the probes, the timed and profiled bfloat16 steps).  Phase 20 "
+                "adds to flash_attention's launches those of its LM prefills (the 4-layer probes and holds, the "
+                "full-depth prefill) and decode steps at 32,768 tokens; flash_attention's long entry gives K3's "
+                "device ms a call there (one sequence's causal prefill call; a decode step's call over the "
+                "32,768-slot cache) beside SDPA's and the bound, and its max_abs_err covers the float32 holds.",
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6346,6 +6982,9 @@ def main() -> int:
         "phase_s")}}))
     print(json.dumps({"phase18": parallel_report}))
     print(json.dumps({"phase19": coll_report}))
+    print(json.dumps({"phase20": {name: {key: long_report[name][key] for key in ("prefill", "decode")}
+                                  for name in LONG_ARCHS}}))
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -98,15 +98,17 @@ def step_flops_of(counter, rec) -> float:
     conv's is counted C times over), plus the recorded convs' forward,
     weight and input gradients and K3's forwards (neither kernel is an
     operator it sees).  What ran counts: under remat the second forward of
-    each checkpointed layer (its products, and its K3 call, recorded
-    again), and the plain K3 backward's five products over every (query,
-    key) pair, masked or not; K3's forwards at the pairs they weigh (the
-    causal half).  The LM's cross-entropy and AdamW are elementwise, not
-    counted."""
+    each checkpointed layer (its products, its K3 and K1 calls, recorded
+    again: a recomputed conv's gradients once, ``rec.recomputed`` counting
+    the second calls), and the plain K3 backward's five products over every
+    (query, key) pair, masked or not; K3's forwards at the pairs they weigh
+    (the causal half).  The LM's cross-entropy and AdamW are elementwise,
+    not counted."""
     library_conv = sum(v for op, v in counter.get_flop_counts()["Global"].items()
                        if "convolution_backward" in str(op))
-    return counter.get_total_flops() - library_conv + 2 * conv_flops(rec) + conv_flops(rec, dgrad=True) \
-        + attn_flops(rec)
+    once = types.SimpleNamespace(convs=rec.convs - rec.recomputed)
+    return counter.get_total_flops() - library_conv + conv_flops(rec) + conv_flops(once) \
+        + conv_flops(once, dgrad=True) + attn_flops(rec)
 
 
 def _nbytes(t) -> int:

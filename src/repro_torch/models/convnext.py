@@ -3,9 +3,12 @@
 
 Every conv goes to K1: the k = s = 4 stem and the k = s = 2 downsamples its
 dense route, the 7x7 depthwise convs its depthwise branch.  JAX scans the
-blocks of a stage of depth >= 6 and unrolls the others; both give the same
-numbers, so every stage here is a Python loop over per-block views of the
-stacked ``[depth, ...]`` tree.
+blocks of a stage of depth >= 6, each under ``jax.checkpoint`` where
+``cfg.remat`` is set, and unrolls the others; here every stage is a Python
+loop over per-block views of the stacked ``[depth, ...]`` tree, and each
+block of a stage of depth >= 6 runs under activation checkpointing
+(:func:`~.common.checkpointed`) where ``cfg.remat`` is set and autograd
+records the forward.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers
+from .common import Params, checkpointed, conv_params, dense_params, layer, norm_params, stack_layers
 from .layers import conv2d, dense, gelu, global_avg_pool, layernorm, softmax_xent
 
 __all__ = ["ConvNeXtConfig", "init", "apply", "loss_fn"]
@@ -28,7 +31,7 @@ class ConvNeXtConfig:
     num_classes: int = 1000
     in_channels: int = 3
     layer_scale: float = 1e-6
-    remat: bool = True  # JAX's training option, kept so configs compare field by field
+    remat: bool = True  # recompute the deep stages' activations in the backward (training)
 
 
 def _block_init(gen: torch.Generator, dim: int, dtype, layer_scale: float, device=None) -> Params:
@@ -77,8 +80,9 @@ def apply(params: Params, cfg: ConvNeXtConfig, x: torch.Tensor) -> torch.Tensor:
     x = conv2d(x, params["stem"], stride=4, padding="VALID")
     x = layernorm(x, params["stem_norm"])
     for si, stage in enumerate(params["stages"]):
+        remat = cfg.remat and cfg.depths[si] >= 6  # the stages JAX scans
         for li in range(cfg.depths[si]):
-            x = _block_apply(layer(stage["blocks"], li), x)
+            x = checkpointed(remat, _block_apply, layer(stage["blocks"], li), x)
         if "down" in stage:
             x = layernorm(x, stage["down_norm"])
             x = conv2d(x, stage["down"], stride=2, padding="VALID")

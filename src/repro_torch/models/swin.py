@@ -6,7 +6,11 @@ the matmuls, the relative-position bias, the ``-1e9`` shift mask and a
 float32 softmax -- as the JAX package left it to XLA: the flash-attention
 kernel takes no additive bias.  Blocks alternate unshifted and shifted
 windows (odd blocks shift), which is also the order of JAX's scanned pairs;
-each stage is a Python loop over per-block views of the stacked tree.
+each stage is a Python loop over per-block views of the stacked tree.  In a
+stage of even depth >= 6, which JAX scans by (regular, shifted) pairs under
+``jax.checkpoint`` where ``cfg.remat`` is set, each pair runs under
+activation checkpointing (:func:`~.common.checkpointed`) where ``cfg.remat``
+is set and autograd records the forward.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
+from .common import Params, checkpointed, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
 from .layers import conv2d, dense, gelu, global_avg_pool, layernorm, scalar_like, softmax_xent
 
 __all__ = ["SwinConfig", "init", "apply", "loss_fn"]
@@ -34,7 +38,7 @@ class SwinConfig:
     mlp_ratio: int = 4
     num_classes: int = 1000
     in_channels: int = 3
-    remat: bool = True  # JAX's training option, kept so configs compare field by field
+    remat: bool = True  # recompute the deep stages' activations in the backward (training)
 
 
 def _block_init(gen: torch.Generator, dim: int, heads: int, window: int, mlp_ratio: int, dtype,
@@ -123,6 +127,11 @@ def _swin_block(p: Params, x: torch.Tensor, heads: int, window: int, shift: int)
     return x + dense(gelu(dense(h2, p["fc1"])), p["fc2"])
 
 
+def _swin_pair(p0: Params, p1: Params, x: torch.Tensor, heads: int, window: int, shift: int) -> torch.Tensor:
+    """A regular block, then a shifted one: one checkpoint of a deep stage."""
+    return _swin_block(p1, _swin_block(p0, x, heads, window, 0), heads, window, shift)
+
+
 def init(gen: torch.Generator, cfg: SwinConfig, dtype=torch.float32, device=None) -> Params:
     """Random parameters from ``gen``, on its device unless ``device`` is
     given (``"meta"``: shapes only)."""
@@ -156,8 +165,14 @@ def apply(params: Params, cfg: SwinConfig, x: torch.Tensor) -> torch.Tensor:
         hcur = x.shape[1]
         shift = cfg.window // 2 if hcur > cfg.window else 0
         win = min(cfg.window, hcur)
-        for li in range(cfg.depths[si]):
-            x = _swin_block(layer(stage["blocks"], li), x, heads, win, shift if li % 2 else 0)
+        depth = cfg.depths[si]
+        if depth >= 6 and depth % 2 == 0:  # the stages JAX scans by pairs
+            for li in range(0, depth, 2):
+                x = checkpointed(cfg.remat, _swin_pair, layer(stage["blocks"], li), layer(stage["blocks"], li + 1), x,
+                                 heads, win, shift)
+        else:
+            for li in range(depth):
+                x = _swin_block(layer(stage["blocks"], li), x, heads, win, shift if li % 2 else 0)
         if "merge" in stage:  # patch merging: 2x2 neighbourhood -> next dim, channels in (dh, dw, c) order
             bb, h, w, c = x.shape
             x = x.reshape(bb, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)

@@ -6,7 +6,9 @@ attention goes through the flash-attention kernel (K3, not causal, scale
 1/sqrt(D)); the Q/K/V, output and MLP products stay ``x @ w``, as the JAX
 package left them to XLA.  The blocks keep JAX's stacked layout (every leaf
 ``[n_layers, ...]``) and run as a Python loop over per-layer views where JAX
-scans under remat: an eager forward needs neither.
+scans; where ``cfg.remat`` is set and autograd records the forward, each
+block runs under activation checkpointing (:func:`~.common.checkpointed`),
+as JAX's ``jax.checkpoint`` over the scanned block.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.attention import flash_attention
-from .common import Params, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
+from .common import Params, checkpointed, conv_params, dense_params, layer, norm_params, stack_layers, trunc_normal
 from .layers import conv2d, dense, gelu, layernorm, softmax_xent
 
 __all__ = ["ViTConfig", "init", "embed", "head", "apply", "loss_fn", "vit_block_init", "vit_block_apply"]
@@ -32,7 +34,7 @@ class ViTConfig:
     d_ff: int = 4096
     num_classes: int = 1000
     in_channels: int = 3
-    remat: bool = True  # JAX's training option, kept so configs compare field by field
+    remat: bool = True  # recompute each block's activations in the backward (training)
 
     @property
     def n_tokens(self) -> int:
@@ -103,7 +105,7 @@ def apply(params: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
     """x [B, H, W, C] -> logits [B, classes]."""
     x = embed(params, cfg, x)
     for i in range(cfg.n_layers):
-        x = vit_block_apply(layer(params["blocks"], i), x, cfg.n_heads)
+        x = checkpointed(cfg.remat, vit_block_apply, layer(params["blocks"], i), x, cfg.n_heads)
     return head(params, x)
 
 

@@ -145,6 +145,31 @@ def test_rejects_a_width_pair_the_kernel_does_not_compile(pair):
     refused(*(torch.from_numpy(a) for a in _qkv(d + dv, (1, 2, 8, d), (1, 2, 8, d), (1, 2, 8, dv))))
 
 
+@pytest.mark.parametrize("b,h", [(1, 65536), (2049, 32), (128, 512)])
+def test_refuses_more_query_heads_than_the_grid_holds(b, h):
+    """B*H is the grid's second dimension, at most 65,535 blocks: a call
+    past it raises before any launch, on a (fake) CUDA tensor as on the
+    CPU; at the LM cells' own size (32 sequences x 32 heads, T = 32,768:
+    1,024) and at the limit itself it does not."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.attention.ops import MAX_GRID_Y, _check
+
+    assert b * h > MAX_GRID_Y == 65535
+    with FakeTensorMode():
+        cell = torch.empty((32, 32, 32768, 128), device="cuda", dtype=torch.bfloat16)
+        _check("flash_attention", cell, cell, cell)
+        q = torch.empty((b, h, 32768, 128), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="65535"):
+            flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="65535"):
+            gqa_flash(*(x.transpose(1, 2) for x in (q, q, q)))
+    q = torch.zeros((1, MAX_GRID_Y, 1, 16))
+    assert flash_attention(q, q, q).shape == q.shape
+    with pytest.raises(ValueError, match="65535"):
+        flash_attention(*(torch.zeros((1, MAX_GRID_Y + 1, 1, 16)),) * 3)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_mla_widths_on_the_cpu_match_the_plain_version(causal):
     """The kernel's (192, 128) pair -- MLA's query/key and value widths -- on

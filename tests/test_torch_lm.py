@@ -83,6 +83,24 @@ def test_apply_rope_matches_jax(theta):
     _close(got, want)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_matches_jax_to_position_32767(theta, d):
+    """Every position of a 32,768-token prefill (the LM cells' length):
+    within ``TOL`` of JAX with no slack for the angle.  The frequencies
+    agree to one float32 step (at theta 1e6, d 128 one of the 64, index
+    37, is one step apart: its angle at 32,767 moves by ~1e-6 rad, and the
+    largest error stays under a fifth of the limit)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 32768, 2, d), dtype=np.float32)
+    pos = np.arange(32768, dtype=np.int32)[None]
+    want_f, got_f = np.asarray(jattn.rope_freqs(d, theta)), attention.rope_freqs(d, theta).numpy()
+    assert np.abs(want_f.view(np.int32) - got_f.view(np.int32)).max() <= 1
+    want = jattn.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = attention.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_and_silu_match_jax(dtype):
     """bfloat16: the same roundings in the same order, so equal bits."""
@@ -379,6 +397,28 @@ def test_mla_build_bundles_match_jax(cell, smoke):
     latent cache spec ([L, 128, 32768, 576] per stack, a tensor, not
     {k, v})."""
     _check_bundles("deepseek-v3-671b", cell, smoke)
+
+
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+def test_codeqwen_full_bundles_match_jax(cell):
+    """CodeQwen1.5-7B (MHA: 32 KV heads) at its full config: the bundle's
+    parameters and inputs on the ``meta`` device against JAX's, and
+    ``init_cache`` at the cell's size and at the batches a card holds
+    against JAX's under ``eval_shape``."""
+    _check_bundles("codeqwen1.5-7b", cell, smoke=False)
+    ja, a = jget("codeqwen1.5-7b"), get("codeqwen1.5-7b")
+    cfg, jcfg = a.cfg, ja.cfg
+    assert (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_head) == (32, 32, 32, 128)
+    meta = a.cells[cell].meta
+    assert meta["seq_len"] == 32768 == ja.cells[cell].meta["seq_len"]
+    for batch in (meta["global_batch"], 1, 2):
+        for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            got = lm.init_cache(cfg, batch, meta["seq_len"], dt, device="meta")
+            want = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, meta["seq_len"], jdt))
+            assert sorted(got) == sorted(want) == ["dense"]
+            for k in ("k", "v"):
+                assert tuple(got["dense"][k].shape) == want["dense"][k].shape == (32, batch, 32768, 32, 128)
+                assert got["dense"][k].dtype == dt and want["dense"][k].dtype == jdt
 
 
 @pytest.mark.parametrize("jname", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
